@@ -1,0 +1,3 @@
+"""The port's hand-written CUDA kernels, each beside its plain PyTorch
+version. A wrapper takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches its kernel or raises."""
