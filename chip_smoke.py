@@ -13,11 +13,14 @@ the final line:
   2. build: every kernel of the port compiled from `sheeprl_tpu_torch/csrc/`
      with nvcc for sm_90a, one nvcc per source, started together;
   3. kernels: each kernel against its plain PyTorch version at the shapes
-     the serving path gives it (and the GRU at training batch 1024), in
+     the serving path gives it (and the GRU at training batch 1024), and
+     the training path's kernels at its shapes (the residual GRU at B = 16
+     and 1,024, the residual conv and the deconv at N = 1,024 for every
+     encoder and decoder stage, two_hot at N = 1,024 and 15,360), in
      float32 and bfloat16, with CUDA-event times for the kernel, the plain
      version and a library yardstick the port never calls, and the bound
      from bytes (3.35 TB/s) and operations (67 TFLOP/s f32, 989 TFLOP/s
-     bf16);
+     bf16); each backward against autograd through the plain version;
   4. slice: `sheeprl_tpu_torch serve --algo dreamer_v3` at DreamerV3's full
      default width on `discrete_dummy` pixels, rungs 1/2/4/8, 1,024 timed
      requests from 8 concurrent sessions (some with `reset`) after one
@@ -27,7 +30,15 @@ the final line:
      versions on the card;
   5. profile: host wall time of direct player steps at rungs 1 and 8, and a
      torch.profiler window over rung-8 steps (the kernels' device time, the
-     device's busy share, and a chrome trace).
+     device's busy share, and a chrome trace);
+  6. train: `sheeprl_tpu_torch dreamer_v3` at DreamerV3's full default width
+     (T = 64, B = 16, horizon 15, float32) on `discrete_dummy` pixels: 64
+     random steps, then 8 player steps and 10 gradient steps. Losses must
+     stay finite, every model must move, the launch counts must be 79
+     residual GRU, 4 residual conv, 3 deconv and 3 two_hot per gradient
+     step and 1 GRU and 4 conv per player step, and one gradient step must
+     match the same step with the plain versions on the card. Then a
+     torch.profiler window over two gradient steps (busy share, trace).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 `{"ok": true, "device": {...}}` as the last line. Detailed results (report.json,
@@ -39,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -53,6 +65,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside the tensor cores; bf16 dense
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # atol and rtol of kernel vs plain version
 TIMED_LAUNCHES = 60
+# one full-width gradient step, kernels vs plain versions: f32 sums in other
+# orders through 64 recurrent steps and 15 imagination steps
+TRAIN_METRIC_RTOL, TRAIN_METRIC_ATOL = 1e-3, 1e-4
 # 1,024 timed requests: p99 then has about ten samples beyond it
 SERVE_SESSIONS, SERVE_PER_SESSION = 8, 128
 SERVE_MODEL = "--env_id discrete_dummy --cnn_keys rgb"  # DreamerV3's defaults: full width
@@ -201,11 +216,216 @@ def check_conv(torch, F, cnn, n, stage, dtype, gen):
                 bytes=nbytes, flops=flops)
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the training slice's kernels: each forward against its plain
+# version and each backward against autograd through the plain version
+# ---------------------------------------------------------------------------
+
+DECONV_STAGES = [(256, 128, 4), (128, 64, 8), (64, 32, 16)]  # DreamerV3 decoder at width 32
+TRAIN_N = 1024  # T * B = 64 * 16 images or rows per gradient step
+TWO_HOT_ROWS = (1024, 15360)  # reward loss (T*B) and critic loss (H*T*B)
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def check_case(torch, kernel, shape, dtype_name, run, plain, counter, nbytes, flops, library=None):
+    """One kernel launch against its plain version on the same inputs (every
+    output compared), then CUDA-event times of the kernel, the plain
+    version and the library yardstick."""
+    before = counter()
+    got = _flat(run())
+    torch.cuda.synchronize()
+    if counter() != before + 1:
+        raise RuntimeError(f"{kernel} did not count its launch")
+    want = _flat(plain())
+    errs = [errors(torch, g, w, dtype_name if g.dtype != torch.float32 else "float32") for g, w in zip(got, want)]
+    ms = device_ms(torch, run)
+    plain_ms = device_ms(torch, plain)
+    library_ms = device_ms(torch, library) if library is not None else None
+    bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+    return dict(kernel=kernel, shape=shape, dtype=dtype_name, max_abs_err=max(e[0] for e in errs),
+                max_rel_err=max(e[1] for e in errs), within_tol=all(e[2] for e in errs), tol=TOL[dtype_name],
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops)
+
+
+def check_backward(torch, kernel, shape, dtype_name, fn, plain, inputs, grad_mask, gen):
+    """Gradients of `fn` (the kernel's autograd.Function) against autograd
+    through the plain version, for the same inputs and cotangent. A weight
+    or affine gradient is a sum over up to a million pixels, which cancels:
+    each gradient's largest deviation is held against its largest
+    magnitude (tolerance TOL of the working dtype), not element by element."""
+    def grads(f):
+        leaves = [t.detach().clone().requires_grad_(m) for t, m in zip(inputs, grad_mask)]
+        out = f(*leaves)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(out.device, out.dtype)
+        return torch.autograd.grad(out, [t for t in leaves if t.requires_grad], cot)
+
+    got, want = grads(fn), grads(plain)
+    torch.cuda.synchronize()
+    max_abs, norm_err, finite = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        max_abs = max(max_abs, diff)
+        norm_err = max(norm_err, diff / max(float(w.float().abs().max()), 1e-30))
+        finite = finite and bool(torch.isfinite(g).all())
+    return dict(kernel=kernel + " backward", shape=shape, dtype=dtype_name, max_abs_err=max_abs,
+                max_rel_err=norm_err, within_tol=finite and norm_err <= TOL[dtype_name], tol=TOL[dtype_name])
+
+
+def fmt_backward(r: dict) -> str:
+    return (f"  {r['kernel']:<28} {r['shape']:<42} {r['dtype']:<8} max_abs={r['max_abs_err']:.3e} "
+            f"max_abs/max|plain|={r['max_rel_err']:.3e} tol={r['tol']:g} ok={r['within_tol']}")
+
+
+def train_kernel_checks(torch, F, gen, log_row):
+    """The training slice's kernels at its shapes, in float32 and bfloat16:
+    the residual GRU (B = 16 scan, 1,024 imagination), the residual conv
+    (the four encoder stages at N = 1,024), the deconv (the three decoder
+    stages at N = 1,024, with and without residuals) and two_hot (N = 1,024
+    and 15,360), each backward too. -> (forward rows, backward rows)."""
+    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
+
+    dev = torch.device("cuda")
+    rows, back = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        item = torch.empty((), dtype=dtype).element_size()
+        for batch in (16, TRAIN_N):
+            hidden = dx = 512
+            k, n = dx + hidden, 3 * hidden
+            x = torch.randn(batch, dx, generator=gen).to(dev, dtype)
+            h = torch.tanh(torch.randn(batch, hidden, generator=gen)).to(dev, dtype)
+            w = (torch.randn(n, k, generator=gen) * (2.0 / (k + n)) ** 0.5).to(dev, dtype)
+            scale = (1.0 + 0.1 * torch.randn(n, generator=gen)).to(dev)
+            offset = (0.1 * torch.randn(n, generator=gen)).to(dev)
+            args = (x, h, w, scale, offset, 1e-5)
+
+            def library(x=x, h=h, w=w, scale=scale, offset=offset, n=n, dtype=dtype):
+                parts = F.layer_norm(torch.matmul(torch.cat([x, h], dim=-1), w.t()).float(), (n,), scale, offset, 1e-5)
+                r, c, u = parts.chunk(3, dim=-1)
+                upd = torch.sigmoid(u - 1.0)
+                return (upd * torch.tanh(torch.sigmoid(r) * c) + (1.0 - upd) * h.float()).to(dtype)
+
+            shape = f"B={batch} x[{batch},{dx}] h[{batch},{hidden}] w[{n},{k}]"
+            nbytes = item * (x.numel() + h.numel() + w.numel() + batch * hidden) + 4 * (2 * n + batch * (n + 1))
+            rows.append(check_case(
+                torch, "layernorm_gru_cell_residuals", shape, name,
+                lambda a=args: gru.layernorm_gru_cell_residuals(*a),
+                lambda a=args: gru.layernorm_gru_cell_residuals_plain(*a),
+                lambda: gru.layernorm_gru_cell_residuals.launches, nbytes, 2.0 * batch * k * n, library))
+            log_row(rows[-1])
+            back.append(check_backward(torch, "layernorm_gru_cell", shape, name,
+                                       lambda *t: gru.layernorm_gru_cell(*t, 1e-5),
+                                       lambda *t: gru.layernorm_gru_cell_plain(*t, 1e-5),
+                                       args[:5], (True,) * 5, gen))
+            log_row(back[-1])
+        for cin, cout, size in STAGES:
+            if cin == 3:
+                x = torch.rand(TRAIN_N, size, size, cin, generator=gen)
+            else:
+                x = F.silu(torch.randn(TRAIN_N, size, size, cin, generator=gen))
+            x = x.to(dev, dtype)
+            w = (torch.randn(4, 4, cin, cout, generator=gen) * (2.0 / (16 * (cin + cout))) ** 0.5).to(dev, dtype)
+            scale = (1.0 + 0.1 * torch.randn(cout, generator=gen)).to(dev)
+            offset = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+            args = (x, w, scale, offset, 1e-3)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+            def library(x=x, w_oihw=w_oihw, scale=scale, offset=offset, cout=cout, dtype=dtype):
+                y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=2, padding=1)
+                y = F.layer_norm(y.permute(0, 2, 3, 1).float(), (cout,), scale, offset, 1e-3)
+                return F.silu(y).to(dtype)
+
+            pixels = TRAIN_N * (size // 2) ** 2
+            shape = f"N={TRAIN_N} {cin}->{cout} @{size}x{size}"
+            nbytes = item * (x.numel() + w.numel() + pixels * cout) + 4 * (2 * cout + pixels * cout)
+            rows.append(check_case(
+                torch, "conv_ln_silu_residuals", shape, name,
+                lambda a=args: cnn.conv_ln_silu_residuals(*a),
+                lambda a=args: cnn.conv_ln_silu_residuals_plain(*a),
+                lambda: cnn.conv_ln_silu_residuals.launches, nbytes, 2.0 * pixels * cout * 16 * cin, library))
+            log_row(rows[-1])
+            back.append(check_backward(torch, "conv_ln_silu", shape, name,
+                                       lambda *t: cnn.conv_ln_silu(*t, 1e-3),
+                                       lambda *t: cnn.conv_ln_silu_plain(*t, 1e-3),
+                                       args[:4], (True,) * 4, gen))
+            log_row(back[-1])
+        for cin, cout, size in DECONV_STAGES:
+            x = F.silu(torch.randn(TRAIN_N, size, size, cin, generator=gen)).to(dev, dtype)
+            k = (torch.randn(4, 4, cin, cout, generator=gen) * (2.0 / (16 * (cin + cout))) ** 0.5).to(dev, dtype)
+            scale = (1.0 + 0.1 * torch.randn(cout, generator=gen)).to(dev)
+            offset = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+            args = (x, k, scale, offset, 1e-3)
+            kk = deconv.phase_kernel(k).contiguous()
+
+            def library(x=x, kk=kk, scale=scale, offset=offset, cout=cout, size=size, dtype=dtype):
+                ph = F.conv2d(x.permute(0, 3, 1, 2), kk, padding=1).permute(0, 2, 3, 1)
+                ph = ph.reshape(TRAIN_N, size + 1, size + 1, 2, 2, cout)
+                row0 = torch.stack([ph[:, :size, :size, 0, 0], ph[:, :size, 1:, 0, 1]], dim=3)
+                row1 = torch.stack([ph[:, 1:, :size, 1, 0], ph[:, 1:, 1:, 1, 1]], dim=3)
+                y = torch.stack([row0, row1], dim=2).reshape(TRAIN_N, 2 * size, 2 * size, cout)
+                return F.silu(F.layer_norm(y.float(), (cout,), scale, offset, 1e-3)).to(dtype)
+
+            pixels = TRAIN_N * (2 * size) ** 2
+            shape = f"N={TRAIN_N} {cin}->{cout} @{size}x{size}->{2 * size}x{2 * size}"
+            nbytes = item * (x.numel() + k.numel() + pixels * cout) + 4 * (2 * cout + pixels * cout)
+            flops = 2.0 * pixels * cout * 4 * cin
+            with torch.no_grad():  # the plain forward, without residuals
+                rows.append(check_case(
+                    torch, "deconv_ln_silu", shape + " fwd", name,
+                    lambda a=args: deconv.deconv_ln_silu(*a),
+                    lambda a=args: deconv.deconv_ln_silu_plain(*a),
+                    lambda: deconv.deconv_ln_silu.launches, nbytes - 4 * pixels * cout, flops, library))
+            log_row(rows[-1])
+            rows.append(check_case(
+                torch, "deconv_ln_silu", shape, name,
+                lambda a=args: deconv.deconv_ln_silu_residuals(*a),
+                lambda a=args: deconv.deconv_ln_silu_residuals_plain(*a),
+                lambda: deconv.deconv_ln_silu.launches, nbytes, flops, library))
+            log_row(rows[-1])
+            back.append(check_backward(torch, "deconv_ln_silu", shape, name,
+                                       lambda *t: deconv.deconv_ln_silu(*t, 1e-3),
+                                       lambda *t: deconv.deconv_ln_silu_plain(*t, 1e-3),
+                                       args[:4], (True,) * 4, gen))
+            log_row(back[-1])
+        bins = torch.linspace(-20.0, 20.0, 255)[None].to(dev)
+        for n_rows in TWO_HOT_ROWS:
+            vals = 6.0 * torch.randn(n_rows, 1, generator=gen)
+            vals[::7] = 25.0 * torch.sign(vals[::7])  # beyond the edge bins
+            vals[3::11] = bins[0, 100 + torch.arange(vals[3::11].shape[0]) % 50].cpu()[:, None]  # on a bin
+            x = vals.to(dev)
+            logits = (2.0 * torch.randn(n_rows, 255, generator=gen)).to(dev, dtype)
+            target = two_hot.two_hot(x[:, 0], bins[0])
+
+            def library(logits=logits, target=target):
+                return F.cross_entropy(logits.float(), target, reduction="none")
+
+            shape = f"N={n_rows} K=255"
+            nbytes = item * logits.numel() + 4 * (2 * n_rows + 255)
+            rows.append(check_case(
+                torch, "two_hot_log_prob", shape, name,
+                lambda x=x, logits=logits: two_hot.two_hot_log_prob(x, logits, bins),
+                lambda x=x, logits=logits: two_hot.two_hot_log_prob_plain(x, logits, bins),
+                lambda: two_hot.two_hot_log_prob.launches, nbytes, 5.0 * logits.numel(), library))
+            log_row(rows[-1])
+            back.append(check_backward(torch, "two_hot_log_prob", shape, name,
+                                       two_hot.two_hot_log_prob, two_hot.two_hot_log_prob_plain,
+                                       (x, logits, bins), (False, True, False), gen))
+            log_row(back[-1])
+    return rows, back
+
+
 def fmt(r: dict) -> str:
+    if "ms" not in r:
+        return fmt_backward(r)
+    library = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
     return (
-        f"  {r['kernel']:<19} {r['shape']:<42} {r['dtype']:<8} max_abs={r['max_abs_err']:.3e} "
+        f"  {r['kernel']:<28} {r['shape']:<42} {r['dtype']:<8} max_abs={r['max_abs_err']:.3e} "
         f"max_rel={r['max_rel_err']:.3e} tol={r['tol']:g} ok={r['within_tol']} "
-        f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
+        f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={library} "
         f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
     )
 
@@ -363,7 +583,7 @@ def profile_steps(torch, np, device, steps: int = 20):
     prof.export_chrome_trace(os.path.join(OUT_DIR, "trace_rung8.json"))
     kernels: dict[str, list] = {}
     for e in prof.events():  # device-side events only: the kernels themselves
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             row = kernels.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
@@ -374,6 +594,145 @@ def profile_steps(torch, np, device, steps: int = 20):
                device_busy_share=device_ms / out["step_ms_rung8"],
                top=[dict(name=k, ms_per_step=ms / steps, calls_per_step=c / steps) for k, ms, c in rows[:12]])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training slice
+# ---------------------------------------------------------------------------
+
+# DreamerV3's defaults (full width, T = 64, B = 16, horizon 15, float32) on
+# discrete_dummy pixels: 64 random-action steps fill one env's ring, then
+# each of 8 player steps is followed by a gradient step (2 at the first)
+TRAIN_STEPS, TRAIN_STARTS, PRETRAIN = 72, 64, 2
+TRAIN_ARGV = ["dreamer_v3", "--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--num_envs", "1",
+              "--buffer_size", "256", "--learning_starts", str(TRAIN_STARTS), "--train_every", "1",
+              "--pretrain_steps", str(PRETRAIN), "--total_steps", str(TRAIN_STEPS)]
+# launches per gradient step (T = 64 scan steps + H = 15 imagination steps;
+# 4 encoder stages; 3 decoder stages; the reward loss and the critic's two)
+PER_GRADIENT_STEP = {"layernorm_gru_cell_residuals": 79, "conv_ln_silu_residuals": 4,
+                     "deconv_ln_silu": 3, "two_hot_log_prob": 3}
+PER_PLAYER_STEP = {"layernorm_gru_cell": 1, "conv_ln_silu": 4}
+
+
+def train_counters():
+    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
+
+    return {"layernorm_gru_cell": gru.layernorm_gru_cell, "layernorm_gru_cell_residuals": gru.layernorm_gru_cell_residuals,
+            "conv_ln_silu": cnn.conv_ln_silu, "conv_ln_silu_residuals": cnn.conv_ln_silu_residuals,
+            "deconv_ln_silu": deconv.deconv_ln_silu, "two_hot_log_prob": two_hot.two_hot_log_prob}
+
+
+def drive_train(run, root_dir: str) -> tuple[dict, list, dict]:
+    """`python -m sheeprl_tpu_torch dreamer_v3` through the CLI entry point,
+    in this process, with every launch count set to 0 just before. ->
+    (launches, per-training records, the final record)."""
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    run([*TRAIN_ARGV, "--root_dir", root_dir, "--run_name", "train"])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    with open(os.path.join(root_dir, "train", "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    return launches, records[:-1], records[-1]
+
+
+def _train_setup(torch, np, device):
+    """A full-width DreamerV3 train state built by the package's own
+    functions, one [T, B] batch of random pixels and the step's Gumbel
+    noise, all from fixed seeds."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.moments import Moments
+
+    args = DreamerV3Args()
+    space = {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}
+    wm, actor, critic, target = build_models(torch.Generator().manual_seed(0), [2], False, args, space, ["rgb"], [])
+    for m in (wm, actor, critic, target):
+        m.to(device)
+    state = dv3.DV3TrainState(wm, actor, critic, target, *dv3.make_optimizers(args, wm, actor, critic),
+                              Moments(args.moments_decay, args.moment_max))
+    T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+    rng = np.random.default_rng(0)
+    dones = np.zeros((T, B, 1), np.float32)
+    is_first = np.zeros((T, B, 1), np.float32)
+    dones[4::5, ::3], is_first[5::5, ::3] = 1.0, 1.0  # dummy-env episodes end every fifth step
+    batch = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8),
+             "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))],
+             "rewards": rng.normal(size=(T, B, 1)).astype(np.float32), "dones": dones, "is_first": is_first}
+    data = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    noise = dv3.draw_noise(args, T, B, [2], torch.Generator(device=device).manual_seed(1), device)
+    step = dv3.make_train_step(args, ["rgb"], [], [2], False)
+    return args, state, data, noise, step
+
+
+def train_plain_check(torch, np, device):
+    """One full-width gradient step with the kernels against the same step
+    (same weights, batch and noise) with every kernel call of the modules
+    pointed at its plain version, on the card. -> (metrics with kernels,
+    metrics with the plain versions, the largest parameter difference per
+    model over its tolerance 2*lr + 1e-6)."""
+    import copy
+
+    import sheeprl_tpu_torch.nn.blocks as blocks_mod
+    import sheeprl_tpu_torch.nn.recurrent as recurrent_mod
+    import sheeprl_tpu_torch.ops.distributions as dist_mod
+    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
+
+    args, state, data, noise, step = _train_setup(torch, np, device)
+    plain_state = copy.deepcopy(state)
+    counters = train_counters()
+    kernel_metrics = step(state, data, 1.0, noise)
+    saved = (blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu, recurrent_mod.layernorm_gru_cell,
+             dist_mod.two_hot_log_prob)
+    blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu = cnn.conv_ln_silu_plain, deconv.deconv_ln_silu_plain
+    recurrent_mod.layernorm_gru_cell, dist_mod.two_hot_log_prob = gru.layernorm_gru_cell_plain, two_hot.two_hot_log_prob_plain
+    before = {k: fn.launches for k, fn in counters.items()}
+    try:
+        plain_metrics = step(plain_state, data, 1.0, noise)
+    finally:
+        (blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu, recurrent_mod.layernorm_gru_cell,
+         dist_mod.two_hot_log_prob) = saved
+    if {k: fn.launches for k, fn in counters.items()} != before:
+        raise RuntimeError("the plain-version step launched a kernel")
+    param_err = {}
+    for name, lr in (("world_model", args.world_lr), ("actor", args.actor_lr), ("critic", args.critic_lr)):
+        a, b = getattr(state, name).state_dict(), getattr(plain_state, name).state_dict()
+        param_err[name] = max(float((a[k] - b[k]).abs().max()) for k in a) / (2 * lr + 1e-6)
+    return kernel_metrics, plain_metrics, param_err
+
+
+def profile_train(torch, np, device, steps: int = 2):
+    """Where a gradient step's time goes: host wall of `steps` synchronized
+    gradient steps, then a torch.profiler window over as many more; the
+    busy share is the kernels' device time over the unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, state, data, noise, step = _train_setup(torch, np, device)
+    step(state, data, 1.0, noise)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, data, 0.02, noise)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, data, 0.02, noise)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace_train.json"))
+    kernels: dict[str, list] = {}
+    for e in prof.events():  # kernels only: an optimizer's annotation range overlaps its kernels
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            row = kernels.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    rows = sorted(((k, ms, c) for k, (ms, c) in kernels.items()), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows) / steps
+    return dict(step_ms=wall_ms, device_ms_per_step=device_ms, device_busy_share=device_ms / wall_ms,
+                launches_per_step=sum(r[2] for r in rows) / steps,
+                top=[dict(name=k, ms_per_step=ms / steps, calls_per_step=c / steps) for k, ms, c in rows[:15]])
 
 
 def main() -> int:
@@ -435,17 +794,21 @@ def main() -> int:
             for stage in STAGES:
                 results.append(check_conv(torch, F, cnn, n, stage, dtype, gen))
                 log("[kernels]" + fmt(results[-1]))
+    train_rows, backward_rows = train_kernel_checks(torch, F, gen, lambda r: log("[kernels]" + fmt(r)))
+    results += train_rows
     report["kernel_checks"] = results
-    bad = [r for r in results if not r["within_tol"]]
+    report["backward_checks"] = backward_rows
+    bad = [r for r in results + backward_rows if not r["within_tol"]]
     if bad:
-        raise RuntimeError(f"{len(bad)} kernel checks out of tolerance: {[r['shape'] for r in bad]}")
-    log(f"[kernels] layernorm_gru_cell ok, conv_ln_silu ok: {len(results)} checks within tolerance")
+        raise RuntimeError(f"{len(bad)} kernel checks out of tolerance: "
+                           f"{[(r['kernel'], r['shape'], r['dtype']) for r in bad]}")
+    log(f"[kernels] {len(results)} forward and {len(backward_rows)} backward checks within tolerance")
 
     # -- phase 4: the served slice ---------------------------------------------
     root_dir = os.path.join(OUT_DIR, "serve_logs")
     shutil.rmtree(root_dir, ignore_errors=True)  # a stale serve_address would be dialled
-    gru.layernorm_gru_cell.launches = 0
-    cnn.conv_ln_silu.launches = 0
+    for fn in train_counters().values():
+        fn.launches = 0
     plans, answers, latencies, wall, warmups = drive_serve(np, run, ServeClient, root_dir)
     launches = {"layernorm_gru_cell": gru.layernorm_gru_cell.launches,
                 "conv_ln_silu": cnn.conv_ln_silu.launches}
@@ -487,29 +850,6 @@ def main() -> int:
                            latencies_ms=latencies, server_gauges=gauges,
                            plain_check=dict(recurrent_max_abs=rec_err, stochastic_max_abs=sto_err))
 
-    # -- the kernels line: main-path shapes (rung 8, float32) -------------------
-    def main_path(kernel):
-        return [r for r in results if r["kernel"] == kernel and r["dtype"] == "float32"
-                and (r["shape"].startswith("B=8 ") or r["shape"].startswith("N=8 "))]
-
-    kernels = []
-    for kernel, source, replaces in (
-        ("layernorm_gru_cell", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/ops/pallas_kernels.py:224"),
-        ("conv_ln_silu", "sheeprl_tpu_torch/csrc/conv_ln_silu.cu", "sheeprl_tpu/ops/pallas_cnn.py:177"),
-    ):
-        rows = main_path(kernel)  # the GRU's one launch, or the four encoder stages of one step
-        t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(r["flops"] for r in rows) / PEAK_FLOPS["float32"] * 1e3
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kernel],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in rows),
-        })
-    report["kernels"] = kernels
-
     # -- phase 5: where a served step's time goes ------------------------------
     prof = profile_steps(torch, np, torch.device("cuda"))
     log(f"[profile] host wall per step: rung 1 {prof['step_ms_rung1']:.3f} ms, rung 8 "
@@ -519,6 +859,98 @@ def main() -> int:
     for row in prof["top"]:
         log(f"[profile]   {row['ms_per_step']:.4f} ms x{row['calls_per_step']:.0f}  {row['name'][:90]}")
     report["profile"] = prof
+
+    # -- phase 6: the training slice ---------------------------------------------
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
+
+    train_root = os.path.join(OUT_DIR, "train_logs")
+    shutil.rmtree(train_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_launches, records, done = drive_train(run, train_root)
+    train_wall = time.perf_counter() - t0
+    grad_steps, player_steps = done["gradient_steps"], done["player_steps"]
+    finite = all(math.isfinite(r[k]) for r in records for k in METRICS)
+    moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+    expected = {k: n * grad_steps for k, n in PER_GRADIENT_STEP.items()}
+    expected.update({k: n * player_steps for k, n in PER_PLAYER_STEP.items()})
+    step_ms = sorted(done["train_step_ms"][1:])  # the first step pays for cuDNN's plans
+    step_ms_median = step_ms[len(step_ms) // 2]
+    log(f"[train] {' '.join(TRAIN_ARGV)}: {grad_steps} gradient steps, {player_steps} player steps, "
+        f"{done['env_steps']} env steps in {train_wall:.1f} s; losses finite: {finite}; parameter "
+        f"change (L2) {moved}; launches {train_launches}")
+    log(f"[train] host wall per gradient step: median {step_ms_median:.2f} ms over {len(step_ms)} steps "
+        f"(first {done['train_step_ms'][0]:.1f} ms); env steps/s while the player acts: "
+        f"{done['policy_env_steps_per_s']:.1f}; last losses " + ", ".join(
+            f"{k.split('/')[1]}={records[-1][k]:.4g}" for k in METRICS if k.startswith("Loss/")))
+    if grad_steps < 8 or not finite or min(moved.values()) <= 0:
+        raise RuntimeError("the training run took fewer than 8 gradient steps, lost finiteness or moved nothing")
+    if train_launches != expected:
+        raise RuntimeError(f"launch counts {train_launches} != {expected} for {grad_steps} gradient steps "
+                           f"and {player_steps} player steps")
+    kernel_m, plain_m, param_err = train_plain_check(torch, np, torch.device("cuda"))
+    metric_bad = [k for k in METRICS
+                  if abs(kernel_m[k] - plain_m[k]) > TRAIN_METRIC_ATOL + TRAIN_METRIC_RTOL * abs(plain_m[k])]
+    log("[train] one gradient step with the kernels vs the plain versions on the card (metric tolerance "
+        f"rtol {TRAIN_METRIC_RTOL:g} atol {TRAIN_METRIC_ATOL:g}; parameters 2*lr + 1e-6): " + ", ".join(
+            f"{k.split('/')[1]} {kernel_m[k]:.6g}/{plain_m[k]:.6g}" for k in METRICS)
+        + f"; parameter difference over tolerance {param_err}")
+    if metric_bad or max(param_err.values()) > 1.0:
+        raise RuntimeError(f"the kernel step disagrees with the plain-version step: {metric_bad} {param_err}")
+    prof_t = profile_train(torch, np, torch.device("cuda"))
+    log(f"[train-profile] 2 gradient steps: host wall {prof_t['step_ms']:.2f} ms a step, device time "
+        f"{prof_t['device_ms_per_step']:.2f} ms a step in {prof_t['launches_per_step']:.0f} launches, "
+        f"busy share {prof_t['device_busy_share']:.3f}")
+    for row in prof_t["top"]:
+        log(f"[train-profile]   {row['ms_per_step']:.4f} ms x{row['calls_per_step']:.0f}  {row['name'][:90]}")
+    report["train"] = dict(argv=TRAIN_ARGV, launches=train_launches, expected=expected, records=records, done=done,
+                           step_ms_median=step_ms_median, plain_check=dict(kernel=kernel_m, plain=plain_m,
+                                                                            param_err=param_err),
+                           profile=prof_t)
+
+    # -- the kernels line: each kernel's work in one step of its path ------------
+    def rows_of(kernel, shapes):
+        return [(r, w) for shape, w in shapes for r in results
+                if r["kernel"] == kernel and r["dtype"] == "float32" and r["shape"] == shape]
+
+    deconv_shapes = [(f"N={TRAIN_N} {cin}->{cout} @{sz}x{sz}->{2 * sz}x{2 * sz}", 1) for cin, cout, sz in DECONV_STAGES]
+    per_step = {
+        # a served rung-8 step: one GRU launch, the four encoder stages
+        "layernorm_gru_cell": rows_of("layernorm_gru_cell", [("B=8 x[8,512] h[8,512] w[1536,1024]", 1)]),
+        "conv_ln_silu": rows_of("conv_ln_silu", [(f"N=8 {c}->{o} @{z}x{z}", 1) for c, o, z in STAGES]),
+        # a gradient step: 64 scan steps at B=16 and 15 imagination steps at B=1024
+        "layernorm_gru_cell_residuals": rows_of("layernorm_gru_cell_residuals", [
+            ("B=16 x[16,512] h[16,512] w[1536,1024]", 64),
+            (f"B={TRAIN_N} x[{TRAIN_N},512] h[{TRAIN_N},512] w[1536,1024]", 15)]),
+        "conv_ln_silu_residuals": rows_of("conv_ln_silu_residuals",
+                                          [(f"N={TRAIN_N} {c}->{o} @{z}x{z}", 1) for c, o, z in STAGES]),
+        "deconv_ln_silu": rows_of("deconv_ln_silu", deconv_shapes),
+        "two_hot_log_prob": rows_of("two_hot_log_prob", [("N=1024 K=255", 1), ("N=15360 K=255", 2)]),
+    }
+    sources = {
+        "layernorm_gru_cell": ("ln_gru.cu", "sheeprl_tpu/ops/pallas_kernels.py:224"),
+        "layernorm_gru_cell_residuals": ("ln_gru.cu", "sheeprl_tpu/ops/pallas_kernels.py:173"),
+        "conv_ln_silu": ("conv_ln_silu.cu", "sheeprl_tpu/ops/pallas_cnn.py:177"),
+        "conv_ln_silu_residuals": ("conv_ln_silu.cu", "sheeprl_tpu/ops/pallas_cnn.py:177"),
+        "deconv_ln_silu": ("deconv_ln_silu.cu", "sheeprl_tpu/ops/pallas_cnn.py:335"),
+        "two_hot_log_prob": ("two_hot.cu", "sheeprl_tpu/ops/pallas_kernels.py:684"),
+    }
+    path_launches = {**train_launches, **launches}  # the serve phase's counts for its two kernels
+    kernels = []
+    for kernel, rows in per_step.items():
+        t_bytes = sum(w * r["bytes"] for r, w in rows) / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(w * r["flops"] for r, w in rows) / PEAK_FLOPS["float32"] * 1e3
+        source, replaces = sources[kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": f"sheeprl_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": path_launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
+            "ms": sum(w * r["ms"] for r, w in rows), "plain_ms": sum(w * r["plain_ms"] for r, w in rows),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sum(w * r["library_ms"] for r, w in rows),
+        })
+    if any(not rows for rows in per_step.values()) or any(k["launches"] == 0 for k in kernels):
+        raise RuntimeError(f"a kernel has no timed rows or was not launched on its path: {kernels}")
+    report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "report.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

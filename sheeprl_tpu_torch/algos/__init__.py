@@ -1,3 +1,4 @@
 """Task package: importing it fires every @register_algorithm decorator."""
 
 from ..serve import serve  # noqa: F401 -- registers the `serve` task
+from .dreamer_v3 import dreamer_v3 as _dreamer_v3  # noqa: F401 -- registers the `dreamer_v3` task

@@ -1,6 +1,6 @@
 """Base config dataclass shared by every task (the port of
 sheeprl_tpu/algos/args.py, keeping the fields that serving and DreamerV3
-read). `--device` takes the place of the reference's `--platform`.
+training read). `--device` takes the place of the reference's `--platform`.
 Setting `log_dir` dumps `args.json` into the run directory."""
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ class StandardArgs:
     seed: int = Arg(default=42, help="experiment PRNG seed")
     dry_run: bool = Arg(default=False, help="run one tiny iteration of everything and exit")
     env_id: str = Arg(default="CartPole-v1", help="environment id")
+    num_envs: int = Arg(default=4, help="number of parallel environments")
     root_dir: Optional[str] = Arg(default=None, help="root folder for logs of this experiment")
     run_name: Optional[str] = Arg(default=None, help="folder name of this run")
     screen_size: int = Arg(default=64, help="side of pixel observations")

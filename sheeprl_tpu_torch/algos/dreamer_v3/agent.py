@@ -1,17 +1,17 @@
-"""DreamerV3 player (the port of the player side of
-sheeprl_tpu/algos/dreamer_v3/agent.py): the encoders, the RSSM's recurrent,
-transition and representation models, the discrete-action actor, the
-environment-interaction `PlayerDV3`, and the part of `build_models` that
-builds them.
+"""DreamerV3 agent (the port of sheeprl_tpu/algos/dreamer_v3/agent.py): the
+encoders and decoders, the RSSM (dynamic learning over a sequence and
+imagination), the world model, the discrete-action actor, the
+environment-interaction `PlayerDV3`, and `build_models`.
 
-Randomness is explicit: a step takes injected Gumbel noise for the
-posterior sample (the parity tests feed the reference's own draw) or a
-`torch.Generator`; the reference threads `jax.random` keys instead.
-Convolutions are NHWC, as in the reference.
+Randomness is explicit: every sample takes injected Gumbel noise (the
+parity tests feed the reference's own draw) or a `torch.Generator`; the
+reference threads `jax.random` keys instead. Convolutions are NHWC, as in
+the reference.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -19,22 +19,26 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
-from ...nn.blocks import CNN, MLP
+from ...nn.blocks import CNN, MLP, DeCNN
 from ...nn.inits import init_xavier
-from ...nn.layers import Linear
+from ...nn.layers import ConvTranspose2d, Linear
 from ...nn.recurrent import LayerNormGRUCell
 from ...ops.distributions import OneHotCategorical, gumbel_noise, unimix_logits
 from ...ops.math import symlog
 
 __all__ = [
     "Actor",
+    "CNNDecoder",
     "CNNEncoder",
+    "Decoder",
     "Encoder",
+    "MLPDecoder",
     "MLPEncoder",
     "PlayerDV3",
     "PlayerState",
     "RSSM",
     "RecurrentModel",
+    "WorldModel",
     "build_models",
     "compute_stochastic_state",
     "exploration_actions",
@@ -123,6 +127,75 @@ class Encoder(tnn.Module):
         return torch.cat(feats, dim=-1)
 
 
+class CNNDecoder(tnn.Module):
+    """Inverse of CNNEncoder: latent -> Linear -> [4, 4, 8m] -> 4 deconv
+    stages -> 64x64 image dict, `+ 0.5` output shift. The last stage keeps
+    its bias and has no norm (it stays plain PyTorch, as in the
+    reference)."""
+
+    def __init__(self, keys: Sequence[str], output_channels: Sequence[int], channels_multiplier: int,
+                 latent_state_size: int, cnn_encoder_output_dim: int, *, layer_norm: bool = True,
+                 activation: str = "silu", generator: torch.Generator | None = None):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.output_channels = tuple(output_channels)
+        self.proj = Linear(latent_state_size, cnn_encoder_output_dim, generator=generator)
+        self.model = DeCNN(
+            8 * channels_multiplier, [channels_multiplier * m for m in (4, 2, 1)] + [sum(output_channels)],
+            kernel_sizes=[4] * 4, strides=[2] * 4, act=activation, layer_norm=layer_norm,
+            use_bias=not layer_norm, norm_eps=1e-3, generator=generator,
+        )
+        if layer_norm:
+            last = self.model.layers[-1]
+            self.model.layers[-1] = ConvTranspose2d(
+                last.in_channels, last.out_channels, 4, stride=2, padding="SAME", use_bias=True,
+                generator=generator,
+            )
+
+    def forward(self, latent: torch.Tensor) -> dict:
+        x = self.proj(latent)
+        x = x.reshape(*x.shape[:-1], 4, 4, -1)
+        img = self.model(x) + 0.5
+        return dict(zip(self.keys, torch.split(img, list(self.output_channels), dim=-1)))
+
+
+class MLPDecoder(tnn.Module):
+    """Per-key vector reconstruction heads over a shared MLP trunk."""
+
+    def __init__(self, keys: Sequence[str], output_dims: Sequence[int], latent_state_size: int, *,
+                 mlp_layers: int = 4, dense_units: int = 512, layer_norm: bool = True,
+                 activation: str = "silu", generator: torch.Generator | None = None):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.model = MLP(
+            latent_state_size, [dense_units] * mlp_layers, act=activation, layer_norm=layer_norm,
+            use_bias=not layer_norm, norm_eps=1e-3, generator=generator,
+        )
+        self.heads = tnn.ModuleDict(
+            {k: Linear(dense_units, dim, generator=generator) for k, dim in zip(keys, output_dims)}
+        )
+
+    def forward(self, latent: torch.Tensor) -> dict:
+        x = self.model(latent)
+        return {k: self.heads[k](x) for k in self.keys}
+
+
+class Decoder(tnn.Module):
+    """The observation model: merges per-key CNN and MLP reconstructions."""
+
+    def __init__(self, cnn_decoder: CNNDecoder | None, mlp_decoder: MLPDecoder | None):
+        super().__init__()
+        self.cnn_decoder = cnn_decoder
+        self.mlp_decoder = mlp_decoder
+
+    def forward(self, latent: torch.Tensor) -> dict:
+        out: dict = {}
+        for d in (self.cnn_decoder, self.mlp_decoder):
+            if d is not None:
+                out.update(d(latent))
+        return out
+
+
 class RecurrentModel(tnn.Module):
     """Dense pre-projection + LayerNorm-GRU — the deterministic-state update."""
 
@@ -143,8 +216,8 @@ class RecurrentModel(tnn.Module):
 
 
 class RSSM(tnn.Module):
-    """The player's half of the Recurrent State-Space Model: discrete
-    (S x D) stochastic state with 1% unimix."""
+    """Recurrent State-Space Model with discrete (S x D) stochastic state,
+    1% unimix and `is_first` episode-boundary resets."""
 
     def __init__(self, recurrent_model: RecurrentModel, representation_model: MLP,
                  transition_model: MLP, discrete: int = 32, unimix: float = 0.01):
@@ -175,6 +248,66 @@ class RSSM(tnn.Module):
         """-> (posterior_logits [..., S*D], posterior [..., S, D])."""
         raw = self.representation_model(torch.cat([recurrent_state, embedded_obs], dim=-1))
         return self._mix_sample(raw, gumbel, recurrent_state.dtype)
+
+    def dynamic(self, posterior: torch.Tensor, recurrent_state: torch.Tensor, action: torch.Tensor,
+                embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbel: torch.Tensor):
+        """One dynamic-learning step (the reference's unfused branch): where
+        `is_first`, the action and recurrent state are zeroed and the
+        posterior is re-seeded from the transition prior's mode. `gumbel`
+        [B, S, D] draws the posterior. The prior's own sample is never used
+        in training, so it is not drawn. The reference's fused step (the
+        Pallas `fused_rssm_step`) is not ported: its guard keeps it off at
+        DreamerV3's default width. -> (recurrent_state, posterior
+        [B, S, D], prior_logits, posterior_logits)."""
+        dt = recurrent_state.dtype
+        is_first = is_first.to(dt)
+        action = (1.0 - is_first) * action.to(dt)
+        recurrent_state = (1.0 - is_first) * recurrent_state
+        posterior_flat = posterior.to(dt).reshape(*posterior.shape[:-2], -1)
+        init_post = self._transition(recurrent_state)[1].reshape(posterior_flat.shape)
+        posterior_flat = (1.0 - is_first) * posterior_flat + is_first * init_post
+        recurrent_state = self.recurrent_model(torch.cat([posterior_flat, action], dim=-1), recurrent_state)
+        prior_logits = self._uniform_mix(self.transition_model(recurrent_state).float())
+        posterior_logits, posterior = self._representation(recurrent_state, embedded_obs, gumbel)
+        return recurrent_state, posterior, prior_logits, posterior_logits
+
+    def scan_dynamic(self, posterior0: torch.Tensor, recurrent0: torch.Tensor, actions: torch.Tensor,
+                     embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbels: torch.Tensor):
+        """The dynamic-learning sequence as a loop over T (the reference's
+        `lax.scan`): actions [T, B, A], embedded_obs [T, B, E], is_first
+        [T, B, 1], gumbels [T, B, S, D]. Returns stacked (recurrent_states
+        [T, B, R], priors_logits [T, B, S*D], posteriors [T, B, S, D],
+        posteriors_logits [T, B, S*D])."""
+        post, rec = posterior0, recurrent0
+        outs = []
+        for t in range(actions.shape[0]):
+            rec, post, prior_logits, post_logits = self.dynamic(
+                post, rec, actions[t], embedded_obs[t], is_first[t], gumbels[t]
+            )
+            outs.append((rec, prior_logits, post, post_logits))
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    def imagination(self, prior: torch.Tensor, recurrent_state: torch.Tensor, actions: torch.Tensor,
+                    gumbel: torch.Tensor):
+        """One-step latent imagination: prior [N, S*D] flat, `gumbel`
+        [N, S, D] draws the next prior. -> (imagined_prior [N, S*D],
+        recurrent_state)."""
+        recurrent_state = self.recurrent_model(torch.cat([prior, actions], dim=-1), recurrent_state)
+        _, imagined_prior = self._transition(recurrent_state, gumbel)
+        return imagined_prior.reshape(*imagined_prior.shape[:-2], -1), recurrent_state
+
+
+class WorldModel(tnn.Module):
+    """Encoder + RSSM + observation/reward/continue heads."""
+
+    def __init__(self, encoder: Encoder, rssm: RSSM, observation_model: Decoder, reward_model: MLP,
+                 continue_model: MLP):
+        super().__init__()
+        self.encoder = encoder
+        self.rssm = rssm
+        self.observation_model = observation_model
+        self.reward_model = reward_model
+        self.continue_model = continue_model
 
 
 class Actor(tnn.Module):
@@ -210,12 +343,14 @@ class Actor(tnn.Module):
         )
 
     def forward(self, state: torch.Tensor, is_training: bool = True,
-                generator: torch.Generator | None = None):
-        """-> (actions tuple, distributions tuple): straight-through draws from
-        `generator` in training, the mode in evaluation."""
+                generator: torch.Generator | None = None, gumbels: Sequence[torch.Tensor] | None = None):
+        """-> (actions tuple, distributions tuple): straight-through draws in
+        training (with `gumbels`, one per head, when given, else noise from
+        `generator`), the mode in evaluation."""
         dists = self.dists(state)
         if is_training:
-            actions = tuple(d.rsample(generator=generator) for d in dists)
+            gumbels = gumbels if gumbels is not None else [None] * len(dists)
+            actions = tuple(d.rsample(g, generator) for d, g in zip(dists, gumbels))
         else:
             actions = tuple(d.mode for d in dists)
         return actions, dists
@@ -291,6 +426,16 @@ class PlayerDV3(tnn.Module):
             stochastic_state=stochastic.reshape(n_envs, -1),
         )
 
+    def reset_states(self, state: PlayerState, reset_mask: torch.Tensor) -> PlayerState:
+        """Re-initialize the rows where `reset_mask` ([N] bool/float) is set."""
+        m = reset_mask.reshape(-1, 1).to(state.recurrent_state.dtype)
+        fresh = self.init_states(state.actions.shape[0])
+        return PlayerState(
+            actions=(1 - m) * state.actions + m * fresh.actions,
+            recurrent_state=(1 - m) * state.recurrent_state + m * fresh.recurrent_state,
+            stochastic_state=(1 - m) * state.stochastic_state + m * fresh.stochastic_state,
+        )
+
     def step(
         self,
         state: PlayerState,
@@ -329,12 +474,13 @@ def build_models(
     obs_space: dict,
     cnn_keys: Sequence[str],
     mlp_keys: Sequence[str],
-) -> tuple[Encoder, RSSM, Actor]:
-    """Build the player's (encoder, rssm, actor) on the CPU with the Hafner
-    initialization pass: Xavier-normal everywhere, Xavier-uniform on the
-    distribution output layers (actor heads, transition and representation
-    heads). The reference's `build_models` also builds the decoder, reward,
-    continue and critic models, which only training needs."""
+) -> tuple[WorldModel, Actor, MLP, MLP]:
+    """Build (world_model, actor, critic, target_critic) on the CPU with the
+    Hafner initialization pass: Xavier-normal everywhere; Xavier-uniform on
+    the distribution output layers (actor heads, transition and
+    representation heads, continue head, the decoders' output layers);
+    zeros on the reward and critic heads. The target critic is a deep copy
+    of the critic."""
     if args.cnn_channels_multiplier <= 0:
         raise ValueError("cnn_channels_multiplier must be greater than zero")
     if args.dense_units <= 0:
@@ -375,17 +521,48 @@ def build_models(
         discrete=args.discrete_size,
         unimix=args.unimix,
     )
+    cnn_decoder = None
+    if cnn_keys:
+        cnn_decoder = CNNDecoder(
+            cnn_keys, output_channels=[obs_space[k].shape[-1] for k in cnn_keys],
+            channels_multiplier=args.cnn_channels_multiplier, latent_state_size=latent_state_size,
+            cnn_encoder_output_dim=cnn_encoder.output_dim, layer_norm=args.layer_norm,
+            activation=args.cnn_act, generator=g,
+        )
+    mlp_decoder = None
+    if mlp_keys:
+        mlp_decoder = MLPDecoder(
+            mlp_keys, output_dims=[obs_space[k].shape[0] for k in mlp_keys],
+            latent_state_size=latent_state_size, mlp_layers=args.mlp_layers,
+            dense_units=args.dense_units, layer_norm=args.layer_norm, activation=args.dense_act,
+            generator=g,
+        )
+    hidden = [args.dense_units] * args.mlp_layers
+    world_model = WorldModel(
+        encoder, rssm, Decoder(cnn_decoder, mlp_decoder),
+        reward_model=MLP(latent_state_size, hidden, args.bins, **mlp_kwargs),
+        continue_model=MLP(latent_state_size, hidden, 1, **mlp_kwargs),
+    )
     actor = Actor(
         latent_state_size, actions_dim, is_continuous, dense_units=args.dense_units,
         dense_act=args.dense_act,
         mlp_layers=args.mlp_layers, distribution=args.actor_distribution,
         layer_norm=args.layer_norm, unimix=args.unimix, generator=g,
     )
-    for module in (encoder, rssm, actor):
+    critic = MLP(latent_state_size, hidden, args.bins, **mlp_kwargs)
+    for module in (world_model, actor, critic):
         init_xavier(module, g, "normal")
     if args.hafner_initialization:
         for head in actor.heads:
             init_xavier(head, g, "uniform")
+        init_xavier(critic.head, g, "zero")
         init_xavier(rssm.transition_model.head, g, "uniform")
         init_xavier(rssm.representation_model.head, g, "uniform")
-    return encoder, rssm, actor
+        init_xavier(world_model.reward_model.head, g, "zero")
+        init_xavier(world_model.continue_model.head, g, "uniform")
+        if mlp_decoder is not None:
+            for k in sorted(mlp_decoder.heads):
+                init_xavier(mlp_decoder.heads[k], g, "uniform")
+        if cnn_decoder is not None:
+            init_xavier(cnn_decoder.model.layers[-1], g, "uniform")
+    return world_model, actor, critic, copy.deepcopy(critic)

@@ -1,0 +1,487 @@
+"""DreamerV3 training (the port of sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py):
+`make_optimizers`, `make_train_step` and a synchronous `main` over
+`num_envs` dummy envs.
+
+    python -m sheeprl_tpu_torch dreamer_v3 --env_id discrete_dummy [--device cpu]
+
+One gradient step follows the reference's `make_train_step`: the EMA
+target-critic update first (tau 1 at the first gradient step), the world
+model's update (RSSM dynamic learning as a loop over T), imagination and
+the actor's update with the updated world model and the pre-update critic,
+then the critic's update; three Adams with gradient clipping by global norm
+written to optax's rule. Every sample draws injected Gumbel noise (the
+parity tests feed the reference's own draws) or noise from a
+`torch.Generator`. The model path is float32: bf16 training, continuous
+actions, checkpoints, evaluation and the other env backends are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ...data.buffers import AsyncReplayBuffer
+from ...nn.blocks import MLP
+from ...ops.distributions import (
+    Bernoulli,
+    Independent,
+    MSEDistribution,
+    OneHotCategorical,
+    SymlogDistribution,
+    TwoHotEncodingDistribution,
+    gumbel_noise,
+)
+from ...ops.math import lambda_values_dv3, polynomial_decay
+from ...ops.moments import Moments
+from ...utils.device import resolve_device
+from ...utils.env import make_dict_env
+from ...utils.parser import DataclassArgumentParser
+from ...utils.registry import register_algorithm
+from ..ppo.ppo import actions_dim_of, validate_obs_keys
+from .agent import Actor, PlayerDV3, WorldModel, build_models
+from .args import DreamerV3Args
+from .loss import reconstruction_loss
+from .utils import make_device_preprocess
+
+__all__ = [
+    "DV3TrainState", "clip_by_global_norm", "draw_noise", "global_norm", "main", "make_optimizers",
+    "make_train_step",
+]
+
+METRICS = (
+    "Loss/reconstruction_loss", "Loss/observation_loss", "Loss/reward_loss", "Loss/state_loss",
+    "Loss/continue_loss", "Loss/policy_loss", "Loss/value_loss", "State/kl", "State/post_entropy",
+    "State/prior_entropy", "Grads/world_model", "Grads/actor", "Grads/critic",
+)
+
+
+@dataclasses.dataclass
+class DV3TrainState:
+    """The models, their optimizers and the return normalizer; a train
+    step updates them in place."""
+
+    world_model: WorldModel
+    actor: Actor
+    critic: MLP
+    target_critic: MLP
+    world_opt: torch.optim.Optimizer
+    actor_opt: torch.optim.Optimizer
+    critic_opt: torch.optim.Optimizer
+    moments: Moments
+
+
+def make_optimizers(args: DreamerV3Args, world_model, actor, critic):
+    """Three Adams (eps 1e-8 / 1e-5 / 1e-5, the reference's `optax.adam`
+    settings); the step clips with `clip_by_global_norm` before each."""
+    return (
+        torch.optim.Adam(world_model.parameters(), lr=args.world_lr, eps=1e-8),
+        torch.optim.Adam(actor.parameters(), lr=args.actor_lr, eps=1e-5),
+        torch.optim.Adam(critic.parameters(), lr=args.critic_lr, eps=1e-5),
+    )
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of all the leaves together."""
+    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float | None):
+    """optax.clip_by_global_norm's rule, written by hand: `g / norm *
+    max_norm` when norm >= max_norm, else g (no epsilon, unlike
+    `clip_grad_norm_`). -> (clipped grads, the norm before clipping)."""
+    norm = global_norm(grads)
+    if max_norm is None or max_norm <= 0:
+        return list(grads), norm
+    clipped = norm >= max_norm
+    return [torch.where(clipped, g / norm.to(g.dtype) * max_norm, g) for g in grads], norm
+
+
+def _apply(params: list[torch.Tensor], grads: Sequence[torch.Tensor], optimizer, clip: float | None
+           ) -> torch.Tensor:
+    """Clip, then one optimizer step. Returns the norm before clipping."""
+    grads, norm = clip_by_global_norm(grads, clip)
+    for p, g in zip(params, grads):
+        p.grad = g
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return norm
+
+
+def _grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def draw_noise(args: DreamerV3Args, seq_len: int, batch: int, actions_dim: Sequence[int],
+               generator: torch.Generator, device) -> dict:
+    """The Gumbel draws of one gradient step: `post` [T, B, S, D] for the
+    posteriors of the dynamic-learning loop, `img_prior` [H, T*B, S, D] for
+    the imagined priors, `img_actions` one [H+1, T*B, A_i] per action head."""
+    s, d, h, n = args.stochastic_size, args.discrete_size, args.horizon, seq_len * batch
+    return {
+        "post": gumbel_noise((seq_len, batch, s, d), generator, device),
+        "img_prior": gumbel_noise((h, n, s, d), generator, device),
+        "img_actions": [gumbel_noise((h + 1, n, a), generator, device) for a in actions_dim],
+    }
+
+
+def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequence[str],
+                    actions_dim: Sequence[int], is_continuous: bool):
+    """The DreamerV3 update (the reference's `make_train_step`) ->
+    `train_step(state, data, tau, noise) -> metrics`: `data` holds [T, B, ...]
+    tensors on the models' device (`rewards`, `dones`, `is_first`,
+    `actions` and the observation keys, pixels as uint8), `tau` the EMA
+    weight of the target critic (0 skips the update), `noise` the draws of
+    `draw_noise`. The metrics are the reference's 13, as a dict of floats."""
+    if is_continuous:
+        raise NotImplementedError("continuous-action training is not ported yet")
+    if args.precision != "float32":
+        raise NotImplementedError("bf16 training is not ported yet: run with --precision float32")
+    stoch_size = args.stochastic_size * args.discrete_size
+    horizon = args.horizon
+    splits = [int(a) for a in actions_dim]
+
+    def world_step(state: DV3TrainState, data: dict, noise: dict):
+        wm = state.world_model
+        T, B = data["dones"].shape[:2]
+        obs_targets = {k: data[k].float() / 255.0 for k in cnn_keys}
+        obs_targets.update({k: data[k].float() for k in mlp_keys})
+        is_first = data["is_first"].clone()
+        is_first[0] = 1.0
+        batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], dim=0)
+        embedded = wm.encoder(obs_targets)
+        posterior0 = embedded.new_zeros((B, args.stochastic_size, args.discrete_size))
+        recurrent0 = embedded.new_zeros((B, args.recurrent_state_size))
+        recurrent_states, priors_logits, posteriors, posteriors_logits = wm.rssm.scan_dynamic(
+            posterior0, recurrent0, batch_actions, embedded, is_first, noise["post"]
+        )
+        latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], dim=-1)
+        reconstructed = {k: v.float() for k, v in wm.observation_model(latent_states).items()}
+        po = {k: MSEDistribution(reconstructed[k], dims=3) for k in cnn_keys}
+        po.update({k: SymlogDistribution(reconstructed[k], dims=1) for k in mlp_keys})
+        pr = TwoHotEncodingDistribution(wm.reward_model(latent_states).float(), dims=1)
+        pc = Independent(Bernoulli(wm.continue_model(latent_states).float()), 1)
+        shaped = (T, B, args.stochastic_size, args.discrete_size)
+        losses = reconstruction_loss(
+            po, obs_targets, pr, data["rewards"], priors_logits.reshape(shaped),
+            posteriors_logits.reshape(shaped), args.kl_dynamic, args.kl_representation,
+            args.kl_free_nats, args.kl_regularizer, pc, 1.0 - data["dones"], args.continue_scale_factor,
+        )
+        params = list(wm.parameters())
+        norm = _apply(params, _grads(losses[0], params), state.world_opt, args.world_clip_gradients)
+        return losses, norm, recurrent_states.detach(), posteriors.detach(), priors_logits.detach(), \
+            posteriors_logits.detach()
+
+    def actor_step(state: DV3TrainState, data: dict, recurrent_states, posteriors, noise: dict):
+        wm, actor, critic = state.world_model, state.actor, state.critic
+        T, B = data["dones"].shape[:2]
+        prior = posteriors.transpose(0, 1).reshape(T * B, stoch_size)
+        recurrent = recurrent_states.transpose(0, 1).reshape(T * B, args.recurrent_state_size)
+        true_continue0 = (1.0 - data["dones"]).transpose(0, 1).reshape(1, T * B, 1)
+        latents, actions = [], []
+        for h in range(horizon):
+            latent = torch.cat([prior, recurrent], dim=-1)
+            acts, _ = actor(latent.detach(), gumbels=[g[h] for g in noise["img_actions"]])
+            action = torch.cat(acts, dim=-1).to(prior.dtype)
+            prior, recurrent = wm.rssm.imagination(prior, recurrent, action, noise["img_prior"][h])
+            latents.append(latent)
+            actions.append(action)
+        latent_h = torch.cat([prior, recurrent], dim=-1)
+        last_acts, _ = actor(latent_h.detach(), gumbels=[g[horizon] for g in noise["img_actions"]])
+        trajectories = torch.stack(latents + [latent_h])  # [H+1, T*B, L]
+        imagined_actions = torch.stack(actions + [torch.cat(last_acts, dim=-1)])
+
+        predicted_values = TwoHotEncodingDistribution(critic(trajectories).float(), dims=1).mean
+        predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(trajectories).float(), dims=1).mean
+        continues = Independent(Bernoulli(wm.continue_model(trajectories).float()), 1).mode
+        continues = torch.cat([true_continue0, continues[1:]], dim=0)
+        lambda_values = lambda_values_dv3(
+            predicted_rewards[1:], predicted_values[1:], continues[1:] * args.gamma, lmbda=args.lmbda
+        )
+        discount = (torch.cumprod(continues * args.gamma, dim=0) / args.gamma).detach()
+        offset, invscale = state.moments.update(lambda_values)
+        advantage = (lambda_values - offset) / invscale - (predicted_values[:-1] - offset) / invscale
+
+        policies = actor.dists(trajectories.detach())
+        per_head = torch.split(imagined_actions.detach(), splits, dim=-1)
+        log_probs = sum(p.log_prob(a)[..., None] for p, a in zip(policies, per_head))
+        objective = log_probs[:-1] * advantage.detach()
+        entropy = args.actor_ent_coef * sum(p.entropy() for p in policies)[..., None][:-1]
+        policy_loss = -(discount[:-1] * (objective + entropy)).mean()
+        params = list(actor.parameters())
+        norm = _apply(params, _grads(policy_loss, params), state.actor_opt, args.actor_clip_gradients)
+        return policy_loss, norm, trajectories.detach(), lambda_values.detach(), discount
+
+    def critic_step(state: DV3TrainState, trajectories, lambda_values, discount):
+        traj_sg = trajectories[:-1]
+        with torch.no_grad():
+            target_values = TwoHotEncodingDistribution(state.target_critic(traj_sg).float(), dims=1).mean
+        qv = TwoHotEncodingDistribution(state.critic(traj_sg).float(), dims=1)
+        value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
+        value_loss = (value_loss * discount[:-1, :, 0]).mean()
+        params = list(state.critic.parameters())
+        norm = _apply(params, _grads(value_loss, params), state.critic_opt, args.critic_clip_gradients)
+        return value_loss, norm
+
+    def train_step(state: DV3TrainState, data: dict, tau: float, noise: dict) -> dict[str, float]:
+        # EMA target-critic update before the gradient step, with the
+        # pre-update critic (the reference's ordering); tau 0 is a no-op
+        if tau > 0.0:
+            with torch.no_grad():
+                for t, c in zip(state.target_critic.parameters(), state.critic.parameters()):
+                    t.copy_(tau * c + (1.0 - tau) * t)
+        losses, wm_norm, recurrent_states, posteriors, priors_logits, posteriors_logits = world_step(
+            state, data, noise
+        )
+        # imagination differentiates through the actions only: the world
+        # model and the critic are constants of the actor's loss
+        frozen = (state.world_model, state.critic)
+        for m in frozen:
+            m.requires_grad_(False)
+        try:
+            policy_loss, actor_norm, trajectories, lambda_values, discount = actor_step(
+                state, data, recurrent_states, posteriors, noise
+            )
+        finally:
+            for m in frozen:
+                m.requires_grad_(True)
+        value_loss, critic_norm = critic_step(state, trajectories, lambda_values, discount)
+
+        T, B = data["dones"].shape[:2]
+        shaped = (T, B, args.stochastic_size, args.discrete_size)
+        with torch.no_grad():
+            post_entropy = OneHotCategorical(posteriors_logits.reshape(shaped)).entropy().sum(-1).mean()
+            prior_entropy = OneHotCategorical(priors_logits.reshape(shaped)).entropy().sum(-1).mean()
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
+        values = torch.stack([
+            rec_loss, observation_loss, reward_loss, state_loss, continue_loss, policy_loss, value_loss,
+            kl, post_entropy, prior_entropy, wm_norm, actor_norm, critic_norm,
+        ]).detach().float().cpu().tolist()
+        return dict(zip(METRICS, values))
+
+    return train_step
+
+
+def _random_actions(rng: np.random.Generator, actions_dim: Sequence[int], n_envs: int) -> np.ndarray:
+    """Uniform one-hot actions per head, concatenated: [n_envs, sum(A)]."""
+    return np.concatenate(
+        [np.eye(a, dtype=np.float32)[rng.integers(0, a, n_envs)] for a in actions_dim], axis=-1
+    )
+
+
+def _env_actions(one_hot: np.ndarray, actions_dim: Sequence[int]) -> list:
+    """[n_envs, sum(A)] one-hot rows -> one env action per env (an int, or a
+    list of ints for several heads)."""
+    heads = np.split(one_hot, np.cumsum(actions_dim)[:-1], axis=-1)
+    idx = np.stack([h.argmax(-1) for h in heads], axis=-1)
+    return [int(r[0]) if len(actions_dim) == 1 else r.tolist() for r in idx]
+
+
+def _params_delta(start: dict[str, list[torch.Tensor]], state: DV3TrainState) -> dict[str, float]:
+    modules = {"world_model": state.world_model, "actor": state.actor, "critic": state.critic}
+    return {
+        f"Params/{name}_delta": float(torch.sqrt(sum(
+            ((p.detach() - p0) ** 2).sum() for p, p0 in zip(modules[name].parameters(), start[name])
+        )))
+        for name in modules
+    }
+
+
+@register_algorithm()
+def main(argv: Sequence[str] | None = None) -> None:
+    parser = DataclassArgumentParser(DreamerV3Args)
+    (args,) = parser.parse_args_into_dataclasses(argv)
+    # fixed by the 4-stage 64x64 conv trunk
+    args.screen_size = 64
+    args.frame_stack = -1
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # the reference's float32 products are true float32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(args.seed)
+    noise_gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    envs = [
+        make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
+        for i in range(args.num_envs)
+    ]
+    observation_space = envs[0].observation_space
+    cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
+    obs_keys = [*cnn_keys, *mlp_keys]
+    actions_dim, is_continuous = actions_dim_of(envs[0].action_space)
+    if is_continuous:
+        raise NotImplementedError("continuous-action training is not ported yet")
+
+    run_dir = os.path.join(args.root_dir or os.path.join("logs", "dreamer_v3"),
+                           args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S"))
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "args.json"), "w") as fh:
+        json.dump(args.as_dict(), fh)
+    metrics_path = os.path.join(run_dir, "metrics.jsonl")
+
+    def record(rec: dict) -> None:
+        with open(metrics_path, "a") as fh:
+            fh.write(json.dumps(rec) + "\n")
+
+    world_model, actor, critic, target_critic = build_models(
+        torch.Generator().manual_seed(args.seed), actions_dim, is_continuous, args,
+        observation_space.spaces, cnn_keys, mlp_keys,
+    )
+    for m in (world_model, actor, critic, target_critic):
+        m.to(device)
+    state = DV3TrainState(
+        world_model, actor, critic, target_critic,
+        *make_optimizers(args, world_model, actor, critic),
+        Moments(args.moments_decay, args.moment_max, args.moments_percentile_low,
+                args.moments_percentile_high),
+    )
+    start_params = {
+        "world_model": [p.detach().clone() for p in world_model.parameters()],
+        "actor": [p.detach().clone() for p in actor.parameters()],
+        "critic": [p.detach().clone() for p in critic.parameters()],
+    }
+    player = PlayerDV3(
+        world_model.encoder, world_model.rssm, actor, actions_dim=actions_dim,
+        stochastic_size=args.stochastic_size, discrete_size=args.discrete_size,
+        recurrent_state_size=args.recurrent_state_size, is_continuous=is_continuous,
+        compute_dtype=args.precision,
+    )
+    preprocess = make_device_preprocess(cnn_keys)
+    train_step = make_train_step(args, cnn_keys, mlp_keys, actions_dim, is_continuous)
+
+    n_envs = args.num_envs
+    if args.dry_run:
+        # one iteration: the first (and only) training samples from the one
+        # row each env ring holds
+        args.per_rank_sequence_length = min(args.per_rank_sequence_length, max(args.train_every // n_envs, 1))
+    buffer_size = args.buffer_size // n_envs if not args.dry_run else 2
+    rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed)
+    step_before_training = args.train_every // n_envs
+    num_updates = args.total_steps // n_envs if not args.dry_run else 1
+    learning_starts = args.learning_starts // n_envs if not args.dry_run else 0
+    max_step_expl_decay = args.max_step_expl_decay // args.gradient_steps
+    expl_amount, expl_decay_steps = args.expl_amount, 0
+
+    obs = [env.reset(seed=args.seed + i)[0] for i, env in enumerate(envs)]
+    step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+    step_data["dones"] = np.zeros((n_envs, 1), np.float32)
+    step_data["rewards"] = np.zeros((n_envs, 1), np.float32)
+    step_data["is_first"] = np.ones((n_envs, 1), np.float32)
+    with torch.inference_mode():
+        player_state = player.init_states(n_envs)
+    ep_return, ep_len = np.zeros(n_envs), np.zeros(n_envs, dtype=np.int64)
+    episodes: list[tuple[float, int]] = []
+    gradient_steps = player_steps = env_steps = 0
+    policy_collect_s, step_ms = 0.0, []
+    start = time.perf_counter()
+    for global_step in range(1, num_updates + 1):
+        t0 = time.perf_counter()
+        if global_step <= learning_starts:
+            actions = _random_actions(rng, actions_dim, n_envs)
+        else:
+            with torch.inference_mode():
+                dev_obs = preprocess({k: torch.from_numpy(step_data[k]).to(device) for k in obs_keys})
+                player_state, acts = player.step(
+                    player_state, dev_obs, generator=noise_gen, expl_amount=expl_amount, is_training=True
+                )
+            actions = acts.float().cpu().numpy()
+            player_steps += 1
+        step_data["actions"] = actions
+        rb.add({k: v[None] for k, v in step_data.items()})
+
+        dones = np.zeros(n_envs, np.float32)
+        rewards = np.zeros(n_envs, np.float32)
+        final_obs: dict[int, dict] = {}
+        for i, (env, a) in enumerate(zip(envs, _env_actions(actions, actions_dim))):
+            o, r, term, trunc, _ = env.step(a)
+            rewards[i], dones[i] = r, float(term or trunc)
+            ep_return[i] += r
+            ep_len[i] += 1
+            if dones[i]:
+                # same-step autoreset, as a gymnasium vector env does
+                final_obs[i] = o
+                o, _ = env.reset()
+                episodes.append((float(ep_return[i]), int(ep_len[i])))
+                ep_return[i], ep_len[i] = 0.0, 0
+            obs[i] = o
+        env_steps += n_envs
+        step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+        step_data["is_first"] = np.zeros((n_envs, 1), np.float32)
+        step_data["dones"] = dones[:, None]
+        step_data["rewards"] = (np.tanh(rewards) if args.clip_rewards else rewards)[:, None].astype(np.float32)
+        done_idx = sorted(final_obs)
+        if done_idx:
+            # terminal rows carry the true final observation and zero actions
+            reset_data = {k: np.stack([final_obs[i][k] for i in done_idx])[None] for k in obs_keys}
+            reset_data["dones"] = np.ones((1, len(done_idx), 1), np.float32)
+            reset_data["actions"] = np.zeros((1, len(done_idx), int(sum(actions_dim))), np.float32)
+            reset_data["rewards"] = step_data["rewards"][done_idx][None]
+            reset_data["is_first"] = np.zeros((1, len(done_idx), 1), np.float32)
+            rb.add(reset_data, done_idx)
+            step_data["rewards"][done_idx] = 0.0
+            step_data["dones"][done_idx] = 0.0
+            step_data["is_first"][done_idx] = 1.0
+            mask = torch.zeros(n_envs, device=device)
+            mask[done_idx] = 1.0
+            with torch.inference_mode():
+                player_state = player.reset_states(player_state, mask)
+        if global_step > learning_starts:
+            policy_collect_s += time.perf_counter() - t0
+        step_before_training -= 1
+
+        if global_step >= learning_starts and step_before_training <= 0:
+            n_samples = args.pretrain_steps if global_step == learning_starts else args.gradient_steps
+            local = rb.sample(args.per_rank_batch_size, sequence_length=args.per_rank_sequence_length,
+                              n_samples=n_samples)
+            rows = []
+            for i in range(n_samples):
+                if gradient_steps % args.critic_target_network_update_freq == 0:
+                    tau = 1.0 if gradient_steps == 0 else args.critic_tau
+                else:
+                    tau = 0.0
+                data = {k: torch.from_numpy(v[i]).to(device) for k, v in local.items()}
+                t1 = time.perf_counter()
+                noise = draw_noise(args, args.per_rank_sequence_length, args.per_rank_batch_size,
+                                   actions_dim, noise_gen, device)
+                rows.append(train_step(state, data, tau, noise))
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                gradient_steps += 1
+            step_before_training = args.train_every // n_envs
+            if args.expl_decay:
+                expl_decay_steps += 1
+                expl_amount = polynomial_decay(
+                    expl_decay_steps, initial=args.expl_amount, final=args.expl_min,
+                    max_decay_steps=max_step_expl_decay,
+                )
+            rec = {k: float(np.mean([r[k] for r in rows])) for k in METRICS}
+            rec.update(step=global_step, gradient_steps=gradient_steps,
+                       sps=global_step * n_envs / (time.perf_counter() - start),
+                       **{"Params/exploration_amount": expl_amount})
+            if episodes:
+                rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in episodes]))
+                rec["Game/ep_len_avg"] = float(np.mean([e[1] for e in episodes]))
+                episodes.clear()
+            record(rec)
+            print(f"[dreamer_v3] step {global_step} grad_steps {gradient_steps} "
+                  f"rec_loss {rec['Loss/reconstruction_loss']:.4f} policy_loss {rec['Loss/policy_loss']:.4f} "
+                  f"value_loss {rec['Loss/value_loss']:.4f}", flush=True)
+
+    summary = {
+        "event": "done", "env_steps": env_steps, "policy_steps": num_updates, "player_steps": player_steps,
+        "gradient_steps": gradient_steps, "train_step_ms": step_ms,
+        # env steps a second while the player acts (the random phase excluded)
+        "policy_env_steps_per_s": player_steps * n_envs / policy_collect_s if policy_collect_s > 0 else None,
+        "device": str(device), **_params_delta(start_params, state),
+    }
+    record(summary)
+    for env in envs:
+        env.close()
+    print(f"[dreamer_v3] done: {gradient_steps} gradient steps, {env_steps} env steps, run dir {run_dir}",
+          flush=True)

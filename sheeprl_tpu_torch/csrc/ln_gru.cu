@@ -1,7 +1,9 @@
 // LayerNorm-GRU cell forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel sheeprl_tpu/ops/pallas_kernels.py:_gru_forward
-// (`layernorm_gru_cell`): parts = [x, h] @ W, LayerNorm over the 3H parts
+// Replaces the TPU kernels sheeprl_tpu/ops/pallas_kernels.py:_gru_forward
+// (`layernorm_gru_cell`) and _gru_forward_with_residuals (its forward under
+// autodiff, which also writes the normalised parts `hat` [B, 3H] and the
+// per-row `rstd` [B, 1] for the backward): parts = [x, h] @ W, LayerNorm over the 3H parts
 // with f32 statistics, then the DreamerV3 gates
 //   r, c, u = split(parts)   update = sigmoid(u - 1)   cand = tanh(sigmoid(r) * c)
 //   h' = update * cand + (1 - update) * h
@@ -24,7 +26,8 @@
 //     keeps the 3H row in shared memory, block-reduces the mean and then the
 //     variance of the centred values (the two-pass order of the TPU
 //     kernel), and applies scale/offset and the gates in f32. h' is written
-//     in x's dtype.
+//     in x's dtype; with residuals requested it also writes hat and rstd
+//     (f32), which costs 3H + 1 floats a row more than the plain forward.
 // Tensor cores (wgmma) and TMA are left to a later revision.
 
 #include <cuda_bf16.h>
@@ -127,7 +130,8 @@ template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 gru_row_kernel(const float* __restrict__ parts, const T* __restrict__ h,
                const float* __restrict__ scale, const float* __restrict__ offset,
-               T* __restrict__ out, int B, int H, int splits, float eps) {
+               T* __restrict__ out, float* __restrict__ hat, float* __restrict__ rstd_out,
+               int B, int H, int splits, float eps) {
   extern __shared__ float row[];  // the 3H parts of this batch row
   __shared__ float red[kRowThreads / 32];
   const int b = blockIdx.x;
@@ -148,11 +152,20 @@ gru_row_kernel(const float* __restrict__ parts, const T* __restrict__ h,
   }
   const float var = block_sum(q, red) / N;
   const float rstd = rsqrtf(var + eps);
+  if (rstd_out != nullptr && threadIdx.x == 0) rstd_out[b] = rstd;
 
   for (int i = threadIdx.x; i < H; i += kRowThreads) {
-    const float r = (row[i] - mean) * rstd * scale[i] + offset[i];
-    const float c = (row[H + i] - mean) * rstd * scale[H + i] + offset[H + i];
-    const float u = (row[2 * H + i] - mean) * rstd * scale[2 * H + i] + offset[2 * H + i];
+    const float hr = (row[i] - mean) * rstd;
+    const float hc = (row[H + i] - mean) * rstd;
+    const float hu = (row[2 * H + i] - mean) * rstd;
+    if (hat != nullptr) {
+      hat[(size_t)b * N + i] = hr;
+      hat[(size_t)b * N + H + i] = hc;
+      hat[(size_t)b * N + 2 * H + i] = hu;
+    }
+    const float r = hr * scale[i] + offset[i];
+    const float c = hc * scale[H + i] + offset[H + i];
+    const float u = hu * scale[2 * H + i] + offset[2 * H + i];
     const float update = sigmoid_f(u - 1.f);
     const float cand = tanhf(sigmoid_f(r) * c);
     const float hv = to_f(h[(size_t)b * H + i]);
@@ -162,8 +175,8 @@ gru_row_kernel(const float* __restrict__ parts, const T* __restrict__ h,
 
 template <typename T>
 int launch(const void* x, const void* h, const void* w, const float* scale,
-           const float* offset, float* parts, void* out, int B, int Dx, int H,
-           int splits, float eps, cudaStream_t stream) {
+           const float* offset, float* parts, void* out, float* hat, float* rstd, int B,
+           int Dx, int H, int splits, float eps, cudaStream_t stream) {
   const int N = 3 * H;
   const int K = Dx + H;
   const int per = (K + splits - 1) / splits;
@@ -182,25 +195,31 @@ int launch(const void* x, const void* h, const void* w, const float* scale,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   gru_row_kernel<T><<<B, kRowThreads, smem, stream>>>(
-      parts, static_cast<const T*>(h), scale, offset, static_cast<T*>(out), B, H,
+      parts, static_cast<const T*>(h), scale, offset, static_cast<T*>(out), hat, rstd, B, H,
       splits, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, h, w and out); scale/offset and the
-// scratch `parts` [splits, B, 3H] are float32. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (x, h, w and out); scale/offset, the
+// scratch `parts` [splits, B, 3H] and the residuals `hat` [B, 3H] and `rstd`
+// [B] are float32. `hat` and `rstd` are both null (the plain forward) or
+// both set (the forward under autodiff). Returns a cudaError_t.
 extern "C" int ln_gru_forward(int dtype, const void* x, const void* h, const void* w,
                               const void* scale, const void* offset, void* parts,
-                              void* out, int B, int Dx, int H, int splits, float eps,
-                              void* stream) {
+                              void* out, void* hat, void* rstd, int B, int Dx, int H,
+                              int splits, float eps, void* stream) {
+  if ((hat == nullptr) != (rstd == nullptr) || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* sc = static_cast<const float*>(scale);
   const auto* of = static_cast<const float*>(offset);
   auto* pp = static_cast<float*>(parts);
+  auto* ht = static_cast<float*>(hat);
+  auto* rs = static_cast<float*>(rstd);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, h, w, sc, of, pp, out, B, Dx, H, splits, eps, st);
+  if (dtype == 0) return launch<float>(x, h, w, sc, of, pp, out, ht, rs, B, Dx, H, splits, eps, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, h, w, sc, of, pp, out, B, Dx, H, splits, eps, st);
+    return launch<__nv_bfloat16>(x, h, w, sc, of, pp, out, ht, rs, B, Dx, H, splits, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,112 @@
+"""Replay storage (the port of the sequential sampling of
+sheeprl_tpu/data/buffers.py's `AsyncReplayBuffer`, which DreamerV3's main
+uses): per-env rings in host numpy, `add(data, indices)` so envs that reset
+mid-step can append their reset rows alone, and `sample` of contiguous
+windows `[n_samples, T, B, *item]`, each from one env.
+
+Draws come from a `torch.Generator`; the sampled (env, start) pairs can be
+injected instead, so a test can replay the reference's own sample.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["AsyncReplayBuffer"]
+
+
+class AsyncReplayBuffer:
+    """`n_envs` independent rings of `buffer_size` rows each, stored as one
+    array `[buffer_size, n_envs, *item]` per key with a write head per env."""
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, seed: int = 0):
+        if buffer_size <= 0:
+            raise ValueError(f"buffer size must be > 0, got {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"n_envs must be > 0, got {n_envs}")
+        self.buffer_size = buffer_size
+        self.n_envs = n_envs
+        self._buf: dict[str, np.ndarray] | None = None
+        self._pos = np.zeros(n_envs, dtype=np.int64)
+        self._full = np.zeros(n_envs, dtype=bool)
+        self._gen = torch.Generator().manual_seed(seed)
+
+    def add(self, data: Mapping[str, np.ndarray], indices: Sequence[int] | None = None) -> None:
+        """Append `data` ([L, n_cols, *item] per key) to the rings of the
+        envs in `indices` (all envs when None), one column each."""
+        cols = np.arange(self.n_envs) if indices is None else np.asarray(list(indices), dtype=np.int64)
+        length, width = next(iter(data.values())).shape[:2]
+        if width != cols.size:
+            raise ValueError(f"data has {width} env columns but {cols.size} indices given")
+        if self._buf is None:
+            self._buf = {
+                k: np.zeros((self.buffer_size, self.n_envs, *v.shape[2:]), dtype=v.dtype)
+                for k, v in data.items()
+            }
+        if length > self.buffer_size:
+            data = {k: v[-self.buffer_size:] for k, v in data.items()}
+            length = self.buffer_size
+        for col, env in enumerate(cols):
+            rows = (self._pos[env] + np.arange(length)) % self.buffer_size
+            for k, v in data.items():
+                self._buf[k][rows, env] = v[:, col]
+            if self._pos[env] + length >= self.buffer_size:
+                self._full[env] = True
+            self._pos[env] = (self._pos[env] + length) % self.buffer_size
+
+    def _windows(self, exclude: int) -> tuple[np.ndarray, np.ndarray]:
+        """Per-env sampling domains (first, n_valid): a draw r < first maps
+        to itself, the rest shift past the write head."""
+        first = self._pos - exclude
+        second_end = np.where(first >= 0, self.buffer_size, self.buffer_size + first)
+        n_valid = np.where(self._full, np.maximum(first, 0) + second_end - self._pos, first)
+        return np.maximum(first, 0), n_valid
+
+    def _partition(self, batch_size: int) -> np.ndarray:
+        """Per-env sample counts: `batch_size // n_envs` each, the remainder
+        rotating from an env drawn at random."""
+        base, rem = divmod(batch_size, self.n_envs)
+        counts = np.full(self.n_envs, base, dtype=np.int64)
+        if rem:
+            start = int(torch.randint(0, self.n_envs, (1,), generator=self._gen))
+            counts[(start + np.arange(rem)) % self.n_envs] += 1
+        return counts
+
+    def sample(self, batch_size: int, sequence_length: int = 1, n_samples: int = 1,
+               indices: tuple[np.ndarray, np.ndarray] | None = None) -> dict[str, np.ndarray]:
+        """`n_samples` batches of `batch_size` windows of `sequence_length`
+        rows -> {key: [n_samples, sequence_length, batch_size, *item]}.
+        `indices` = (env [n_samples*batch_size], start [n_samples*batch_size])
+        replaces the draws."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError("batch_size and n_samples must be > 0")
+        if self._buf is None:
+            raise RuntimeError("no samples in buffer; call add() first")
+        if sequence_length > self.buffer_size:
+            raise ValueError(f"too long sequence_length ({sequence_length})")
+        if indices is None:
+            first, n_valid = self._windows(sequence_length - 1)
+            counts = self._partition(batch_size)
+            bad = (counts > 0) & (n_valid <= 0)
+            if bad.any():
+                e = int(np.argmax(bad))
+                raise ValueError(
+                    f"too long sequence_length ({sequence_length}) for env {e} with "
+                    f"pos={int(self._pos[e])}, full={bool(self._full[e])}"
+                )
+            env = np.tile(np.repeat(np.arange(self.n_envs), counts), n_samples)
+            u = torch.rand(env.size, generator=self._gen, dtype=torch.float64).numpy()
+            r = np.floor(u * n_valid[env]).astype(np.int64)
+            start = np.where(r < first[env], r, r - first[env] + self._pos[env])
+        else:
+            env, start = (np.asarray(a, dtype=np.int64) for a in indices)
+        idx = (start[:, None] + np.arange(sequence_length)[None, :]) % self.buffer_size
+        out = {}
+        for k, v in self._buf.items():
+            s = v[idx, env[:, None]]  # [BD, T, *item]
+            s = s.reshape(n_samples, batch_size, sequence_length, *s.shape[2:])
+            out[k] = np.ascontiguousarray(np.swapaxes(s, 1, 2))
+        return out

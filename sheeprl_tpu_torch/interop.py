@@ -3,10 +3,13 @@
 The input is the JAX package's parameters as numpy arrays keyed by the JAX
 module's field path (`rssm.recurrent_model.rnn.proj.weight`), flat or as
 nested dicts. The port's modules use the same paths, so the mapping is one
-to one; the only change of layout is `Linear.weight`, which the reference
-keeps as [in, out] and torch as [out, in]. Conv kernels stay HWIO (the
-port keeps NHWC/HWIO at its convolutions). The port never imports jax: the
-caller flattens the JAX pytree.
+to one: the player, the world model with its decoders (the MLP decoder's
+heads are keyed by observation key, a `ModuleDict` here), the actor, the
+critic and the target critic. The only change of layout is
+`Linear.weight`, which the reference keeps as [in, out] and torch as
+[out, in]. Conv and transposed-conv kernels stay HWIO (the port keeps
+NHWC/HWIO at its convolutions). The port never imports jax: the caller
+flattens the JAX pytree.
 """
 
 from __future__ import annotations

@@ -1,5 +1,8 @@
-"""Composite blocks (the port of sheeprl_tpu/nn/blocks.py): MLP and CNN, each
-a stack of (linear|conv) -> [LayerNorm] -> activation miniblocks."""
+"""Composite blocks (the port of sheeprl_tpu/nn/blocks.py): MLP, CNN and
+DeCNN, each a stack of (linear|conv|deconv) -> [LayerNorm] -> activation
+miniblocks. A Dreamer miniblock (k4/s2/SAME, no bias, affine LayerNorm,
+SiLU) runs as one fused kernel under the reference's guard alone; the
+kernel wrappers differentiate through their residual forwards."""
 
 from __future__ import annotations
 
@@ -9,10 +12,11 @@ import torch
 import torch.nn as tnn
 
 from ..ops.kernels.cnn import cnn_stage_supported, conv_ln_silu
+from ..ops.kernels.deconv import deconv_ln_silu
 from .core import Activation, activation
-from .layers import Conv2d, LayerNorm, Linear
+from .layers import Conv2d, ConvTranspose2d, LayerNorm, Linear
 
-__all__ = ["MLP", "CNN"]
+__all__ = ["MLP", "CNN", "DeCNN"]
 
 
 class MLP(tnn.Module):
@@ -55,7 +59,10 @@ class CNN(tnn.Module):
     """Conv2d stack (NHWC): conv -> [LayerNorm over channels] -> act. A
     Dreamer miniblock (k4/s2/SAME conv without bias, affine LayerNorm, SiLU,
     even spatial size) runs as one fused `conv_ln_silu` kernel, under the
-    reference's structural guard (sheeprl_tpu/nn/blocks.py:171-184)."""
+    reference's structural guard (sheeprl_tpu/nn/blocks.py:171-184). A
+    `[T, B]` lead folds time-major here (the reference folds batch-major for
+    its sharding; each image maps through the same convolution either
+    way)."""
 
     def __init__(self, in_channels: int, channels: Sequence[int], kernel_sizes: Sequence[int],
                  strides: Sequence[int], *, paddings: Sequence | None = None,
@@ -94,4 +101,54 @@ class CNN(tnn.Module):
                 x = conv_ln_silu(x, layer.kernel.to(x.dtype), norm.scale, norm.offset, norm.eps)
                 continue
             x = act(norm(layer(x)))
+        return x.reshape(lead + x.shape[1:])
+
+
+class DeCNN(tnn.Module):
+    """ConvTranspose2d stack (NHWC). The last layer has no norm/activation
+    unless `act_last` (the decoder-output convention). A Dreamer miniblock
+    runs as one fused `deconv_ln_silu` kernel under the reference's guard
+    (sheeprl_tpu/nn/blocks.py:262-270)."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int], kernel_sizes: Sequence[int],
+                 strides: Sequence[int], *, paddings: Sequence | None = None,
+                 act: Activation = "relu", layer_norm: bool = False, use_bias: bool = True,
+                 act_last: bool = False, norm_eps: float = 1e-5,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        n = len(channels)
+        paddings = ["SAME"] * n if paddings is None else paddings
+        chans = [in_channels, *channels]
+        self.act = act
+        self.act_last = act_last
+        self.layers = tnn.ModuleList(
+            ConvTranspose2d(chans[i], chans[i + 1], kernel_sizes[i], stride=strides[i],
+                            padding=paddings[i], use_bias=use_bias, generator=generator)
+            for i in range(n)
+        )
+        self.norms = tnn.ModuleList(
+            LayerNorm(c, eps=norm_eps) if layer_norm and (act_last or i < n - 1) else tnn.Identity()
+            for i, c in enumerate(channels)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [..., H, W, C] latent grid -> [..., H', W', C'] image."""
+        lead = x.shape[:-3]
+        x = x.reshape((-1,) + x.shape[-3:])
+        act = activation(self.act)
+        last = len(self.layers) - 1
+        for i, (layer, norm) in enumerate(zip(self.layers, self.norms)):
+            activated = i != last or self.act_last
+            if (
+                isinstance(norm, LayerNorm)
+                and norm.scale is not None
+                and layer.bias is None
+                and activated
+                and cnn_stage_supported(layer.kernel.shape, layer.stride, layer.padding, True, self.act)
+            ):
+                x = deconv_ln_silu(x, layer.kernel.to(x.dtype), norm.scale, norm.offset, norm.eps)
+                continue
+            x = norm(layer(x))
+            if activated:
+                x = act(x)
         return x.reshape(lead + x.shape[1:])

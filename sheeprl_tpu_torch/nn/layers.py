@@ -1,5 +1,5 @@
 """Primitive layers (the port of sheeprl_tpu/nn/layers.py): Linear, Conv2d,
-LayerNorm.
+ConvTranspose2d, LayerNorm.
 
 Layouts: `Linear.weight` is torch's [out, in] (the reference keeps
 [in, out]; `interop.py` transposes). Convolutions keep the reference's NHWC
@@ -16,7 +16,9 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
-__all__ = ["Linear", "Conv2d", "LayerNorm"]
+from ..ops.kernels.deconv import subpixel_deconv
+
+__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm"]
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator | None) -> None:
@@ -104,6 +106,75 @@ class Conv2d(tnn.Module):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)[:, None, None]
         return y.permute(0, 2, 3, 1).contiguous()
+
+    @property
+    def in_channels(self) -> int:
+        return self.kernel.shape[2]
+
+    @property
+    def out_channels(self) -> int:
+        return self.kernel.shape[3]
+
+
+def _transpose_pads(size_k: int, s: int, padding) -> tuple[int, int]:
+    """Padding of the zero-dilated input for a transposed conv, as
+    `lax.conv_transpose` computes it for 'SAME' and 'VALID'."""
+    if padding == "SAME":
+        pad_len = size_k + s - 2
+        pad_a = size_k - 1 if s > size_k - 1 else -(-pad_len // 2)
+    else:  # VALID
+        pad_len = size_k + s - 2 + max(size_k - s, 0)
+        pad_a = size_k - 1
+    return pad_a, pad_len - pad_a
+
+
+class ConvTranspose2d(tnn.Module):
+    """NHWC transposed convolution with an HWIO kernel: the reference's
+    `lax.conv_transpose(..., transpose_kernel=False)`, i.e. a stride-1
+    cross-correlation of the kernel (not flipped) over the input dilated by
+    the stride. The DreamerV3 decoder's k4/s2/SAME stages take the subpixel
+    form (`ops/kernels/deconv.py:subpixel_deconv`), the same regrouping as
+    the reference's `_subpixel_k4s2`; other shapes dilate explicitly.
+    Padding is 'SAME', 'VALID' or ((top, bottom), (left, right))."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, *, stride=1,
+                 padding="SAME", use_bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        if isinstance(padding, int):
+            padding = ((padding, padding), (padding, padding))
+        self.padding = padding
+        bound = 1.0 / math.sqrt(in_channels * kh * kw)
+        self.kernel = tnn.Parameter(torch.empty(kh, kw, in_channels, out_channels))
+        _uniform_(self.kernel, bound, generator)
+        if use_bias:
+            self.bias = tnn.Parameter(torch.empty(out_channels))
+            _uniform_(self.bias, bound, generator)
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.kernel.shape[:2]
+        k = self.kernel.to(x.dtype)
+        if self.stride == (2, 2) and (kh, kw) == (4, 4) and self.padding == "SAME":
+            y = subpixel_deconv(x, k)
+        else:
+            n, h, w, c = x.shape
+            (sh, sw) = self.stride
+            if isinstance(self.padding, str):
+                pads = (_transpose_pads(kh, sh, self.padding), _transpose_pads(kw, sw, self.padding))
+            else:
+                pads = self.padding
+            dil = x.new_zeros((n, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
+            dil[:, :, ::sh, ::sw] = x.permute(0, 3, 1, 2)
+            (top, bottom), (left, right) = pads
+            y = F.conv2d(F.pad(dil, (left, right, top, bottom)), k.permute(3, 2, 0, 1))
+            y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y.contiguous()
 
     @property
     def in_channels(self) -> int:

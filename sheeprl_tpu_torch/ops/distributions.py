@@ -1,17 +1,30 @@
-"""The categorical pieces of sheeprl_tpu/ops/distributions.py that the
-DreamerV3 player samples from.
+"""The distributions of sheeprl_tpu/ops/distributions.py that DreamerV3
+samples from and trains with: the one-hot categorical of the stochastic
+state and the actor, Bernoulli (the continue head), the DreamerV3 trio
+Symlog / MSE / TwoHotEncoding, and the categorical KL.
 
 Sampling takes either injected Gumbel noise (the parity tests feed the
 reference's own draw) or an explicit `torch.Generator`: a one-hot sample is
 `one_hot(argmax(logits + gumbel))`, the same Gumbel-max construction as
-`jax.random.categorical`."""
+`jax.random.categorical`. `TwoHotEncodingDistribution.log_prob` goes through
+the two-hot kernel (`ops/kernels/two_hot.py`) for every tensor."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["OneHotCategorical", "gumbel_noise", "unimix_logits"]
+from .kernels.two_hot import two_hot_log_prob
+from .math import symexp, symlog
+
+__all__ = [
+    "Bernoulli", "Independent", "MSEDistribution", "OneHotCategorical", "SymlogDistribution",
+    "TwoHotEncodingDistribution", "gumbel_noise", "kl_categorical", "unimix_logits",
+]
+
+
+def _sum_last(x: torch.Tensor, ndims: int) -> torch.Tensor:
+    return x if ndims == 0 else x.sum(dim=tuple(range(-ndims, 0)))
 
 
 def gumbel_noise(
@@ -37,9 +50,20 @@ class OneHotCategorical:
         return torch.softmax(self.logits, dim=-1)
 
     @property
+    def log_probs(self) -> torch.Tensor:
+        return torch.log_softmax(self.logits, dim=-1)
+
+    @property
     def mode(self) -> torch.Tensor:
         idx = torch.argmax(self.logits, dim=-1)
         return F.one_hot(idx, self.logits.shape[-1]).to(self.logits.dtype)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.log_probs * x).sum(dim=-1)
+
+    def entropy(self) -> torch.Tensor:
+        lp = self.log_probs
+        return -(lp.exp() * lp).sum(dim=-1)
 
     def sample(
         self, gumbel: torch.Tensor | None = None, generator: torch.Generator | None = None
@@ -71,3 +95,143 @@ def unimix_logits(logits: torch.Tensor, unimix: float = 0.01) -> torch.Tensor:
     uniform = torch.ones_like(probs) / probs.shape[-1]
     probs = (1.0 - unimix) * probs + unimix * uniform
     return torch.log(probs)
+
+
+class Independent:
+    """Reinterpret the trailing `event_ndims` batch dims as event dims."""
+
+    def __init__(self, base, event_ndims: int = 1):
+        self.base = base
+        self.event_ndims = event_ndims
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return _sum_last(self.base.log_prob(x), self.event_ndims)
+
+    def entropy(self) -> torch.Tensor:
+        return _sum_last(self.base.entropy(), self.event_ndims)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.base.mean
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.base.mode
+
+
+class Bernoulli:
+    """Bernoulli from logits; `mode` is the safe > 0.5 threshold (the
+    continue head's BernoulliSafeMode in the reference)."""
+
+    def __init__(self, logits: torch.Tensor):
+        self.logits = logits
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.sigmoid(self.logits)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        # -BCE-with-logits, numerically stable
+        return -(F.softplus(-self.logits) * x + F.softplus(self.logits) * (1.0 - x))
+
+    def entropy(self) -> torch.Tensor:
+        return F.softplus(self.logits) - self.logits * self.probs
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return (self.probs > 0.5).to(torch.float32)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.probs
+
+
+class SymlogDistribution:
+    """MSE (or L1) in symlog space."""
+
+    def __init__(self, mode: torch.Tensor, dims: int = 1, dist: str = "mse", agg: str = "sum",
+                 tol: float = 1e-8):
+        if dist not in ("mse", "abs"):
+            raise NotImplementedError(dist)
+        self._mode, self.dims, self.dist, self.agg, self.tol = mode, dims, dist, agg, tol
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        diff = self._mode - symlog(value)
+        distance = diff * diff if self.dist == "mse" else diff.abs()
+        distance = torch.where(distance < self.tol, torch.zeros_like(distance), distance)
+        if self.agg == "mean":
+            return -distance.mean(dim=tuple(range(-self.dims, 0)))
+        return -_sum_last(distance, self.dims)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return symexp(self._mode)
+
+    mean = mode
+
+
+class MSEDistribution:
+    """Plain MSE pseudo-likelihood."""
+
+    def __init__(self, mode: torch.Tensor, dims: int = 1, agg: str = "sum"):
+        self._mode, self.dims, self.agg = mode, dims, agg
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        diff = self._mode - value
+        distance = diff * diff
+        if self.agg == "mean":
+            return -distance.mean(dim=tuple(range(-self.dims, 0)))
+        return -_sum_last(distance, self.dims)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self._mode
+
+    mean = mode
+
+
+class TwoHotEncodingDistribution:
+    """255-bin two-hot over symlog values — DreamerV3's reward/critic heads.
+    `log_prob(x)` cross-entropies a two-hot target against the logits
+    through the two-hot kernel; mean/mode decode via symexp(probs . bins)."""
+
+    def __init__(self, logits: torch.Tensor, dims: int = 1, low: float = -20.0, high: float = 20.0):
+        self.logits, self.dims, self.low, self.high = logits, dims, low, high
+
+    @property
+    def bins(self) -> torch.Tensor:
+        return torch.linspace(self.low, self.high, self.logits.shape[-1], device=self.logits.device)
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.softmax(self.logits, dim=-1)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        # keepdim so the event shape stays (..., 1) like the reference
+        val = (self.probs * self.bins).sum(dim=-1, keepdim=True)
+        if self.dims > 1:
+            val = _sum_last(val[..., 0], self.dims - 1)[..., None]
+        return symexp(val)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., 1] raw-scale targets."""
+        k = self.logits.shape[-1]
+        lp = two_hot_log_prob(
+            symlog(x).reshape(-1, 1).float().contiguous(),
+            self.logits.reshape(-1, k).contiguous(),
+            self.bins[None].contiguous(),
+        ).reshape(*x.shape[:-1], 1)
+        return _sum_last(lp, self.dims)
+
+
+def kl_categorical(p_logits: torch.Tensor, q_logits: torch.Tensor, event_ndims: int = 1) -> torch.Tensor:
+    """KL(p || q) between categoricals over the trailing axis, summed over
+    `event_ndims` trailing batch dims (the 32x32 discrete latent)."""
+    p_log = torch.log_softmax(p_logits, dim=-1)
+    q_log = torch.log_softmax(q_logits, dim=-1)
+    return _sum_last((p_log.exp() * (p_log - q_log)).sum(dim=-1), event_ndims)

@@ -3,8 +3,9 @@
 Each source under `sheeprl_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into a shared library with a plain C interface, at first
 use, into `build/kernels/` at the root of the checkout, and loaded with
-`ctypes`. The library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+`ctypes`. The library's file name carries a hash of its source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a
+stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module.
 
 `build_all()` starts one `nvcc` per source, all at once, and waits for them.
@@ -31,7 +32,7 @@ __all__ = [
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every kernel library of the port, by source stem
-SOURCES = ("ln_gru", "conv_ln_silu")
+SOURCES = ("ln_gru", "conv_ln_silu", "deconv_ln_silu", "two_hot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,7 +55,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

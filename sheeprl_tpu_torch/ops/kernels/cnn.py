@@ -1,8 +1,18 @@
 """DreamerV3 encoder stage Conv2d(k4, s2, SAME) -> LayerNorm -> SiLU: the port
-of `conv_ln_silu` (sheeprl_tpu/ops/pallas_cnn.py:236, forward `_enc_call`).
+of `conv_ln_silu` (sheeprl_tpu/ops/pallas_cnn.py:236): its forward
+`_enc_call`, its forward with residuals and its backward
+`_conv_ln_silu_bwd`.
 
-The CUDA kernel is `csrc/conv_ln_silu.cu`. Layouts are the reference's:
-x [N, H, W, Cin] NHWC, w [4, 4, Cin, Cout] HWIO, y [N, H/2, W/2, Cout].
+The CUDA kernel is `csrc/conv_ln_silu.cu`; one launch computes either
+forward (the f32 pre-activation is an optional output). Layouts are the
+reference's: x [N, H, W, Cin] NHWC, w [4, 4, Cin, Cout] HWIO,
+y [N, H/2, W/2, Cout].
+
+`conv_ln_silu` is the entry point the modules call. When autograd needs
+its gradient it runs through `_ConvLnSilu`, whose forward is the residual
+forward and whose backward is the reference's: the LayerNorm/SiLU backward
+from the saved pre-activation (statistics recomputed with the forward's own
+formula), then the convolution's input and weight gradients.
 """
 
 from __future__ import annotations
@@ -14,37 +24,83 @@ import torch.nn.functional as F
 
 from .build import DTYPE_CODES, bind, reduction_splits
 
-__all__ = ["MAX_COUT", "cnn_stage_supported", "conv_ln_silu", "conv_ln_silu_plain"]
+__all__ = [
+    "MAX_COUT", "cnn_stage_supported", "conv_ln_silu", "conv_ln_silu_plain",
+    "conv_ln_silu_residuals", "conv_ln_silu_residuals_plain", "ln_silu_backward", "ln_stats",
+]
 
-# the pixel pass of csrc/conv_ln_silu.cu holds Cout in one warp's registers
+# the pixel pass of csrc/conv_common.cuh holds Cout in one warp's registers
 MAX_COUT = 512
 # projection tile of csrc/conv_ln_silu.cu: channels x pixels, reduction depth
-_TILE_COLS, _TILE_ROWS, _TILE_DEPTH = 64, 16, 32
+_TILE_COLS, _TILE_ROWS, _TILE_DEPTH = 64, 64, 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # conv_ln_silu_forward(dtype, pointers..., sizes..., eps, stream)
-_ARGTYPES = [_I, *[_P] * 6, *[_I] * 6, ctypes.c_float, _P]
+_ARGTYPES = [_I, *[_P] * 7, *[_I] * 6, ctypes.c_float, _P]
 
 
 def cnn_stage_supported(kernel_shape, stride, padding, has_norm: bool, act) -> bool:
-    """Structural eligibility for the fused stage: the Dreamer k4/s2/SAME
-    LayerNorm-SiLU miniblock with a Cout that one block holds."""
+    """Structural eligibility for the fused stage, the reference's guard
+    (sheeprl_tpu/ops/pallas_cnn.py:73-83): the Dreamer k4/s2/SAME
+    LayerNorm-SiLU miniblock exactly. A stage the CUDA kernel cannot hold
+    (Cout above MAX_COUT) is eligible all the same and raises on the card."""
     return (
         tuple(kernel_shape[:2]) == (4, 4)
         and tuple(stride) == (2, 2)
         and padding == "SAME"
         and has_norm
         and act == "silu"
-        and kernel_shape[3] <= MAX_COUT
     )
 
 
-def conv_ln_silu_plain(x, w, scale, offset, eps: float = 1e-3):
-    """Plain PyTorch version: F.conv2d with SAME padding (one pixel each
-    side for k4/s2 on even sizes), F.layer_norm over channels, F.silu — in
-    f32, the result cast to x's dtype, NHWC-contiguous."""
+def ln_stats(pre: torch.Tensor, eps: float):
+    """(hat, rstd) of a LayerNorm over the last axis, in the two-pass order
+    of the reference's `_ln_stats`: the one definition the plain forwards
+    and the backwards share."""
+    mean = pre.mean(dim=-1, keepdim=True)
+    centered = pre - mean
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return centered * rstd, rstd
+
+
+def _ln_silu(pre, scale, offset, eps):
+    return F.silu(ln_stats(pre, eps)[0] * scale + offset)
+
+
+def ln_silu_backward(dy, pre, scale, offset, eps):
+    """Gradient of SiLU(LayerNorm(pre)) wrt pre, scale and offset (the
+    reference's `_ln_silu_bwd`); statistics recomputed from `pre`."""
+    dy = dy.float()
+    hat, rstd = ln_stats(pre, eps)
+    z = hat * scale + offset
+    sig = torch.sigmoid(z)
+    dz = dy * (sig * (1.0 + z * (1.0 - sig)))
+    lead = tuple(range(dz.dim() - 1))
+    dscale = (dz * hat).sum(dim=lead)
+    doffset = dz.sum(dim=lead)
+    g = dz * scale
+    dpre = rstd * (g - g.mean(dim=-1, keepdim=True) - hat * (g * hat).mean(dim=-1, keepdim=True))
+    return dpre, dscale, doffset
+
+
+def _conv_pre(x, w):
+    """The bare conv in f32: SAME padding is one pixel each side for k4/s2
+    on even sizes. NHWC in and out."""
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), stride=2, padding=1)
-    y = F.layer_norm(y.permute(0, 2, 3, 1), (w.shape[3],), scale, offset, eps)
-    return F.silu(y).to(x.dtype).contiguous()
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_ln_silu_plain(x, w, scale, offset, eps: float = 1e-3):
+    """Plain PyTorch version: F.conv2d, the LayerNorm of `ln_stats`, SiLU —
+    in f32, the result cast to x's dtype, NHWC-contiguous."""
+    return _ln_silu(_conv_pre(x, w), scale, offset, eps).to(x.dtype).contiguous()
+
+
+def conv_ln_silu_residuals_plain(x, w, scale, offset, eps: float = 1e-3):
+    """Plain PyTorch version of the residual forward: (y, pre [N, H/2,
+    W/2, Cout] f32)."""
+    pre = _conv_pre(x, w).contiguous()
+    return _ln_silu(pre, scale, offset, eps).to(x.dtype).contiguous(), pre
 
 
 def _check(x, w, scale, offset) -> None:
@@ -53,8 +109,6 @@ def _check(x, w, scale, offset) -> None:
     if w.dim() != 4 or tuple(w.shape[:3]) != (4, 4, x.shape[3]):
         raise ValueError(f"w must be [4, 4, {x.shape[3]}, Cout], got {tuple(w.shape)}")
     cout = w.shape[3]
-    if cout > MAX_COUT:
-        raise ValueError(f"Cout {cout} exceeds the kernel's {MAX_COUT} channels")
     if tuple(scale.shape) != (cout,) or tuple(offset.shape) != (cout,):
         raise ValueError(f"scale/offset must be [{cout}]")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
@@ -65,31 +119,89 @@ def _check(x, w, scale, offset) -> None:
         raise ValueError("x, w, scale, offset must be on one device")
     if not all(t.is_contiguous() for t in (x, w, scale, offset)):
         raise ValueError("x, w, scale, offset must be contiguous")
-
-
-def conv_ln_silu(x, w, scale, offset, eps: float = 1e-3):
-    """Fused Dreamer encoder stage. CPU tensors take the plain version; CUDA
-    tensors launch `csrc/conv_ln_silu.cu`."""
-    _check(x, w, scale, offset)
-    if x.device.type == "cpu":
-        return conv_ln_silu_plain(x, w, scale, offset, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_ln_silu runs on cpu or cuda tensors, got {x.device}")
+
+
+def _launch(x, w, scale, offset, eps, residuals: bool):
+    """One launch of csrc/conv_ln_silu.cu -> y, or (y, pre) with residuals."""
     n, h, wd, cin = x.shape
     cout = w.shape[3]
+    if cout > MAX_COUT:
+        raise ValueError(f"Cout {cout} exceeds the kernel's {MAX_COUT} channels")
     pixels = n * (h // 2) * (wd // 2)
     splits = reduction_splits(-(-cout // _TILE_COLS) * -(-pixels // _TILE_ROWS), 16 * cin, _TILE_DEPTH)
     forward = bind("conv_ln_silu", "conv_ln_silu_forward", _ARGTYPES)
-    pre = torch.empty((splits, pixels, cout), device=x.device, dtype=torch.float32)
+    scratch = torch.empty((splits, pixels, cout), device=x.device, dtype=torch.float32)
     y = torch.empty((n, h // 2, wd // 2, cout), device=x.device, dtype=x.dtype)
+    pre = torch.empty((n, h // 2, wd // 2, cout), device=x.device, dtype=torch.float32) if residuals else None
     with torch.cuda.device(x.device):
         err = forward(
             DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-            offset.data_ptr(), pre.data_ptr(), y.data_ptr(), n, h, wd, cin, cout, splits,
+            offset.data_ptr(), scratch.data_ptr(), y.data_ptr(),
+            None if pre is None else pre.data_ptr(), n, h, wd, cin, cout, splits,
             float(eps), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv_ln_silu_forward launch failed: CUDA error {err}")
+    return (y, pre) if residuals else y
+
+
+def conv_ln_silu_residuals(x, w, scale, offset, eps: float = 1e-3):
+    """The forward with residuals: (y, pre f32). CPU tensors take the plain
+    version; CUDA tensors launch `csrc/conv_ln_silu.cu` with its residual
+    output."""
+    _check(x, w, scale, offset)
+    if x.device.type == "cpu":
+        return conv_ln_silu_residuals_plain(x, w, scale, offset, eps)
+    res = _launch(x, w, scale, offset, eps, residuals=True)
+    conv_ln_silu_residuals.launches += 1
+    return res
+
+
+conv_ln_silu_residuals.launches = 0
+
+
+class _ConvLnSilu(torch.autograd.Function):
+    """Residual forward + the reference's `_conv_ln_silu_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, offset, eps):
+        y, pre = conv_ln_silu_residuals(x, w, scale, offset, eps)
+        ctx.save_for_backward(x, w, scale, offset, pre)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, scale, offset, pre = ctx.saved_tensors
+        dpre, dscale, doffset = ln_silu_backward(dy, pre, scale, offset, ctx.eps)
+        # the conv's VJP in x's dtype, as the reference's jax.vjp(_enc_conv)
+        g = dpre.to(x.dtype).permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1)
+        x_nchw = x.permute(0, 3, 1, 2)
+        dx = dw = None
+        needs = ctx.needs_input_grad
+        if needs[0]:
+            dx = torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, g, stride=2, padding=1)
+            dx = dx.permute(0, 2, 3, 1).contiguous()
+        if needs[1]:
+            dw = torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, g, stride=2, padding=1)
+            dw = dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
+        return dx, dw, dscale, doffset, None
+
+
+def conv_ln_silu(x, w, scale, offset, eps: float = 1e-3):
+    """Fused Dreamer encoder stage. When autograd needs a gradient the stage
+    runs through `_ConvLnSilu` (residual forward); otherwise CPU tensors
+    take the plain version and CUDA tensors launch the plain forward of
+    `csrc/conv_ln_silu.cu`."""
+    _check(x, w, scale, offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, scale, offset)):
+        return _ConvLnSilu.apply(x, w, scale, offset, eps)
+    if x.device.type == "cpu":
+        return conv_ln_silu_plain(x, w, scale, offset, eps)
+    y = _launch(x, w, scale, offset, eps, residuals=False)
     conv_ln_silu.launches += 1
     return y
 

@@ -139,11 +139,11 @@ def _build_dv3(args, device: torch.device):
     actions_dim, is_continuous = actions_dim_of(action_space)
 
     generator = torch.Generator().manual_seed(targs.seed)
-    encoder, rssm, actor = build_models(
+    world_model, actor, _, _ = build_models(
         generator, actions_dim, is_continuous, targs, observation_space.spaces, cnn_keys, mlp_keys
     )
     player = PlayerDV3(
-        encoder, rssm, actor, actions_dim=actions_dim,
+        world_model.encoder, world_model.rssm, actor, actions_dim=actions_dim,
         stochastic_size=targs.stochastic_size, discrete_size=targs.discrete_size,
         recurrent_state_size=targs.recurrent_state_size, is_continuous=is_continuous,
         compute_dtype=targs.precision,

@@ -1,12 +1,16 @@
 """The port's CUDA kernels on the card, against their plain versions, at the
-serving path's shapes (DreamerV3 width, rungs 1 and 8). Marked `cuda`: they
-skip without a CUDA device. The file imports neither jax nor the reference,
-so it also runs on a machine that has neither:
+serving path's shapes (DreamerV3 width, rungs 1 and 8) and at the training
+path's (residual forwards and backwards, the deconv and two_hot), and the
+gradient reaching the parameters through CNN, DeCNN and LayerNormGRUCell on
+CUDA tensors. Marked `cuda`: they skip without a CUDA device. The file
+imports neither jax nor the reference, so it also runs on a machine that
+has neither:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Tolerances: f32 atol/rtol 1e-4 (f32 sums in another order), bf16 2e-2
-(one bf16 rounding of the output).
+(one bf16 rounding of the output). Gradients are sums over every pixel of
+a batch, which cancel: each is held to 1e-4 of its largest magnitude.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import cnn, gru
+from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STAGES = [(3, 32, 64), (32, 64, 32), (64, 128, 16), (128, 256, 8)]
@@ -82,3 +86,90 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     cw = torch.zeros(4, 4, 3, 8, device=cuda_device)
     with pytest.raises(ValueError, match="one device"):
         cnn.conv_ln_silu(cx, cw.cpu(), torch.ones(8), torch.zeros(8))
+
+
+def _grad_close(got, want, tol=1e-4):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * max(scale, 1e-30), (float((got - want).abs().max()), scale)
+
+
+@pytest.mark.cuda
+def test_residual_kernels_match_plain_and_count(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    dev = cuda_device
+    x, h = _rand(gen, 16, 512).to(dev), torch.tanh(_rand(gen, 16, 512)).to(dev)
+    w = _rand(gen, 1536, 1024, scale=0.03).to(dev)
+    sc, of = (1.0 + _rand(gen, 1536, scale=0.1)).to(dev), _rand(gen, 1536, scale=0.1).to(dev)
+    before = gru.layernorm_gru_cell_residuals.launches
+    got = gru.layernorm_gru_cell_residuals(x, h, w, sc, of, 1e-5)
+    want = gru.layernorm_gru_cell_residuals_plain(x, h, w, sc, of, 1e-5)
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, atol=1e-4, rtol=1e-4)
+    assert gru.layernorm_gru_cell_residuals.launches == before + 1
+    cx = torch.rand(64, 32, 32, 32, generator=gen).to(dev)
+    cw = _rand(gen, 4, 4, 32, 64, scale=0.05).to(dev)
+    cs, co = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    for g, wv in zip(cnn.conv_ln_silu_residuals(cx, cw, cs, co, 1e-3), cnn.conv_ln_silu_residuals_plain(cx, cw, cs, co, 1e-3)):
+        torch.testing.assert_close(g, wv, atol=1e-4, rtol=1e-4)
+    dx = _rand(gen, 64, 8, 8, 128).to(dev)
+    dk = _rand(gen, 4, 4, 128, 64, scale=0.03).to(dev)
+    before = deconv.deconv_ln_silu.launches
+    for g, wv in zip(deconv.deconv_ln_silu_residuals(dx, dk, cs, co, 1e-3),
+                     deconv.deconv_ln_silu_residuals_plain(dx, dk, cs, co, 1e-3)):
+        torch.testing.assert_close(g, wv, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(deconv.deconv_ln_silu(dx, dk, cs, co, 1e-3),
+                               deconv.deconv_ln_silu_plain(dx, dk, cs, co, 1e-3), atol=1e-4, rtol=1e-4)
+    assert deconv.deconv_ln_silu.launches == before + 2
+    bins = torch.linspace(-20.0, 20.0, 255, device=dev)[None]
+    tx = (8.0 * _rand(gen, 1024, 1)).to(dev)
+    logits = _rand(gen, 1024, 255, scale=2.0).to(dev)
+    torch.testing.assert_close(two_hot.two_hot_log_prob(tx, logits, bins),
+                               two_hot.two_hot_log_prob_plain(tx, logits, bins), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gradient_reaches_the_parameters_on_cuda(cuda_device):
+    """backward() through CNN, DeCNN and LayerNormGRUCell on CUDA tensors
+    fills every parameter's .grad, equal to the CPU's (the plain versions
+    under the same autograd.Functions)."""
+    from sheeprl_tpu_torch.nn.blocks import CNN, DeCNN
+    from sheeprl_tpu_torch.nn.recurrent import LayerNormGRUCell
+
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(act="silu", layer_norm=True, use_bias=False, norm_eps=1e-3, generator=gen)
+    modules = {
+        "cnn": CNN(3, [8, 16], kernel_sizes=[4, 4], strides=[2, 2], **kw),
+        "decnn": DeCNN(16, [8, 3], kernel_sizes=[4, 4], strides=[2, 2], **kw),
+        "gru": LayerNormGRUCell(12, 16, generator=gen),
+    }
+    inputs = {
+        "cnn": (torch.rand(4, 16, 16, 3, generator=gen),),
+        "decnn": (_rand(gen, 4, 4, 4, 16),),
+        "gru": (_rand(gen, 4, 12), torch.tanh(_rand(gen, 4, 16))),
+    }
+    counters = (cnn.conv_ln_silu_residuals, deconv.deconv_ln_silu, gru.layernorm_gru_cell_residuals)
+    before = [c.launches for c in counters]
+    for name, module in modules.items():
+        grads = {}
+        for device in ("cpu", cuda_device):
+            m = module.to(device)
+            m.zero_grad(set_to_none=True)
+            out = m(*[t.detach().to(device).requires_grad_(t.dim() == 2 or name == "decnn") for t in inputs[name]])
+            out.float().pow(2).mean().backward()
+            grads[str(device)] = {n: p.grad.detach().cpu() for n, p in m.named_parameters() if p.requires_grad}
+        cpu, gpu = grads["cpu"], grads[str(cuda_device)]
+        assert set(gpu) == {n for n, _ in module.named_parameters()}, name
+        for n in cpu:
+            assert float(gpu[n].abs().max()) > 0, f"{name}.{n}"
+            _grad_close(gpu[n], cpu[n])
+    assert all(c.launches > b for c, b in zip(counters, before))
+
+
+@pytest.mark.cuda
+def test_wider_stage_than_the_kernel_raises_on_cuda(cuda_device):
+    from sheeprl_tpu_torch.nn.blocks import CNN
+
+    wide = CNN(8, [cnn.MAX_COUT + 1], kernel_sizes=[4], strides=[2], act="silu", layer_norm=True,
+               use_bias=False).to(cuda_device)
+    with pytest.raises(ValueError, match="Cout"):
+        wide(torch.zeros(1, 8, 8, 8, device=cuda_device))

@@ -76,10 +76,10 @@ def tiny_players(seed: int = 0, actions_dim=(3,), image=(64, 64, 3), vector: int
     )
     targs = DreamerV3Args(**TINY_DV3)
     tspace = {"rgb": spaces.Box(0, 255, image, np.uint8), "state": spaces.Box(-np.inf, np.inf, (vector,))}
-    encoder, rssm, actor = build_models(
+    twm, tactor, _, _ = build_models(
         torch.Generator().manual_seed(seed), list(actions_dim), False, targs, tspace, cnn_keys, mlp_keys
     )
-    tplayer = PlayerDV3(encoder, rssm, actor, actions_dim=actions_dim, **common)
+    tplayer = PlayerDV3(twm.encoder, twm.rssm, tactor, actions_dim=actions_dim, **common)
     load_jax_params(tplayer, jax_flat(jplayer))
     return jplayer, tplayer
 
@@ -124,6 +124,37 @@ def test_interop_raises_naming_the_path(fault):
         err = ValueError
     with pytest.raises(err, match=path.replace(".", r"\.")):
         state_dict_from_jax(tplayer, flat)
+
+
+def test_training_models_round_trip_without_leftovers():
+    """The world model (decoders included), actor, critic and target critic
+    carry across: ConvTranspose2d kernels stay HWIO, the MLP decoder's heads
+    are keyed by observation key, Linear weights transpose."""
+    import gymnasium as gym
+    import jax
+
+    from sheeprl_tpu.algos.dreamer_v3.agent import build_models as jax_build
+    from sheeprl_tpu.algos.dreamer_v3.args import DreamerV3Args as JaxArgs
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.interop import load_jax_params
+
+    jspace = {"rgb": gym.spaces.Box(0, 255, (64, 64, 3), np.uint8),
+              "state": gym.spaces.Box(-np.inf, np.inf, (5,), np.float32)}
+    tspace = {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8), "state": spaces.Box(-np.inf, np.inf, (5,))}
+    ref = jax_build(jax.random.PRNGKey(0), [3], False, JaxArgs(**TINY_DV3), jspace, ["rgb"], ["state"])
+    port = build_models(torch.Generator().manual_seed(0), [3], False, DreamerV3Args(**TINY_DV3), tspace,
+                        ["rgb"], ["state"])
+    for r, p in zip(ref, port):
+        flat = jax_flat(r)
+        sd = load_jax_params(p, flat).state_dict()
+        assert set(flat) == set(sd)
+    flat, sd = jax_flat(ref[0]), port[0].state_dict()
+    k = "observation_model.cnn_decoder.model.layers.0.kernel"
+    np.testing.assert_array_equal(sd[k].numpy(), flat[k])  # HWIO both sides
+    h = "observation_model.mlp_decoder.heads.state.weight"
+    np.testing.assert_array_equal(sd[h].numpy(), flat[h].T)
 
 
 def test_nested_dict_input_is_flattened():
