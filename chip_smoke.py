@@ -16,7 +16,8 @@ the final line:
      the serving path gives it (and the GRU at training batch 1024), and
      the training path's kernels at its shapes (the residual GRU at B = 16
      and 1,024, the residual conv and the deconv at N = 1,024 for every
-     encoder and decoder stage, two_hot at N = 1,024 and 15,360), in
+     encoder and decoder stage, two_hot at N = 1,024 and 15,360, the fused
+     RSSM step at the CartPole path's widths and B = 16, 1 and 1,024), in
      float32 and bfloat16, with CUDA-event times for the kernel, the plain
      version and a library yardstick the port never calls, and the bound
      from bytes (3.35 TB/s) and operations (67 TFLOP/s f32, 989 TFLOP/s
@@ -38,7 +39,14 @@ the final line:
      residual GRU, 4 residual conv, 3 deconv and 3 two_hot per gradient
      step and 1 GRU and 4 conv per player step, and one gradient step must
      match the same step with the plain versions on the card. Then a
-     torch.profiler window over two gradient steps (busy share, trace).
+     torch.profiler window over two gradient steps (busy share, trace);
+  7. cartpole: `sheeprl_tpu_torch dreamer_v3 --env_id CartPole-v1 --mlp_keys
+     state --precision bfloat16` at the same width and run length, where
+     the RSSM takes the fused step (kernel 5): losses finite, every model
+     moved, launch counts 64 fused RSSM, 15 residual GRU and 3 two_hot per
+     gradient step and 1 GRU per player step (no conv or deconv), one bf16
+     gradient step against the same step with the plain versions on the
+     card (rtol 3e-2, atol 3e-3), and a profile of two gradient steps.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 `{"ok": true, "device": {...}}` as the last line. Detailed results (report.json,
@@ -230,17 +238,22 @@ def _flat(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def check_case(torch, kernel, shape, dtype_name, run, plain, counter, nbytes, flops, library=None):
+def check_case(torch, kernel, shape, dtype_name, run, plain, counter, nbytes, flops, library=None,
+               rounded_inside=False):
     """One kernel launch against its plain version on the same inputs (every
     output compared), then CUDA-event times of the kernel, the plain
-    version and the library yardstick."""
+    version and the library yardstick. An f32 output is held to the f32
+    tolerance, unless `rounded_inside`: then it is computed from
+    intermediates rounded to the working dtype, and one of them rounding
+    to its neighbour moves it by that dtype's rounding."""
     before = counter()
     got = _flat(run())
     torch.cuda.synchronize()
     if counter() != before + 1:
         raise RuntimeError(f"{kernel} did not count its launch")
     want = _flat(plain())
-    errs = [errors(torch, g, w, dtype_name if g.dtype != torch.float32 else "float32") for g, w in zip(got, want)]
+    errs = [errors(torch, g, w, dtype_name if g.dtype != torch.float32 or rounded_inside else "float32")
+            for g, w in zip(got, want)]
     ms = device_ms(torch, run)
     plain_ms = device_ms(torch, plain)
     library_ms = device_ms(torch, library) if library is not None else None
@@ -259,9 +272,10 @@ def check_backward(torch, kernel, shape, dtype_name, fn, plain, inputs, grad_mas
     magnitude (tolerance TOL of the working dtype), not element by element."""
     def grads(f):
         leaves = [t.detach().clone().requires_grad_(m) for t, m in zip(inputs, grad_mask)]
-        out = f(*leaves)
-        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(out.device, out.dtype)
-        return torch.autograd.grad(out, [t for t in leaves if t.requires_grad], cot)
+        outs = _flat(f(*leaves))
+        g = torch.Generator().manual_seed(7)
+        cots = [torch.randn(o.shape, generator=g).to(o.device, o.dtype) for o in outs]
+        return torch.autograd.grad(outs, [t for t in leaves if t.requires_grad], cots)
 
     got, want = grads(fn), grads(plain)
     torch.cuda.synchronize()
@@ -415,6 +429,84 @@ def train_kernel_checks(torch, F, gen, log_row):
                                        two_hot.two_hot_log_prob, two_hot.two_hot_log_prob_plain,
                                        (x, logits, bins), (False, True, False), gen))
             log_row(back[-1])
+    return rows, back
+
+
+# the fused RSSM step on the CartPole path: one-hot posterior (32 x 32) and a
+# 2-way action, DreamerV3's default dense, recurrent and hidden width
+RSSM_DIMS = dict(dx=32 * 32 + 2, rec=512, d=512, hd=512, e=512, sd=32 * 32)
+RSSM_BATCHES = (16, 1, TRAIN_N)  # the scan's B, one row, the imagination's rows
+RSSM_EPS = (1e-3, 1e-5, 1e-3)
+
+
+def rssm_shape(batch: int) -> str:
+    g = RSSM_DIMS
+    return f"B={batch} Dx={g['dx']} R={g['rec']} D={g['d']} Hd={g['hd']} E={g['e']} SD={g['sd']}"
+
+
+def rssm_kernel_checks(torch, F, gen, log_row):
+    """`fused_rssm_step` against its plain version at the CartPole path's
+    widths, B = 16, 1 and 1,024, in float32 and bfloat16, with the unfused
+    module path on cuBLAS (`F.linear` + `F.layer_norm` + activations and
+    gates) as its library yardstick; then the gradients of all 19 inputs
+    at B = 16 against autograd through the plain version, in both dtypes.
+    -> (forward rows, backward rows)."""
+    from sheeprl_tpu_torch.ops.kernels import rssm
+
+    dev = torch.device("cuda")
+    g = RSSM_DIMS
+    dx, rec, d, hd, e, sd = g["dx"], g["rec"], g["d"], g["hd"], g["e"], g["sd"]
+    mats = ((d, dx), (3 * rec, d + rec), (hd, rec), (sd, hd), (hd, rec + e), (sd, hd))
+    rows, back = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        item = torch.empty((), dtype=dtype).element_size()
+        for batch in RSSM_BATCHES:
+            def mat(o, i):
+                return (torch.randn(o, i, generator=gen) / i ** 0.5).to(dev, dtype)
+
+            def vec(n, base=0.0):
+                return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
+
+            post = torch.eye(32)[torch.randint(0, 32, (batch, 32), generator=gen)].reshape(batch, -1)
+            act = torch.eye(2)[torch.randint(0, 2, (batch,), generator=gen)]
+            inputs = [
+                torch.cat([post, act], dim=-1).to(dev, dtype),
+                torch.tanh(torch.randn(batch, rec, generator=gen)).to(dev, dtype),
+                torch.randn(batch, e, generator=gen).to(dev, dtype),
+                mat(d, dx), vec(d, 1.0), vec(d), mat(3 * rec, d + rec), vec(3 * rec, 1.0), vec(3 * rec),
+                mat(hd, rec), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
+                mat(hd, rec + e), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
+            ]
+
+            def library(t=inputs, dtype=dtype):
+                x, h, emb, wm, sm, om, wg, sg, og, wt1, st1, ot1, wt2, bt2, wr1, sr1, or1, wr2, br2 = t
+                z = F.silu(F.layer_norm(F.linear(x, wm).float(), (d,), sm, om, 1e-3)).to(dtype)
+                parts = F.layer_norm(F.linear(torch.cat([z, h], dim=-1), wg).float(), (3 * rec,), sg, og, 1e-5)
+                r, c, u = parts.chunk(3, dim=-1)
+                upd = torch.sigmoid(u - 1.0)
+                hn = (upd * torch.tanh(torch.sigmoid(r) * c) + (1.0 - upd) * h.float()).to(dtype)
+                t1 = F.silu(F.layer_norm(F.linear(hn, wt1).float(), (hd,), st1, ot1, 1e-3)).to(dtype)
+                r1 = F.layer_norm(F.linear(torch.cat([hn, emb], dim=-1), wr1).float(), (hd,), sr1, or1, 1e-3)
+                r1 = F.silu(r1).to(dtype)
+                return hn, F.linear(t1, wt2).float() + bt2, F.linear(r1, wr2).float() + br2
+
+            nbytes = (item * (sum(t.numel() for t in inputs[:3]) + sum(o * i for o, i in mats) + batch * rec)
+                      + 4 * (2 * (d + 3 * rec + 2 * hd) + 2 * sd + 2 * batch * sd))
+            flops = 2.0 * batch * sum(o * i for o, i in mats)
+            with torch.no_grad():
+                rows.append(check_case(
+                    torch, "fused_rssm_step", rssm_shape(batch), name,
+                    lambda t=inputs: rssm.fused_rssm_step(*t, "silu", RSSM_EPS),
+                    lambda t=inputs: rssm.fused_rssm_step_plain(*t, "silu", RSSM_EPS),
+                    lambda: rssm.fused_rssm_step.launches, nbytes, flops, library, rounded_inside=True))
+            log_row(rows[-1])
+            if batch == 16:
+                back.append(check_backward(torch, "fused_rssm_step", rssm_shape(batch), name,
+                                           lambda *t: rssm.fused_rssm_step(*t, "silu", RSSM_EPS),
+                                           lambda *t: rssm.fused_rssm_step_plain(*t, "silu", RSSM_EPS),
+                                           inputs, (True,) * len(inputs), gen))
+                log_row(back[-1])
     return rows, back
 
 
@@ -610,45 +702,67 @@ TRAIN_ARGV = ["dreamer_v3", "--env_id", "discrete_dummy", "--cnn_keys", "rgb", "
 # launches per gradient step (T = 64 scan steps + H = 15 imagination steps;
 # 4 encoder stages; 3 decoder stages; the reward loss and the critic's two)
 PER_GRADIENT_STEP = {"layernorm_gru_cell_residuals": 79, "conv_ln_silu_residuals": 4,
-                     "deconv_ln_silu": 3, "two_hot_log_prob": 3}
+                     "deconv_ln_silu": 3, "two_hot_log_prob": 3, "fused_rssm_step": 0}
 PER_PLAYER_STEP = {"layernorm_gru_cell": 1, "conv_ln_silu": 4}
+
+# phase 7: the same model and run on CartPole-v1's 4-vector in bf16, where
+# the RSSM's step weights (3.93 M, 7.9 MB) fit the fused step's 10 MiB guard
+CARTPOLE_ARGV = ["dreamer_v3", "--env_id", "CartPole-v1", "--mlp_keys", "state", "--precision", "bfloat16",
+                 "--num_envs", "1", "--buffer_size", "256", "--learning_starts", str(TRAIN_STARTS),
+                 "--train_every", "1", "--pretrain_steps", str(PRETRAIN), "--total_steps", str(TRAIN_STEPS)]
+# launches per gradient step: the 64 scan steps fused, 15 imagination steps,
+# the two_hot's three; no pixels
+CARTPOLE_PER_GRADIENT_STEP = {"fused_rssm_step": 64, "layernorm_gru_cell_residuals": 15, "two_hot_log_prob": 3,
+                              "conv_ln_silu_residuals": 0, "deconv_ln_silu": 0}
+CARTPOLE_PER_PLAYER_STEP = {"layernorm_gru_cell": 1, "conv_ln_silu": 0}
+# one full-width bf16 gradient step, kernels vs plain versions: see PERF.md
+# (PR 3) for the derivation; about ten bf16 roundings (2^-9 each) stack on
+# the path to each metric, with 1.5x headroom
+TRAIN_BF16_METRIC_RTOL, TRAIN_BF16_METRIC_ATOL = 3e-2, 3e-3
 
 
 def train_counters():
-    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
+    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, rssm, two_hot
 
     return {"layernorm_gru_cell": gru.layernorm_gru_cell, "layernorm_gru_cell_residuals": gru.layernorm_gru_cell_residuals,
             "conv_ln_silu": cnn.conv_ln_silu, "conv_ln_silu_residuals": cnn.conv_ln_silu_residuals,
-            "deconv_ln_silu": deconv.deconv_ln_silu, "two_hot_log_prob": two_hot.two_hot_log_prob}
+            "deconv_ln_silu": deconv.deconv_ln_silu, "two_hot_log_prob": two_hot.two_hot_log_prob,
+            "fused_rssm_step": rssm.fused_rssm_step}
 
 
-def drive_train(run, root_dir: str) -> tuple[dict, list, dict]:
+def drive_train(run, root_dir: str, argv=tuple(TRAIN_ARGV), run_name: str = "train") -> tuple[dict, list, dict]:
     """`python -m sheeprl_tpu_torch dreamer_v3` through the CLI entry point,
     in this process, with every launch count set to 0 just before. ->
     (launches, per-training records, the final record)."""
     counters = train_counters()
     for fn in counters.values():
         fn.launches = 0
-    run([*TRAIN_ARGV, "--root_dir", root_dir, "--run_name", "train"])
+    run([*argv, "--root_dir", root_dir, "--run_name", run_name])
     launches = {name: fn.launches for name, fn in counters.items()}
-    with open(os.path.join(root_dir, "train", "metrics.jsonl")) as fh:
+    with open(os.path.join(root_dir, run_name, "metrics.jsonl")) as fh:
         records = [json.loads(line) for line in fh if line.strip()]
     return launches, records[:-1], records[-1]
 
 
-def _train_setup(torch, np, device):
+def _train_setup(torch, np, device, cartpole: bool = False):
     """A full-width DreamerV3 train state built by the package's own
-    functions, one [T, B] batch of random pixels and the step's Gumbel
-    noise, all from fixed seeds."""
+    functions, one [T, B] batch and the step's Gumbel noise, all from fixed
+    seeds: random pixels in float32, or (`cartpole`) CartPole's 4-vector in
+    bfloat16."""
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_models
     from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.ops.moments import Moments
 
-    args = DreamerV3Args()
-    space = {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}
-    wm, actor, critic, target = build_models(torch.Generator().manual_seed(0), [2], False, args, space, ["rgb"], [])
+    if cartpole:
+        args = DreamerV3Args(precision="bfloat16")
+        space, cnn_keys, mlp_keys = {"state": spaces.Box(-np.inf, np.inf, (4,))}, [], ["state"]
+    else:
+        args = DreamerV3Args()
+        space, cnn_keys, mlp_keys = {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}, ["rgb"], []
+    wm, actor, critic, target = build_models(torch.Generator().manual_seed(0), [2], False, args, space,
+                                             cnn_keys, mlp_keys)
     for m in (wm, actor, critic, target):
         m.to(device)
     state = dv3.DV3TrainState(wm, actor, critic, target, *dv3.make_optimizers(args, wm, actor, critic),
@@ -657,17 +771,23 @@ def _train_setup(torch, np, device):
     rng = np.random.default_rng(0)
     dones = np.zeros((T, B, 1), np.float32)
     is_first = np.zeros((T, B, 1), np.float32)
-    dones[4::5, ::3], is_first[5::5, ::3] = 1.0, 1.0  # dummy-env episodes end every fifth step
-    batch = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8),
-             "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))],
-             "rewards": rng.normal(size=(T, B, 1)).astype(np.float32), "dones": dones, "is_first": is_first}
+    if cartpole:
+        dones[19::20, ::3], is_first[20::20, ::3] = 1.0, 1.0  # episodes of 20 steps in every third row
+        batch = {"state": (rng.normal(size=(T, B, 4)) * [0.5, 0.5, 0.05, 0.5]).astype(np.float32),
+                 "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))],
+                 "rewards": np.ones((T, B, 1), np.float32), "dones": dones, "is_first": is_first}
+    else:
+        dones[4::5, ::3], is_first[5::5, ::3] = 1.0, 1.0  # dummy-env episodes end every fifth step
+        batch = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8),
+                 "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))],
+                 "rewards": rng.normal(size=(T, B, 1)).astype(np.float32), "dones": dones, "is_first": is_first}
     data = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     noise = dv3.draw_noise(args, T, B, [2], torch.Generator(device=device).manual_seed(1), device)
-    step = dv3.make_train_step(args, ["rgb"], [], [2], False)
+    step = dv3.make_train_step(args, cnn_keys, mlp_keys, [2], False)
     return args, state, data, noise, step
 
 
-def train_plain_check(torch, np, device):
+def train_plain_check(torch, np, device, cartpole: bool = False):
     """One full-width gradient step with the kernels against the same step
     (same weights, batch and noise) with every kernel call of the modules
     pointed at its plain version, on the card. -> (metrics with kernels,
@@ -675,25 +795,27 @@ def train_plain_check(torch, np, device):
     model over its tolerance 2*lr + 1e-6)."""
     import copy
 
+    import sheeprl_tpu_torch.algos.dreamer_v3.agent as agent_mod
     import sheeprl_tpu_torch.nn.blocks as blocks_mod
     import sheeprl_tpu_torch.nn.recurrent as recurrent_mod
     import sheeprl_tpu_torch.ops.distributions as dist_mod
-    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
+    from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, rssm, two_hot
 
-    args, state, data, noise, step = _train_setup(torch, np, device)
+    args, state, data, noise, step = _train_setup(torch, np, device, cartpole)
     plain_state = copy.deepcopy(state)
     counters = train_counters()
     kernel_metrics = step(state, data, 1.0, noise)
     saved = (blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu, recurrent_mod.layernorm_gru_cell,
-             dist_mod.two_hot_log_prob)
+             dist_mod.two_hot_log_prob, agent_mod.fused_rssm_step)
     blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu = cnn.conv_ln_silu_plain, deconv.deconv_ln_silu_plain
     recurrent_mod.layernorm_gru_cell, dist_mod.two_hot_log_prob = gru.layernorm_gru_cell_plain, two_hot.two_hot_log_prob_plain
+    agent_mod.fused_rssm_step = rssm.fused_rssm_step_plain
     before = {k: fn.launches for k, fn in counters.items()}
     try:
         plain_metrics = step(plain_state, data, 1.0, noise)
     finally:
         (blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu, recurrent_mod.layernorm_gru_cell,
-         dist_mod.two_hot_log_prob) = saved
+         dist_mod.two_hot_log_prob, agent_mod.fused_rssm_step) = saved
     if {k: fn.launches for k, fn in counters.items()} != before:
         raise RuntimeError("the plain-version step launched a kernel")
     param_err = {}
@@ -703,13 +825,14 @@ def train_plain_check(torch, np, device):
     return kernel_metrics, plain_metrics, param_err
 
 
-def profile_train(torch, np, device, steps: int = 2):
+def profile_train(torch, np, device, steps: int = 2, cartpole: bool = False,
+                  trace: str = "trace_train.json"):
     """Where a gradient step's time goes: host wall of `steps` synchronized
     gradient steps, then a torch.profiler window over as many more; the
     busy share is the kernels' device time over the unprofiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, state, data, noise, step = _train_setup(torch, np, device)
+    _, state, data, noise, step = _train_setup(torch, np, device, cartpole)
     step(state, data, 1.0, noise)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -721,7 +844,7 @@ def profile_train(torch, np, device, steps: int = 2):
         for _ in range(steps):
             step(state, data, 0.02, noise)
         torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace_train.json"))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, trace))
     kernels: dict[str, list] = {}
     for e in prof.events():  # kernels only: an optimizer's annotation range overlaps its kernels
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
@@ -733,6 +856,60 @@ def profile_train(torch, np, device, steps: int = 2):
     return dict(step_ms=wall_ms, device_ms_per_step=device_ms, device_busy_share=device_ms / wall_ms,
                 launches_per_step=sum(r[2] for r in rows) / steps,
                 top=[dict(name=k, ms_per_step=ms / steps, calls_per_step=c / steps) for k, ms, c in rows[:15]])
+
+
+def cartpole_phase(torch, np, run, metrics, device) -> dict:
+    """Phase 7: `dreamer_v3 --env_id CartPole-v1 --mlp_keys state --precision
+    bfloat16` at full width through the CLI, with every launch count set to
+    0 just before; the exact launch counts; one bf16 gradient step with the
+    kernels against the same step with the plain versions; a profile of two
+    steps. Raises on any failure. -> the phase's report."""
+    root = os.path.join(OUT_DIR, "train_logs")
+    shutil.rmtree(os.path.join(root, "cartpole"), ignore_errors=True)  # records are appended
+    t0 = time.perf_counter()
+    launches, records, done = drive_train(run, root, CARTPOLE_ARGV, "cartpole")
+    wall = time.perf_counter() - t0
+    grad_steps, player_steps = done["gradient_steps"], done["player_steps"]
+    finite = all(math.isfinite(r[k]) for r in records for k in metrics)
+    moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+    expected = {k: 0 for k in launches}
+    expected.update({k: n * grad_steps for k, n in CARTPOLE_PER_GRADIENT_STEP.items()})
+    expected.update({k: n * player_steps for k, n in CARTPOLE_PER_PLAYER_STEP.items()})
+    step_ms = sorted(done["train_step_ms"][1:])
+    step_ms_median = step_ms[len(step_ms) // 2]
+    returns = [r["Rewards/rew_avg"] for r in records if "Rewards/rew_avg" in r]
+    log(f"[cartpole] {' '.join(CARTPOLE_ARGV)}: {grad_steps} gradient steps, {player_steps} player steps, "
+        f"{done['env_steps']} env steps in {wall:.1f} s; losses finite: {finite}; parameter change (L2) "
+        f"{moved}; launches {launches}")
+    log(f"[cartpole] host wall per gradient step: median {step_ms_median:.2f} ms over {len(step_ms)} steps "
+        f"(first {done['train_step_ms'][0]:.1f} ms); env steps/s while the player acts: "
+        f"{done['policy_env_steps_per_s']:.1f}; mean returns of the episodes ended per record {returns}; "
+        "last losses " + ", ".join(f"{k.split('/')[1]}={records[-1][k]:.4g}" for k in metrics if k.startswith("Loss/")))
+    if grad_steps < 8 or not finite or min(moved.values()) <= 0:
+        raise RuntimeError("the CartPole run took fewer than 8 gradient steps, lost finiteness or moved nothing")
+    if launches != expected:
+        raise RuntimeError(f"launch counts {launches} != {expected} for {grad_steps} gradient steps "
+                           f"and {player_steps} player steps")
+    kernel_m, plain_m, param_err = train_plain_check(torch, np, device, cartpole=True)
+    bad = [k for k in metrics
+           if not abs(kernel_m[k] - plain_m[k]) <= TRAIN_BF16_METRIC_ATOL + TRAIN_BF16_METRIC_RTOL * abs(plain_m[k])]
+    rel = {k.split("/")[1]: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-12) for k in metrics}
+    log("[cartpole] one bf16 gradient step with the kernels vs the plain versions on the card (metric "
+        f"tolerance rtol {TRAIN_BF16_METRIC_RTOL:g} atol {TRAIN_BF16_METRIC_ATOL:g}; parameters 2*lr + 1e-6): "
+        + ", ".join(f"{k.split('/')[1]} {kernel_m[k]:.6g}/{plain_m[k]:.6g}" for k in metrics)
+        + f"; largest relative metric difference {max(rel.values()):.3e}; parameter difference over "
+        f"tolerance {param_err}")
+    if bad or max(param_err.values()) > 1.0:
+        raise RuntimeError(f"the bf16 kernel step disagrees with the plain-version step: {bad} {param_err}")
+    prof = profile_train(torch, np, device, cartpole=True, trace="trace_cartpole.json.gz")
+    log(f"[cartpole-profile] 2 gradient steps: host wall {prof['step_ms']:.2f} ms a step, device time "
+        f"{prof['device_ms_per_step']:.2f} ms a step in {prof['launches_per_step']:.0f} launches, "
+        f"busy share {prof['device_busy_share']:.3f}")
+    for row in prof["top"]:
+        log(f"[cartpole-profile]   {row['ms_per_step']:.4f} ms x{row['calls_per_step']:.0f}  {row['name'][:90]}")
+    return dict(argv=CARTPOLE_ARGV, launches=launches, expected=expected, records=records, done=done,
+                step_ms_median=step_ms_median, profile=prof,
+                plain_check=dict(kernel=kernel_m, plain=plain_m, relative=rel, param_err=param_err))
 
 
 def main() -> int:
@@ -796,6 +973,9 @@ def main() -> int:
                 log("[kernels]" + fmt(results[-1]))
     train_rows, backward_rows = train_kernel_checks(torch, F, gen, lambda r: log("[kernels]" + fmt(r)))
     results += train_rows
+    rssm_rows, rssm_backward = rssm_kernel_checks(torch, F, gen, lambda r: log("[kernels]" + fmt(r)))
+    results += rssm_rows
+    backward_rows += rssm_backward
     report["kernel_checks"] = results
     report["backward_checks"] = backward_rows
     bad = [r for r in results + backward_rows if not r["within_tol"]]
@@ -907,10 +1087,14 @@ def main() -> int:
                                                                             param_err=param_err),
                            profile=prof_t)
 
+    # -- phase 7: the CartPole bf16 training slice (kernel 5) -------------------
+    report["cartpole"] = cartpole_phase(torch, np, run, METRICS, torch.device("cuda"))
+    cartpole_launches = report["cartpole"]["launches"]
+
     # -- the kernels line: each kernel's work in one step of its path ------------
-    def rows_of(kernel, shapes):
+    def rows_of(kernel, shapes, dtype="float32"):
         return [(r, w) for shape, w in shapes for r in results
-                if r["kernel"] == kernel and r["dtype"] == "float32" and r["shape"] == shape]
+                if r["kernel"] == kernel and r["dtype"] == dtype and r["shape"] == shape]
 
     deconv_shapes = [(f"N={TRAIN_N} {cin}->{cout} @{sz}x{sz}->{2 * sz}x{2 * sz}", 1) for cin, cout, sz in DECONV_STAGES]
     per_step = {
@@ -925,6 +1109,8 @@ def main() -> int:
                                           [(f"N={TRAIN_N} {c}->{o} @{z}x{z}", 1) for c, o, z in STAGES]),
         "deconv_ln_silu": rows_of("deconv_ln_silu", deconv_shapes),
         "two_hot_log_prob": rows_of("two_hot_log_prob", [("N=1024 K=255", 1), ("N=15360 K=255", 2)]),
+        # a CartPole bf16 gradient step: the 64 scan steps at B=16
+        "fused_rssm_step": rows_of("fused_rssm_step", [(rssm_shape(16), 64)], "bfloat16"),
     }
     sources = {
         "layernorm_gru_cell": ("ln_gru.cu", "sheeprl_tpu/ops/pallas_kernels.py:224"),
@@ -933,12 +1119,17 @@ def main() -> int:
         "conv_ln_silu_residuals": ("conv_ln_silu.cu", "sheeprl_tpu/ops/pallas_cnn.py:177"),
         "deconv_ln_silu": ("deconv_ln_silu.cu", "sheeprl_tpu/ops/pallas_cnn.py:335"),
         "two_hot_log_prob": ("two_hot.cu", "sheeprl_tpu/ops/pallas_kernels.py:684"),
+        "fused_rssm_step": ("fused_rssm.cu", "sheeprl_tpu/ops/pallas_kernels.py:444"),
     }
-    path_launches = {**train_launches, **launches}  # the serve phase's counts for its two kernels
+    # each path's own counts: serving for its two kernels, phase 7 for the
+    # fused step, phase 6 for the rest
+    path_launches = {**train_launches, **launches, "fused_rssm_step": cartpole_launches["fused_rssm_step"]}
+    if any(not rows for rows in per_step.values()):
+        raise RuntimeError(f"a kernel has no timed rows: {[k for k, rows in per_step.items() if not rows]}")
     kernels = []
     for kernel, rows in per_step.items():
         t_bytes = sum(w * r["bytes"] for r, w in rows) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(w * r["flops"] for r, w in rows) / PEAK_FLOPS["float32"] * 1e3
+        t_ops = sum(w * r["flops"] for r, w in rows) / PEAK_FLOPS[rows[0][0]["dtype"]] * 1e3  # one dtype a kernel
         source, replaces = sources[kernel]
         kernels.append({
             "name": kernel, "route": "cuda", "source": f"sheeprl_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -948,8 +1139,8 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": sum(w * r["library_ms"] for r, w in rows),
         })
-    if any(not rows for rows in per_step.values()) or any(k["launches"] == 0 for k in kernels):
-        raise RuntimeError(f"a kernel has no timed rows or was not launched on its path: {kernels}")
+    if any(k["launches"] == 0 for k in kernels):
+        raise RuntimeError(f"a kernel was not launched on its path: {kernels}")
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "report.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)

@@ -21,9 +21,10 @@ import torch.nn.functional as F
 
 from ...nn.blocks import CNN, MLP, DeCNN
 from ...nn.inits import init_xavier
-from ...nn.layers import ConvTranspose2d, Linear
+from ...nn.layers import ConvTranspose2d, LayerNorm, Linear
 from ...nn.recurrent import LayerNormGRUCell
 from ...ops.distributions import OneHotCategorical, gumbel_noise, unimix_logits
+from ...ops.kernels.rssm import fused_rssm_step, fused_rssm_supported
 from ...ops.math import symlog
 
 __all__ = [
@@ -249,15 +250,64 @@ class RSSM(tnn.Module):
         raw = self.representation_model(torch.cat([recurrent_state, embedded_obs], dim=-1))
         return self._mix_sample(raw, gumbel, recurrent_state.dtype)
 
+    def _fused_step_weights(self, dtype: torch.dtype):
+        """The fused step's (weights, act, eps) when this RSSM's structure
+        matches the kernel's contract, else None: the unfused branch serves
+        (the reference's `_fused_step_weights`, agent.py:384-443). Contract:
+        one hidden LayerNorm layer without bias in each of the three MLPs,
+        head biases present, a bias-free LayerNorm-GRU, one shared
+        activation, and a weight set within `fused_rssm_supported`'s
+        budget. The six matrices are cast to `dtype` (a differentiable
+        cast: the gradients reach the f32 parameters), the LN affines and
+        head biases stay f32. The structure and the byte count decide,
+        never the device."""
+        rm, tm, pm = self.recurrent_model, self.transition_model, self.representation_model
+        mlp, rnn = getattr(rm, "mlp", None), getattr(rm, "rnn", None)
+        if mlp is None or rnn is None:
+            return None
+
+        def one_hidden(m) -> bool:
+            norm = m.norms[0] if len(m.norms) else None
+            return (len(m.layers) == 1 and isinstance(norm, LayerNorm) and norm.scale is not None
+                    and m.layers[0].bias is None)
+
+        if not (one_hidden(mlp) and one_hidden(tm) and one_hidden(pm)):
+            return None
+        if mlp.head is not None or tm.head is None or pm.head is None:
+            return None
+        if tm.head.bias is None or pm.head.bias is None:
+            return None
+        norm = rnn.norm
+        if norm is None or norm.scale is None or rnn.proj.bias is not None:
+            return None
+        if not (mlp.act == tm.act == pm.act):
+            return None
+        weights = (
+            mlp.layers[0].weight.to(dtype), mlp.norms[0].scale, mlp.norms[0].offset,
+            rnn.proj.weight.to(dtype), norm.scale, norm.offset,
+            tm.layers[0].weight.to(dtype), tm.norms[0].scale, tm.norms[0].offset,
+            tm.head.weight.to(dtype), tm.head.bias,
+            pm.layers[0].weight.to(dtype), pm.norms[0].scale, pm.norms[0].offset,
+            pm.head.weight.to(dtype), pm.head.bias,
+        )
+        act = mlp.act or "identity"
+        if not fused_rssm_supported(act, *weights):
+            return None
+        return weights, act, (mlp.norms[0].eps, norm.eps, tm.norms[0].eps)
+
     def dynamic(self, posterior: torch.Tensor, recurrent_state: torch.Tensor, action: torch.Tensor,
-                embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbel: torch.Tensor):
-        """One dynamic-learning step (the reference's unfused branch): where
-        `is_first`, the action and recurrent state are zeroed and the
-        posterior is re-seeded from the transition prior's mode. `gumbel`
-        [B, S, D] draws the posterior. The prior's own sample is never used
-        in training, so it is not drawn. The reference's fused step (the
-        Pallas `fused_rssm_step`) is not ported: its guard keeps it off at
-        DreamerV3's default width. -> (recurrent_state, posterior
+                embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbel: torch.Tensor,
+                fused=False):
+        """One dynamic-learning step: where `is_first`, the action and
+        recurrent state are zeroed and the posterior is re-seeded from the
+        transition prior's mode. `gumbel` [B, S, D] draws the posterior. The
+        prior's own sample is never used in training, so it is not drawn.
+        When `_fused_step_weights` admits this RSSM, the recurrent model and
+        both heads run as one `fused_rssm_step` (the reference's fused
+        branch, agent.py:469-485); the `is_first` arithmetic and the
+        unimix/sampling stay outside it. `fused` takes that method's result
+        when the caller has it already (`scan_dynamic` casts the weights
+        once for the whole sequence). -> (recurrent_state, posterior
         [B, S, D], prior_logits, posterior_logits)."""
         dt = recurrent_state.dtype
         is_first = is_first.to(dt)
@@ -266,7 +316,18 @@ class RSSM(tnn.Module):
         posterior_flat = posterior.to(dt).reshape(*posterior.shape[:-2], -1)
         init_post = self._transition(recurrent_state)[1].reshape(posterior_flat.shape)
         posterior_flat = (1.0 - is_first) * posterior_flat + is_first * init_post
-        recurrent_state = self.recurrent_model(torch.cat([posterior_flat, action], dim=-1), recurrent_state)
+        x = torch.cat([posterior_flat, action], dim=-1)
+        if fused is False:
+            fused = self._fused_step_weights(dt) if x.dim() == 2 else None
+        if fused is not None:
+            weights, act, eps = fused
+            recurrent_state, prior_raw, post_raw = fused_rssm_step(
+                x, recurrent_state, embedded_obs, *weights, act, eps
+            )
+            prior_logits = self._uniform_mix(prior_raw)
+            posterior_logits, posterior = self._mix_sample(post_raw, gumbel, dt)
+            return recurrent_state, posterior, prior_logits, posterior_logits
+        recurrent_state = self.recurrent_model(x, recurrent_state)
         prior_logits = self._uniform_mix(self.transition_model(recurrent_state).float())
         posterior_logits, posterior = self._representation(recurrent_state, embedded_obs, gumbel)
         return recurrent_state, posterior, prior_logits, posterior_logits
@@ -275,14 +336,16 @@ class RSSM(tnn.Module):
                      embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbels: torch.Tensor):
         """The dynamic-learning sequence as a loop over T (the reference's
         `lax.scan`): actions [T, B, A], embedded_obs [T, B, E], is_first
-        [T, B, 1], gumbels [T, B, S, D]. Returns stacked (recurrent_states
-        [T, B, R], priors_logits [T, B, S*D], posteriors [T, B, S, D],
-        posteriors_logits [T, B, S*D])."""
+        [T, B, 1], gumbels [T, B, S, D]. The fused step's weights are cast
+        to the compute dtype once, before the loop. Returns stacked
+        (recurrent_states [T, B, R], priors_logits [T, B, S*D], posteriors
+        [T, B, S, D], posteriors_logits [T, B, S*D])."""
         post, rec = posterior0, recurrent0
+        fused = self._fused_step_weights(rec.dtype) if rec.dim() == 2 else None
         outs = []
         for t in range(actions.shape[0]):
             rec, post, prior_logits, post_logits = self.dynamic(
-                post, rec, actions[t], embedded_obs[t], is_first[t], gumbels[t]
+                post, rec, actions[t], embedded_obs[t], is_first[t], gumbels[t], fused=fused
             )
             outs.append((rec, prior_logits, post, post_logits))
         return tuple(torch.stack(o) for o in zip(*outs))

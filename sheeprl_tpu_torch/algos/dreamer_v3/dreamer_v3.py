@@ -11,8 +11,11 @@ the actor's update with the updated world model and the pre-update critic,
 then the critic's update; three Adams with gradient clipping by global norm
 written to optax's rule. Every sample draws injected Gumbel noise (the
 parity tests feed the reference's own draws) or noise from a
-`torch.Generator`. The model path is float32: bf16 training, continuous
-actions, checkpoints, evaluation and the other env backends are not ported.
+`torch.Generator`. `--precision bfloat16` follows the mixed-precision
+policy of `ops/precision.py`: the forwards and backwards run in bf16, the
+parameters, Adam moments, heads' logits and losses in f32. Continuous
+actions, checkpoints, evaluation and the gymnasium env backends are not
+ported.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ...ops.distributions import (
 )
 from ...ops.math import lambda_values_dv3, polynomial_decay
 from ...ops.moments import Moments
+from ...ops.precision import compute_dtype, to_compute, to_float32
 from ...utils.device import resolve_device
 from ...utils.env import make_dict_env
 from ...utils.parser import DataclassArgumentParser
@@ -141,8 +145,9 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
     `draw_noise`. The metrics are the reference's 13, as a dict of floats."""
     if is_continuous:
         raise NotImplementedError("continuous-action training is not ported yet")
-    if args.precision != "float32":
-        raise NotImplementedError("bf16 training is not ported yet: run with --precision float32")
+    # the forwards run in the compute dtype; parameters stay f32 (every
+    # layer casts its weights to its input's dtype), heads return to f32
+    dt = compute_dtype(args.precision)
     stoch_size = args.stochastic_size * args.discrete_size
     horizon = args.horizon
     splits = [int(a) for a in actions_dim]
@@ -152,21 +157,24 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         T, B = data["dones"].shape[:2]
         obs_targets = {k: data[k].float() / 255.0 for k in cnn_keys}
         obs_targets.update({k: data[k].float() for k in mlp_keys})
+        batch_obs = to_compute(obs_targets, dt)
         is_first = data["is_first"].clone()
         is_first[0] = 1.0
-        batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], dim=0)
-        embedded = wm.encoder(obs_targets)
-        posterior0 = embedded.new_zeros((B, args.stochastic_size, args.discrete_size))
-        recurrent0 = embedded.new_zeros((B, args.recurrent_state_size))
+        batch_actions = to_compute(
+            torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], dim=0), dt
+        )
+        embedded = wm.encoder(batch_obs)
+        posterior0 = embedded.new_zeros((B, args.stochastic_size, args.discrete_size), dtype=dt)
+        recurrent0 = embedded.new_zeros((B, args.recurrent_state_size), dtype=dt)
         recurrent_states, priors_logits, posteriors, posteriors_logits = wm.rssm.scan_dynamic(
             posterior0, recurrent0, batch_actions, embedded, is_first, noise["post"]
         )
         latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], dim=-1)
-        reconstructed = {k: v.float() for k, v in wm.observation_model(latent_states).items()}
+        reconstructed = to_float32(wm.observation_model(latent_states))
         po = {k: MSEDistribution(reconstructed[k], dims=3) for k in cnn_keys}
         po.update({k: SymlogDistribution(reconstructed[k], dims=1) for k in mlp_keys})
-        pr = TwoHotEncodingDistribution(wm.reward_model(latent_states).float(), dims=1)
-        pc = Independent(Bernoulli(wm.continue_model(latent_states).float()), 1)
+        pr = TwoHotEncodingDistribution(to_float32(wm.reward_model(latent_states)), dims=1)
+        pc = Independent(Bernoulli(to_float32(wm.continue_model(latent_states))), 1)
         shaped = (T, B, args.stochastic_size, args.discrete_size)
         losses = reconstruction_loss(
             po, obs_targets, pr, data["rewards"], priors_logits.reshape(shaped),
@@ -197,9 +205,9 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         trajectories = torch.stack(latents + [latent_h])  # [H+1, T*B, L]
         imagined_actions = torch.stack(actions + [torch.cat(last_acts, dim=-1)])
 
-        predicted_values = TwoHotEncodingDistribution(critic(trajectories).float(), dims=1).mean
-        predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(trajectories).float(), dims=1).mean
-        continues = Independent(Bernoulli(wm.continue_model(trajectories).float()), 1).mode
+        predicted_values = TwoHotEncodingDistribution(to_float32(critic(trajectories)), dims=1).mean
+        predicted_rewards = TwoHotEncodingDistribution(to_float32(wm.reward_model(trajectories)), dims=1).mean
+        continues = Independent(Bernoulli(to_float32(wm.continue_model(trajectories))), 1).mode
         continues = torch.cat([true_continue0, continues[1:]], dim=0)
         lambda_values = lambda_values_dv3(
             predicted_rewards[1:], predicted_values[1:], continues[1:] * args.gamma, lmbda=args.lmbda
@@ -221,8 +229,8 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
     def critic_step(state: DV3TrainState, trajectories, lambda_values, discount):
         traj_sg = trajectories[:-1]
         with torch.no_grad():
-            target_values = TwoHotEncodingDistribution(state.target_critic(traj_sg).float(), dims=1).mean
-        qv = TwoHotEncodingDistribution(state.critic(traj_sg).float(), dims=1)
+            target_values = TwoHotEncodingDistribution(to_float32(state.target_critic(traj_sg)), dims=1).mean
+        qv = TwoHotEncodingDistribution(to_float32(state.critic(traj_sg)), dims=1)
         value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
         value_loss = (value_loss * discount[:-1, :, 0]).mean()
         params = list(state.critic.parameters())

@@ -32,7 +32,7 @@ __all__ = [
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every kernel library of the port, by source stem
-SOURCES = ("ln_gru", "conv_ln_silu", "deconv_ln_silu", "two_hot")
+SOURCES = ("ln_gru", "conv_ln_silu", "deconv_ln_silu", "two_hot", "fused_rssm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

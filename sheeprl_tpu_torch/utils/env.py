@@ -1,7 +1,10 @@
 """Environment construction (the port of sheeprl_tpu/utils/env.py's
-`make_dict_env`, dummy backend only). The reference resizes and converts
-images with cv2, which the port does without: an image that needs a resize
-or a grayscale conversion raises instead."""
+`make_dict_env`): the `*_dummy` envs, and CartPole-v1 through the port's own
+copy of the reference's JAX CartPole (`envs/cartpole.py`), as the reference
+routes an env it has only in JAX through its host twin (its `pixeltoy`
+branch). The reference resizes and converts images with cv2, which the port
+does without: an image that needs a resize or a grayscale conversion raises
+instead."""
 
 from __future__ import annotations
 
@@ -55,19 +58,26 @@ def make_dict_env(
     prefix: str = "",
     vector_env_idx: int = 0,
 ) -> Callable[[], DictObservation]:
-    """Dict-observation env thunk for `*_dummy` env ids. A Box image
-    observation is exposed under the first cnn key (default `rgb`), a Box
-    vector observation under the first mlp key (default `state`)."""
-    del seed, rank, run_name, prefix, vector_env_idx
+    """Dict-observation env thunk for `*_dummy` env ids and `CartPole-v1`
+    (`envs/cartpole.py`, seeded by `seed`). A Box image observation is
+    exposed under the first cnn key (default `rgb`), a Box vector
+    observation, CartPole's included, under the first mlp key (default
+    `state`)."""
+    del rank, run_name, prefix, vector_env_idx
 
     def thunk() -> DictObservation:
         lid = env_id.lower()
-        if "dummy" not in lid:
+        if lid == "cartpole-v1":
+            from ..envs.cartpole import CartPole
+
+            env = CartPole(seed)
+        elif "dummy" in lid:
+            env = get_dummy_env(lid)
+        else:
             raise ValueError(
-                f"env {env_id!r}: only the *_dummy backend is ported; the other "
-                "backends need gymnasium"
+                f"env {env_id!r}: only CartPole-v1 and the *_dummy backend are ported; the "
+                "other backends need gymnasium"
             )
-        env = get_dummy_env(lid)
         cnn_keys = list(getattr(args, "cnn_keys", None) or [])
         mlp_keys = list(getattr(args, "mlp_keys", None) or [])
         shape = env.observation_space.shape

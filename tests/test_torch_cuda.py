@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions, at the
 serving path's shapes (DreamerV3 width, rungs 1 and 8) and at the training
-path's (residual forwards and backwards, the deconv and two_hot), and the
+path's (residual forwards and backwards, the deconv and two_hot, the fused
+RSSM step at the CartPole path's widths and B = 1, 16 and 1,024), and the
 gradient reaching the parameters through CNN, DeCNN and LayerNormGRUCell on
 CUDA tensors. Marked `cuda`: they skip without a CUDA device. The file
 imports neither jax nor the reference, so it also runs on a machine that
@@ -18,7 +19,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, two_hot
+from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, rssm, two_hot
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STAGES = [(3, 32, 64), (32, 64, 32), (64, 128, 16), (128, 256, 8)]
@@ -163,6 +164,82 @@ def test_gradient_reaches_the_parameters_on_cuda(cuda_device):
             assert float(gpu[n].abs().max()) > 0, f"{name}.{n}"
             _grad_close(gpu[n], cpu[n])
     assert all(c.launches > b for c, b in zip(counters, before))
+
+
+def _rssm_inputs(gen, device, dtype, batch, dx=1026, rec=512, d=512, hd=512, e=512, sd=1024):
+    """x, h, emb and the 16 weights of one fused RSSM step at the CartPole
+    training path's widths ([out, in] matrices in `dtype`, the LN affines
+    and head biases f32)."""
+    def mat(o, i):
+        return _rand(gen, o, i, scale=(1.0 / i) ** 0.5).to(device, dtype)
+
+    def vec(n, base=0.0):
+        return (base + _rand(gen, n, scale=0.1)).to(device)
+
+    x = torch.eye(32)[torch.randint(0, 32, (batch, 32), generator=gen)].reshape(batch, -1)
+    x = torch.cat([x, torch.eye(2)[torch.randint(0, 2, (batch,), generator=gen)]], dim=-1)[:, :dx]
+    return [
+        x.to(device, dtype), torch.tanh(_rand(gen, batch, rec)).to(device, dtype),
+        _rand(gen, batch, e).to(device, dtype),
+        mat(d, dx), vec(d, 1.0), vec(d), mat(3 * rec, d + rec), vec(3 * rec, 1.0), vec(3 * rec),
+        mat(hd, rec), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
+        mat(hd, rec + e), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 16, 1024])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_fused_rssm_kernel_matches_plain(cuda_device, dtype, batch, act):
+    gen = torch.Generator().manual_seed(batch)
+    inputs = _rssm_inputs(gen, cuda_device, dtype, batch)
+    before = rssm.fused_rssm_step.launches
+    with torch.no_grad():
+        got = rssm.fused_rssm_step(*inputs, act, (1e-3, 1e-5, 1e-3))
+    torch.cuda.synchronize()
+    assert rssm.fused_rssm_step.launches == before + 1
+    want = rssm.fused_rssm_step_plain(*inputs, act, (1e-3, 1e-5, 1e-3))
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    for g, w in zip(got, want):  # h' in the compute dtype, the raw logits f32
+        tol = TOL[dtype]
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_rssm_backward_matches_plain(cuda_device, dtype):
+    """The 19 gradients through `_FusedRSSM` (kernel forward, plain
+    recompute backward) against autograd through the plain version."""
+    gen = torch.Generator().manual_seed(5)
+    inputs = _rssm_inputs(gen, cuda_device, dtype, 16)
+    cots = None
+    grads = []
+    for fn in (rssm.fused_rssm_step, rssm.fused_rssm_step_plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        outs = fn(*leaves, "silu", (1e-3, 1e-5, 1e-3))
+        if cots is None:
+            cots = [torch.randn(o.shape, generator=gen).to(cuda_device, o.dtype) for o in outs]
+        grads.append(torch.autograd.grad(outs, leaves, cots))
+    for g, w in zip(*grads):
+        assert torch.isfinite(g.float()).all()
+        _grad_close(g.float(), w.float(), tol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_fused_rssm_raises_instead_of_falling_back(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    inputs = _rssm_inputs(gen, cuda_device, torch.float32, 4, dx=34, rec=16, d=16, hd=16, e=16, sd=32)
+    mixed = list(inputs)
+    mixed[4] = mixed[4].cpu()  # one LayerNorm scale left on the CPU
+    with pytest.raises(ValueError, match="one device"):
+        rssm.fused_rssm_step(*mixed)
+    strided = list(inputs)
+    strided[3] = strided[3].t().contiguous().t()  # [out, in] values, column-major
+    with pytest.raises(ValueError, match="contiguous"):
+        rssm.fused_rssm_step(*strided)
+    with pytest.raises(ValueError, match="activation"):
+        rssm.fused_rssm_step(*inputs, "sigmoid")
 
 
 @pytest.mark.cuda

@@ -44,6 +44,7 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import sheeprl_tpu_torch.serve.client, sheeprl_tpu_torch.interop\n"
         "import sheeprl_tpu_torch.algos.dreamer_v3.agent, sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3\n"
         "import sheeprl_tpu_torch.data.buffers, sheeprl_tpu_torch.ops.moments\n"
+        "import sheeprl_tpu_torch.envs.cartpole, sheeprl_tpu_torch.ops.kernels.rssm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sheeprl_tpu', 'gymnasium', 'cv2'))\n"
         "assert not bad, bad\n"
