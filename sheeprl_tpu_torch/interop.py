@@ -5,8 +5,10 @@ module's field path (`rssm.recurrent_model.rnn.proj.weight`), flat or as
 nested dicts. The port's modules use the same paths, so the mapping is one
 to one: the player, the world model with its decoders (the MLP decoder's
 heads are keyed by observation key, a `ModuleDict` here), the actor, the
-critic and the target critic. The only change of layout is
-`Linear.weight`, which the reference keeps as [in, out] and torch as
+critic and the target critic; the SAC actor (with its `action_scale` and
+`action_bias`), and a quantized actor, whose `QuantLinear`s keep their int8
+`w_q` and f32 scales. The only change of layout is `Linear.weight` and
+`QuantLinear.w_q`, which the reference keeps as [in, out] and the port as
 [out, in]. Conv and transposed-conv kernels stay HWIO (the port keeps
 NHWC/HWIO at its convolutions). The port never imports jax: the caller
 flattens the JAX pytree.
@@ -21,6 +23,7 @@ import torch
 import torch.nn as tnn
 
 from .nn.layers import Linear
+from .ops.quant import QuantLinear
 
 __all__ = ["flatten_params", "load_jax_params", "state_dict_from_jax"]
 
@@ -50,14 +53,14 @@ def state_dict_from_jax(module: tnn.Module, params: Mapping) -> dict[str, torch.
     unset = sorted(set(own) - set(flat))
     if unset:
         raise KeyError(f"port parameters the reference leaves unset: {unset}")
-    linear_weights = {
-        f"{name}.weight" if name else "weight"
-        for name, m in module.named_modules()
-        if isinstance(m, Linear)
-    }
+    def path(name: str, leaf: str) -> str:
+        return f"{name}.{leaf}" if name else leaf
+
+    transposed = {path(name, "weight") for name, m in module.named_modules() if isinstance(m, Linear)}
+    transposed |= {path(name, "w_q") for name, m in module.named_modules() if isinstance(m, QuantLinear)}
     out = {}
     for name, ref in own.items():
-        value = flat[name].T if name in linear_weights else flat[name]
+        value = flat[name].T if name in transposed else flat[name]
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(
                 f"{name}: reference shape {tuple(flat[name].shape)} does not map onto the "

@@ -32,7 +32,7 @@ __all__ = [
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # every kernel library of the port, by source stem
-SOURCES = ("ln_gru", "conv_ln_silu", "deconv_ln_silu", "two_hot", "fused_rssm")
+SOURCES = ("ln_gru", "conv_ln_silu", "deconv_ln_silu", "two_hot", "fused_rssm", "int8_trunk", "symlog")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -125,14 +125,15 @@ _TARGET_BLOCKS = 2 * 132
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
-def bind(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
+def bind(name: str, fn: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """C entry point `fn` of kernel library `name` (built first if needed),
-    with its argument types declared and an int (cudaError_t) result."""
+    with its argument types declared and, unless `restype` says otherwise,
+    an int (cudaError_t) result."""
     key = (name, fn)
     if key not in _bound:
         func = getattr(load_library(name), fn)
         func.argtypes = argtypes
-        func.restype = ctypes.c_int
+        func.restype = restype
         _bound[key] = func
     return _bound[key]
 

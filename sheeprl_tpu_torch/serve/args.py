@@ -1,6 +1,6 @@
-"""Serving-tier config (the port of sheeprl_tpu/serve/args.py). `--quant
-int8` and `--ckpt` are accepted by the parser and raise "not yet ported"
-at startup."""
+"""Serving-tier config (the port of sheeprl_tpu/serve/args.py). `--ckpt`,
+and `--quant int8` for dreamer_v3, are accepted by the parser and raise
+"not yet ported" at startup."""
 
 from __future__ import annotations
 
@@ -10,16 +10,17 @@ from typing import Any, Optional
 from ..algos.args import StandardArgs
 from ..utils.parser import Arg
 
-SERVE_ALGOS = ("dreamer_v3",)
+SERVE_ALGOS = ("sac", "dreamer_v3")
 
 
 @dataclasses.dataclass
 class ServeArgs(StandardArgs):
     algo: str = Arg(
         default="dreamer_v3",
-        help="policy family to serve: 'dreamer_v3' (player step with "
-        "server-held per-session recurrent state; requests must be "
-        "single-row and carry a 'session' id)",
+        help="policy family to serve: 'sac' (greedy actor over vector obs; "
+        "requests carry an 'obs' matrix of any row count up to the largest "
+        "rung) or 'dreamer_v3' (player step with server-held per-session "
+        "recurrent state; requests must be single-row and carry a 'session' id)",
     )
     ckpt: Optional[str] = Arg(
         default=None,
@@ -59,11 +60,22 @@ class ServeArgs(StandardArgs):
     model_argv: Optional[str] = Arg(
         default=None,
         help="space-separated training-args tokens (e.g. '--env_id "
-        "discrete_dummy --cnn_keys rgb') used to init a fresh model",
+        "discrete_dummy --cnn_keys rgb' for dreamer_v3, '--actor_hidden_size "
+        "32' for sac) used to init a fresh model",
     )
     quant: str = Arg(
         default="off",
-        help="policy-inference quantization ('int8' is not yet ported)",
+        help="policy-inference quantization: 'int8' (sac only) calibrates "
+        "per-channel scales, builds an int8 variant of every ladder rung, and "
+        "accepts each rung by timing under the --quant_bound quality receipt: "
+        "a rung whose divergence exceeds the bound is disqualified and keeps "
+        "serving f32. 'off' (default) serves f32",
+    )
+    quant_bound: float = Arg(
+        default=0.05,
+        help="max tolerated action divergence (max |delta| over the held-out "
+        "calibration set) for accepting an int8 rung; the measured divergence "
+        "is stored next to the winner in <log_dir>/serve_quant.json",
     )
 
     def __setattr__(self, name: str, value: Any) -> None:
@@ -73,4 +85,6 @@ class ServeArgs(StandardArgs):
             raise ValueError(f"max_batch must be >= 1, got {value!r}")
         if name == "quant" and value not in ("off", "int8"):
             raise ValueError(f"quant must be 'off' or 'int8', got {value!r}")
+        if name == "quant_bound" and float(value) <= 0.0:
+            raise ValueError(f"quant_bound must be > 0, got {value!r}")
         super().__setattr__(name, value)

@@ -43,7 +43,7 @@ class PendingRequest:
 
     __slots__ = (
         "obs", "meta", "rows", "enqueue_t", "deadline_t",
-        "done", "result", "error", "rung", "version", "queue_ms",
+        "done", "result", "error", "rung", "version", "queue_ms", "dispatch", "offset",
     )
 
     def __init__(self, obs, meta, rows, enqueue_t, deadline_t):
@@ -56,6 +56,8 @@ class PendingRequest:
         self.result: dict[str, np.ndarray] | None = None
         self.error: Exception | None = None
         self.rung = 0
+        self.dispatch = 0  # the dispatch's sequence number (1, 2, ...)
+        self.offset = 0  # the request's first row in the dispatched batch
         self.version = 0
         self.queue_ms = 0.0
 
@@ -107,6 +109,7 @@ class MicroBatcher:
         self.oversized = 0
         self.failed = 0
         self.dispatches = 0
+        self.dispatches_by_rung = {r: 0 for r in self.rungs}
         self.rows_served = 0
         self.last_dispatch_ms = 0.0
         self._occupancy = deque(maxlen=256)  # rows/rung per dispatch
@@ -239,6 +242,9 @@ class MicroBatcher:
         off = 0
         for p in batch:
             p.rung = rung
+            # only this dispatch thread writes the counter
+            p.dispatch = self.dispatches + 1
+            p.offset = off
             p.version = version
             p.queue_ms = (t0 - p.enqueue_t) * 1000.0
             p._complete(result={k: v[off : off + p.rows] for k, v in out.items()})
@@ -247,6 +253,7 @@ class MicroBatcher:
             self.served += len(batch)
             self.rows_served += rows
             self.dispatches += 1
+            self.dispatches_by_rung[rung] += 1
             self.last_dispatch_ms = dispatch_ms
             self._occupancy.append(rows / rung)
         return len(expired) + len(batch)
@@ -279,6 +286,7 @@ class MicroBatcher:
                 "Serve/batch_occupancy": occ,
                 "Serve/last_dispatch_ms": self.last_dispatch_ms,
                 "Serve/rungs": float(len(self.rungs)),
+                **{f"Serve/dispatches_b{r}": float(n) for r, n in self.dispatches_by_rung.items()},
             }
 
     def _event(self, name: str, **data: Any) -> None:

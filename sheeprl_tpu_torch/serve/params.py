@@ -35,6 +35,10 @@ class ParamsStore:
         self._telem = telem
         # one reload at a time; never held on the dispatch path
         self._reload_lock = threading.Lock()
+        # called after a successful flip with (version, params), still in
+        # the reload thread: derived state (the quantized twin) rebuilds
+        # here instead of stalling the first dispatch that needs it
+        self.on_reload: Callable[[int, Any], Any] | None = None
         self.reloads = 0
         self.reload_failures = 0
         self.last_reload_seconds = 0.0
@@ -84,6 +88,16 @@ class ParamsStore:
                 "serve.reload", ok=True, version=version, path=target,
                 seconds=round(seconds, 3), error=None,
             )
+            if self.on_reload is not None:
+                try:
+                    self.on_reload(version, fresh)
+                except Exception as err:
+                    # the swap itself succeeded; a broken derived-state hook
+                    # degrades to the lazy (first-dispatch) rebuild
+                    self._event(
+                        "serve.reload_hook_error", version=version,
+                        error=f"{type(err).__name__}: {err}"[:300],
+                    )
             return {"ok": True, "version": version, "seconds": seconds, "error": None}
 
     def gauges(self) -> dict[str, float]:

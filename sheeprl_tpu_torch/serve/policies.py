@@ -1,15 +1,21 @@
-"""Serving adapter for the DreamerV3 player (the port of
-sheeprl_tpu/serve/policies.py's `DV3ServePolicy` and `_build_dv3`).
+"""Per-algo serving adapters (the port of sheeprl_tpu/serve/policies.py):
+build the served params from a fresh `--model_argv` init, expose the
+policy step, and map batched rows to per-request results.
 
-The player steps in greedy mode (mode actions, zero exploration). Its
-recurrent PlayerState lives SERVER-side in a per-session table on the
-device: a request carries a `session` id (plus an optional `reset` flag),
-the adapter gathers the session's state row into the batch, steps, and
-scatters the updated row back. Requests are single-row.
+  - `sac` (`SACServePolicy`, `_build_sac`): the stateless greedy actor, obs
+    [B, obs_dim] -> actions [B, act_dim] through
+    `SACActor.get_greedy_actions` (tanh of the mean, no sampling), so a
+    served action equals a direct call on the same params;
+  - `dreamer_v3` (`DV3ServePolicy`, `_build_dv3`): the player steps in
+    greedy mode (mode actions, zero exploration). Its recurrent PlayerState
+    lives SERVER-side in a per-session table on the device: a request
+    carries a `session` id (plus an optional `reset` flag), the adapter
+    gathers the session's state row into the batch, steps, and scatters the
+    updated row back. Requests are single-row.
 
-The posterior is still a sample, as in the reference's served step. The
-reference draws it with a constant key, so a row's draw depends on its
-place in the batch; the port instead draws one Gumbel noise row from
+The DreamerV3 posterior is still a sample, as in the reference's served
+step. The reference draws it with a constant key, so a row's draw depends
+on its place in the batch; the port instead draws one Gumbel noise row from
 `--seed` when the server starts and gives it to every row, so a served
 answer depends only on (params, session state, obs) and equals a direct
 `PlayerDV3.step` with that noise.
@@ -24,7 +30,7 @@ import torch
 
 from .errors import ServeError
 
-__all__ = ["DV3ServePolicy", "build_policy"]
+__all__ = ["DV3ServePolicy", "SACServePolicy", "build_policy"]
 
 
 def build_policy(args, device: torch.device):
@@ -35,9 +41,78 @@ def build_policy(args, device: torch.device):
             "--ckpt is not yet ported (reading the reference's orbax checkpoints "
             "needs orbax); serve a fresh init from --model_argv"
         )
+    if args.algo == "sac":
+        return _build_sac(args, device)
     if args.algo == "dreamer_v3":
         return _build_dv3(args, device)
     raise ServeError(f"unservable algo {args.algo!r}")
+
+
+def _parse_model_argv(args, args_cls):
+    from ..utils.parser import DataclassArgumentParser
+
+    (targs,) = DataclassArgumentParser(args_cls).parse_args_into_dataclasses((args.model_argv or "").split())
+    return targs
+
+
+def _no_reload(path: str):
+    raise NotImplementedError(f"cannot reload {path}: checkpoint reading is not yet ported")
+
+
+# ---------------------------------------------------------------------------
+# SAC
+# ---------------------------------------------------------------------------
+
+
+class SACServePolicy:
+    algo = "sac"
+    max_rows_per_request = None  # any row count up to the largest rung
+
+    def __init__(self, obs_dim: int, act_dim: int, device: torch.device):
+        self.obs_dim = obs_dim
+        self.act_dim = act_dim
+        self.device = device
+
+    @staticmethod
+    def step(actor, obs: torch.Tensor) -> torch.Tensor:
+        return actor.get_greedy_actions(obs)
+
+    def run(self, runner: Callable, params, version, batch, pendings, rung) -> dict:
+        del version, pendings, rung
+        with torch.inference_mode():
+            obs = torch.from_numpy(np.asarray(batch["obs"], dtype=np.float32)).to(self.device)
+            acts = runner(params, obs)
+            return {"actions": acts.float().cpu().numpy()}
+
+
+def _build_sac(args, device: torch.device):
+    from ..algos.sac.agent import SACActor
+    from ..algos.sac.args import SACArgs
+    from ..envs import spaces
+    from ..utils.env import make_env
+
+    targs = _parse_model_argv(args, SACArgs)
+    # one probe env to read the spaces, then close; serving never steps an env
+    env = make_env(targs.env_id, targs.seed)()
+    try:
+        if not isinstance(env.action_space, spaces.Box):
+            raise ServeError("sac serving needs a continuous action space")
+        obs_dim = int(np.prod(env.observation_space.shape))
+        act_dim = int(np.prod(env.action_space.shape))
+        action_low, action_high = env.action_space.low, env.action_space.high
+    finally:
+        env.close()
+    actor = SACActor(
+        obs_dim, act_dim, hidden_size=targs.actor_hidden_size, action_low=action_low,
+        action_high=action_high, precision=targs.precision,
+        generator=torch.Generator().manual_seed(targs.seed),
+    ).to(device).eval()
+    return SACServePolicy(obs_dim, act_dim, device), actor, _no_reload
+
+
+# ---------------------------------------------------------------------------
+# DreamerV3
+# ---------------------------------------------------------------------------
 
 
 class DV3ServePolicy:
@@ -125,11 +200,8 @@ def _build_dv3(args, device: torch.device):
     from ..algos.ppo.ppo import actions_dim_of, validate_obs_keys
     from ..ops.distributions import gumbel_noise
     from ..utils.env import make_dict_env
-    from ..utils.parser import DataclassArgumentParser
 
-    (targs,) = DataclassArgumentParser(DreamerV3Args).parse_args_into_dataclasses(
-        (args.model_argv or "").split()
-    )
+    targs = _parse_model_argv(args, DreamerV3Args)
     # one probe env to read the spaces, then close; serving never steps an env
     probe = make_dict_env(targs.env_id, targs.seed, rank=0, args=targs)()
     observation_space = probe.observation_space
@@ -150,8 +222,5 @@ def _build_dv3(args, device: torch.device):
     ).to(device).eval()
     gumbel = gumbel_noise((targs.stochastic_size, targs.discrete_size), generator).to(device)
 
-    def loader(path: str):
-        raise NotImplementedError(f"cannot reload {path}: checkpoint reading is not yet ported")
-
     policy = DV3ServePolicy(observation_space.spaces, cnn_keys, mlp_keys, device, gumbel)
-    return policy, player, loader
+    return policy, player, _no_reload

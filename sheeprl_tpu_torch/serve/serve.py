@@ -7,9 +7,13 @@ Wiring, in dependency order:
      (policies.py; the CUDA device unless `--device cpu`, and raising when
      CUDA is missing);
   2. the batch ladder: `--ladder` rungs (ladder.py);
-  3. hot-reloadable params (params.py), micro-batcher (batcher.py), FLK1
+  3. `--quant int8` (sac): calibrate and quantize, then accept each rung as
+     int8 or f32 by timing under the divergence receipt (quant.py); int8
+     rungs dispatch the quantized twin through the fused trunk kernel, and
+     a hot reload re-derives the twin in the reload thread;
+  4. hot-reloadable params (params.py), micro-batcher (batcher.py), FLK1
      socket front (server.py);
-  4. the serve loop: `Serve/*` telemetry intervals and graceful drain on
+  5. the serve loop: `Serve/*` telemetry intervals and graceful drain on
      SIGTERM/SIGINT — queued requests are served, NEW requests are shed
      with reason="draining", and the process exits rc 75.
      `--serve_requests` completion stays a plain rc 0.
@@ -44,13 +48,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from .ladder import parse_rungs
     from .params import ParamsStore
     from .policies import build_policy
+    from .quant import DV3_NOT_PORTED, QuantState
     from .server import ServeServer
 
     parser = DataclassArgumentParser(ServeArgs)
     (args,) = parser.parse_args_into_dataclasses(argv)
     device = resolve_device(args.device)
-    if args.quant != "off":
-        raise NotImplementedError("--quant int8 is not yet ported")
+    if args.quant == "int8" and args.algo != "sac":
+        raise NotImplementedError(DV3_NOT_PORTED)
 
     root_dir = args.root_dir or os.path.join("logs", "serve", args.env_id)
     run_name = args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S")
@@ -62,9 +67,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     store = ParamsStore(loader, params, source=args.ckpt, telem=telem)
     rungs = parse_rungs(args.ladder, args.max_batch)
 
+    qstate = None
+    if args.quant == "int8":
+        qstate = QuantState(policy, args, log_dir, telem=telem)
+        telem.add_gauges(qstate.gauges)
+        if qstate.accept_rungs(*store.current(), rungs):
+            # rebuild the quantized twin in the reload thread, not on the
+            # first int8 dispatch after a swap
+            store.on_reload = qstate.params_for
+
+    def _is_int8(rung: int) -> bool:
+        return qstate is not None and rung in qstate.int8_rungs
+
+    def _step_of(rung: int):
+        if _is_int8(rung):
+            return qstate.step_for(qstate.params_for(*store.current()))
+        return policy.step
+
+    runners = {rung: _step_of(rung) for rung in rungs}
+
     def dispatch(stacked, pendings, rung):
         version, live = store.current()
-        return policy.run(policy.step, live, version, stacked, pendings, rung), version
+        if _is_int8(rung):
+            live = qstate.params_for(version, live)
+        return policy.run(runners[rung], live, version, stacked, pendings, rung), version
 
     batcher = MicroBatcher(
         dispatch, rungs, window_ms=args.batch_window_ms,
@@ -90,7 +116,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"sheepserve: serving {args.algo} v{store.version} on {device} at {address}", flush=True)
         telem.event(
             "serve.start", address=address, algo=args.algo, rungs=rungs,
-            version=store.version, device=str(device),
+            version=store.version, device=str(device), quant=args.quant,
+            int8_rungs=sorted(qstate.int8_rungs) if qstate is not None else [],
         )
         telem.add_gauges(server.gauges)
         step = 0

@@ -272,6 +272,9 @@ class ServeServer:
             "version": pending.version,
             "rung": pending.rung,
             "rows": pending.rows,
+            # where the rows sat: a caller can rebuild the dispatched batch
+            "dispatch": pending.dispatch,
+            "offset": pending.offset,
             "queue_ms": round(pending.queue_ms, 3),
         }
         self._answer(conn, rid, wire.RESPONSE, pack_request(out_meta, result))

@@ -1,6 +1,7 @@
 """Environment construction (the port of sheeprl_tpu/utils/env.py's
-`make_dict_env`): the `*_dummy` envs, and CartPole-v1 through the port's own
-copy of the reference's JAX CartPole (`envs/cartpole.py`), as the reference
+`make_env` and `make_dict_env`): the `*_dummy` envs, CartPole-v1 through the
+port's own copy of the reference's JAX CartPole (`envs/cartpole.py`) and
+Pendulum-v1 through its JAX Pendulum (`envs/pendulum.py`), as the reference
 routes an env it has only in JAX through its host twin (its `pixeltoy`
 branch). The reference resizes and converts images with cv2, which the port
 does without: an image that needs a resize or a grayscale conversion raises
@@ -12,7 +13,7 @@ from typing import Any, Callable, Optional
 
 from ..envs import spaces
 
-__all__ = ["make_dict_env", "get_dummy_env"]
+__all__ = ["make_env", "make_dict_env", "get_dummy_env"]
 
 
 def get_dummy_env(env_id: str):
@@ -26,6 +27,25 @@ def get_dummy_env(env_id: str):
     if "discrete" in lid:
         return DiscreteDummyEnv()
     raise ValueError(f"unrecognized dummy environment: {env_id}")
+
+
+def make_env(env_id: str, seed: Optional[int]) -> Callable[[], Any]:
+    """Env thunk for the vector-observation algorithms (SAC): a flat Box
+    observation. Only `Pendulum-v1` is ported (`envs/pendulum.py`, seeded
+    by `seed`); the reference's video capture, velocity masking and action
+    repeat are not."""
+
+    def thunk():
+        if env_id.lower() != "pendulum-v1":
+            raise ValueError(
+                f"env {env_id!r}: only Pendulum-v1 is ported for the vector-observation "
+                "algorithms; the other backends need gymnasium"
+            )
+        from ..envs.pendulum import Pendulum
+
+        return Pendulum(0 if seed is None else seed)
+
+    return thunk
 
 
 class DictObservation:

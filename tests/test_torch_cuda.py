@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, against their plain versions, at the
 serving path's shapes (DreamerV3 width, rungs 1 and 8) and at the training
 path's (residual forwards and backwards, the deconv and two_hot, the fused
-RSSM step at the CartPole path's widths and B = 1, 16 and 1,024), and the
-gradient reaching the parameters through CNN, DeCNN and LayerNormGRUCell on
-CUDA tensors. Marked `cuda`: they skip without a CUDA device. The file
+RSSM step at the CartPole path's widths and B = 1, 16 and 1,024), the fused
+int8 SAC trunk (bit-exact, at Pendulum's and wider trunks, odd widths and
+the device-memory scratch path) and symlog/symexp, and the gradient
+reaching the parameters through CNN, DeCNN and LayerNormGRUCell on CUDA
+tensors. Marked `cuda`: they skip without a CUDA device. The file
 imports neither jax nor the reference, so it also runs on a machine that
 has neither:
 
@@ -11,7 +13,9 @@ has neither:
 
 Tolerances: f32 atol/rtol 1e-4 (f32 sums in another order), bf16 2e-2
 (one bf16 rounding of the output). Gradients are sums over every pixel of
-a batch, which cancel: each is held to 1e-4 of its largest magnitude.
+a batch, which cancel: each is held to 1e-4 of its largest magnitude. The
+int8 trunk is exact (integer products, the same f32 operations in the same
+order); symlog/symexp f32 rtol/atol 1e-6, bf16 one bf16 ulp.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, rssm, two_hot
+from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, int8_trunk, rssm, symlog, two_hot
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STAGES = [(3, 32, 64), (32, 64, 32), (64, 128, 16), (128, 256, 8)]
@@ -250,3 +254,128 @@ def test_wider_stage_than_the_kernel_raises_on_cuda(cuda_device):
                use_bias=False).to(cuda_device)
     with pytest.raises(ValueError, match="Cout"):
         wide(torch.zeros(1, 8, 8, 8, device=cuda_device))
+
+
+def _int8_trunk(gen, dims, batch):
+    """x [batch, dims[0]] and the 12 trunk tensors (in_scale, w_q [out, in],
+    w_scale, bias per layer), quantized as `QuantLinear.from_linear` does
+    with scales calibrated on another draw of inputs, on the CPU."""
+    from sheeprl_tpu_torch.ops.quant import absmax_scale, quantize
+
+    a = 2.0 * torch.randn(256, dims[0], generator=gen)
+    tensors = []
+    for i, (n_in, n_out) in enumerate(zip(dims[:-1], dims[1:])):
+        w = torch.randn(n_out, n_in, generator=gen) / n_in ** 0.5
+        b = 0.1 * torch.randn(n_out, generator=gen)
+        s_in = a.abs().amax(0).clamp_min(1e-8 * 127) / 127
+        w_eff = w * s_in[None, :]
+        w_scale = absmax_scale(w_eff, dim=1)
+        tensors += [s_in, quantize(w_eff, w_scale[:, None]), w_scale, b]
+        a = a @ w.T + b
+        if i < 2:
+            a = torch.relu(a)
+    return 2.0 * torch.randn(batch, dims[0], generator=gen), tensors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,batch", [
+    *(((3, 256, 256, 1), b) for b in (1, 2, 4, 8, 64, 1024)),  # Pendulum, the serving rungs and more
+    ((17, 1024, 1024, 6), 8), ((17, 1024, 1024, 6), 1024),     # HalfCheetah's widths
+    ((5, 300, 18, 2), 33),                                      # odd widths, ragged blocks
+    ((3, 12288, 64, 1), 20),                                    # hidden images in device memory
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_int8_trunk_kernel_is_bit_exact(cuda_device, dims, batch):
+    gen = torch.Generator().manual_seed(batch + sum(dims))
+    x, tensors = _int8_trunk(gen, dims, batch)
+    assert int8_trunk.fused_int8_trunk_supported(*tensors)
+    x, tensors = x.to(cuda_device), [t.to(cuda_device) for t in tensors]
+    before = int8_trunk.fused_int8_trunk.launches
+    got = int8_trunk.fused_int8_trunk(x, *tensors)
+    torch.cuda.synchronize()
+    assert int8_trunk.fused_int8_trunk.launches == before + 1
+    want = int8_trunk.int8_trunk_reference(x, *tensors)
+    assert got.shape == (batch, dims[-1]) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    # the CPU's plain version agrees too: the same integers, the same f32 steps
+    assert torch.equal(got.cpu(), int8_trunk.int8_trunk_reference(x.cpu(), *[t.cpu() for t in tensors]))
+
+
+@pytest.mark.cuda
+def test_int8_trunk_raises_instead_of_falling_back(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    x, tensors = _int8_trunk(gen, (3, 16, 16, 1), 4)
+    x, tensors = x.to(cuda_device), [t.to(cuda_device) for t in tensors]
+    mixed = list(tensors)
+    mixed[3] = mixed[3].cpu()
+    with pytest.raises(ValueError, match="one device"):
+        int8_trunk.fused_int8_trunk(x, *mixed)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_trunk.fused_int8_trunk(x.t().contiguous().t(), *tensors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_serve_raises_when_the_int8_kernel_fails(cuda_device, tmp_path, monkeypatch, fault):
+    """On the card, a kernel 6 that fails to build or launch stops
+    `serve --quant int8` before it listens: no rung steps aside to f32."""
+    from sheeprl_tpu_torch.cli import run
+
+    real_bind = int8_trunk.bind
+
+    def failing_bind(source, symbol, *args, **kwargs):
+        if fault == "build":
+            raise RuntimeError(f"nvcc failed for {source}.cu")
+        if symbol == "fused_int8_trunk_forward":
+            return lambda *call_args: 1  # cudaErrorInvalidValue
+        return real_bind(source, symbol, *args, **kwargs)
+
+    monkeypatch.setattr(int8_trunk, "bind", failing_bind)
+    with pytest.raises(RuntimeError, match="nvcc failed" if fault == "build" else "launch failed"):
+        run(["serve", "--algo", "sac", "--quant", "int8", "--model_argv", "--actor_hidden_size 32",
+             "--root_dir", str(tmp_path), "--run_name", "r", "--dry_run"])
+    assert not (tmp_path / "r" / "serve_address").exists()
+
+
+def _ordered_bf16(t):
+    """bf16 bit patterns mapped to integers that are ordered like the values
+    (+0 and -0 both 0), so one bf16 ulp is a difference of 1."""
+    bits = t.view(torch.int16).int()
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _close_bf16_or_f32(got, want):
+    if got.dtype == torch.bfloat16:
+        same_nan = torch.isnan(got) == torch.isnan(want)
+        assert same_nan.all()
+        ok = ~torch.isnan(want)
+        assert int((_ordered_bf16(got) - _ordered_bf16(want))[ok].abs().max()) <= 1
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1024, 255), (4096,)], ids=["1024x255", "4096"])
+@pytest.mark.parametrize("name", ["symlog", "symexp"])
+def test_symlog_kernels_match_plain(cuda_device, name, shape, dtype):
+    gen = torch.Generator().manual_seed(len(shape))
+    scale = 20.0 if name == "symlog" else 4.0
+    x = (scale * torch.randn(*shape, generator=gen))
+    x.view(-1)[:4] = torch.tensor([0.0, -0.0, float("nan"), 1e-6])
+    x = x.to(cuda_device, dtype)
+    fn, plain = getattr(symlog, name), getattr(symlog, f"{name}_plain")
+    before = fn.launches
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == dtype
+    _close_bf16_or_f32(got, plain(x))
+    # backward: the analytic formula against autograd through the plain version
+    xg = x.clone()
+    xg.view(-1)[:4] = 1.0  # autograd through sign(x) * f(|x|) gives 0 at x = 0 and NaN at NaN
+    g = torch.randn(*shape, generator=gen).to(cuda_device, dtype)
+    leaf = xg.clone().requires_grad_(True)
+    (got_grad,) = torch.autograd.grad(fn(leaf), leaf, g)
+    leaf = xg.clone().requires_grad_(True)
+    (want_grad,) = torch.autograd.grad(plain(leaf), leaf, g)
+    _close_bf16_or_f32(got_grad, want_grad)

@@ -45,6 +45,10 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import sheeprl_tpu_torch.algos.dreamer_v3.agent, sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3\n"
         "import sheeprl_tpu_torch.data.buffers, sheeprl_tpu_torch.ops.moments\n"
         "import sheeprl_tpu_torch.envs.cartpole, sheeprl_tpu_torch.ops.kernels.rssm\n"
+        "import sheeprl_tpu_torch.serve.quant, sheeprl_tpu_torch.compile.decisions\n"
+        "import sheeprl_tpu_torch.ops.quant, sheeprl_tpu_torch.ops.kernels.int8_trunk\n"
+        "import sheeprl_tpu_torch.ops.kernels.symlog, sheeprl_tpu_torch.envs.pendulum\n"
+        "import sheeprl_tpu_torch.algos.sac.agent, sheeprl_tpu_torch.algos.sac.args\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sheeprl_tpu', 'gymnasium', 'cv2'))\n"
         "assert not bad, bad\n"
