@@ -12,7 +12,10 @@ the final line:
      the plain versions are true float32;
   2. build: every kernel of the port (seven sources) compiled from
      `sheeprl_tpu_torch/csrc/` with nvcc for sm_90a, one nvcc per source,
-     started together;
+     started together; each kernel's registers, stack and spills from
+     `-Xptxas -v`, and the HMMA (tensor-core) instructions in the SASS of
+     the two tensor-core libraries (`ln_gru`, `fused_rssm`) where the
+     toolkit has cuobjdump (none fails the run);
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the serving path gives it (and the GRU at training batch 1024), and
      the training path's kernels at its shapes (the residual GRU at B = 16
@@ -21,8 +24,11 @@ the final line:
      RSSM step at the CartPole path's widths and B = 16, 1 and 1,024), in
      float32 and bfloat16, with CUDA-event times for the kernel, the plain
      version and a library yardstick the port never calls, and the bound
-     from bytes (3.35 TB/s) and operations (67 TFLOP/s f32, 989 TFLOP/s
-     bf16); each backward against autograd through the plain version;
+     from bytes (3.35 TB/s) and operations (f32 at the 3xTF32 rate, 495 / 3
+     = 165 TFLOP/s, with the CUDA cores' 67 TFLOP/s bound logged beside it;
+     989 TFLOP/s bf16); kernel 2's B = 16 and B = 1,024 rows and their sum
+     over a gradient step (64 and 15 launches) in both dtypes; each
+     backward against autograd through the plain version;
   4. slice: `sheeprl_tpu_torch serve --algo dreamer_v3` at DreamerV3's full
      default width on `discrete_dummy` pixels, rungs 1/2/4/8, 1,024 timed
      requests from 8 concurrent sessions (some with `reset`) after one
@@ -86,7 +92,13 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")  # --out DIR replaces it
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}  # f32 outside the tensor cores; bf16, int8 dense
+# the least time for a product at each type's accuracy: an f32-accurate
+# product on the tensor cores is three TF32 products (3xTF32, the f32 path
+# of csrc/mma_common.cuh), so 495 / 3 TFLOP/s; bf16 and int8 dense. The CUDA
+# cores' f32 FMA rate (67 TFLOP/s), the f32 bound before the tensor-core
+# kernels, is logged beside each f32 row's bound.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "int8": 1979e12}
+CUDA_CORE_F32_FLOPS = 67e12
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # atol and rtol of kernel vs plain version
 TIMED_LAUNCHES = 60
 # one full-width gradient step, kernels vs plain versions: f32 sums in other
@@ -145,10 +157,34 @@ def errors(torch, got, want, dtype_name):
     return max_abs, max_rel, ok
 
 
-def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype_name: str, peak: float | None = None) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_core_bound(nbytes: float, flops: float, dtype_name: str) -> float | None:
+    """An f32 row's bound at the CUDA cores' FMA rate (None for other types)."""
+    return bound(nbytes, flops, dtype_name, CUDA_CORE_F32_FLOPS)[0] if dtype_name == "float32" else None
+
+
+def hmma_counts(build) -> dict | None:
+    """HMMA (tensor-core MMA) instructions in the SASS of the two libraries
+    whose products run on the tensor cores, from the toolkit's cuobjdump;
+    None where the toolkit has none."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    counts = {}
+    for name in ("ln_gru", "fused_rssm"):
+        out = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True, text=True,
+                             timeout=300)
+        if out.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()}")
+        counts[name] = sum("HMMA" in line for line in out.stdout.splitlines())
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +228,8 @@ def check_gru(torch, F, gru, batch, dtype, gen):
     return dict(kernel="layernorm_gru_cell", shape=f"B={batch} x[{batch},{dx}] h[{batch},{hidden}] w[{n},{k}]",
                 dtype=name, max_abs_err=max_abs, max_rel_err=max_rel, within_tol=ok, tol=TOL[name],
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, flops=flops)
+                bound_by=bound_by, bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, name), bytes=nbytes,
+                flops=flops)
 
 
 STAGES = [(3, 32, 64), (32, 64, 32), (64, 128, 16), (128, 256, 8)]  # DreamerV3 encoder at width 32
@@ -237,7 +274,7 @@ def check_conv(torch, F, cnn, n, stage, dtype, gen):
     return dict(kernel="conv_ln_silu", shape=f"N={n} {cin}->{cout} @{size}x{size}", dtype=name,
                 max_abs_err=max_abs, max_rel_err=max_rel, within_tol=ok, tol=TOL[name], ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, flops=flops)
+                bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, name), bytes=nbytes, flops=flops)
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +314,7 @@ def check_case(torch, kernel, shape, dtype_name, run, plain, counter, nbytes, fl
     return dict(kernel=kernel, shape=shape, dtype=dtype_name, max_abs_err=max(e[0] for e in errs),
                 max_rel_err=max(e[1] for e in errs), within_tol=all(e[2] for e in errs), tol=TOL[dtype_name],
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, flops=flops)
+                bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, dtype_name), bytes=nbytes, flops=flops)
 
 
 def check_backward(torch, kernel, shape, dtype_name, fn, plain, inputs, grad_mask, gen):
@@ -674,11 +711,13 @@ def fmt(r: dict) -> str:
     if "ms" not in r:
         return fmt_backward(r)
     library = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+    old = r.get("bound_ms_cuda_cores")
     return (
         f"  {r['kernel']:<28} {r['shape']:<42} {r['dtype']:<8} max_abs={r['max_abs_err']:.3e} "
         f"max_rel={r['max_rel_err']:.3e} tol={r['tol']:g} ok={r['within_tol']} "
         f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={library} "
         f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+        + ("" if old is None else f" [CUDA-core f32 bound {old:.5f}]")
     )
 
 
@@ -1324,11 +1363,17 @@ def main() -> int:
     build.build_all()
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(build.SOURCES)} built for sm_90a in {build_s:.2f} s")
-    for src in build.SOURCES:
-        for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+    for src in build.SOURCES:  # each distinct ptxas line once, with the number of kernels it describes
+        lines = [" ".join(line.split()) for line in build.build_log(src).splitlines()
+                 if "registers" in line or "spill" in line]
+        for line in sorted(set(lines)):
+            log(f"[build] {src}: {lines.count(line)} x {line}")
     report["build_seconds"] = build_s
+    hmma = hmma_counts(build)
+    log(f"[build] HMMA instructions in the SASS: {hmma if hmma is not None else 'not counted (no cuobjdump)'}")
+    if hmma is not None and min(hmma.values()) == 0:
+        raise RuntimeError(f"a tensor-core library has no HMMA instruction: {hmma}")
+    report["hmma"] = hmma
 
     # -- phase 3: kernels against their plain versions --------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1357,6 +1402,21 @@ def main() -> int:
         raise RuntimeError(f"{len(bad)} kernel checks out of tolerance: "
                            f"{[(r['kernel'], r['shape'], r['dtype']) for r in bad]}")
     log(f"[kernels] {len(results)} forward and {len(backward_rows)} backward checks within tolerance")
+    # kernel 2 in one gradient step: 64 scan launches at B = 16, 15
+    # imagination launches at B = 1,024, in either dtype
+    report["kernel2_per_step"] = {}
+    for dtype_name in ("float32", "bfloat16"):
+        steps = [(r, w) for w, batch in ((64, 16), (15, TRAIN_N)) for r in results
+                 if r["kernel"] == "layernorm_gru_cell_residuals" and r["dtype"] == dtype_name
+                 and r["shape"].startswith(f"B={batch} ")]
+        row = {key: sum(w * r[key] for r, w in steps) for key in ("ms", "plain_ms", "library_ms")}
+        row["bound_ms"] = max(sum(w * r["bytes"] for r, w in steps) / HBM_BYTES_PER_S,  # as the kernels line
+                              sum(w * r["flops"] for r, w in steps) / PEAK_FLOPS[dtype_name]) * 1e3
+        row.update({f"B={r['shape'].split()[0][2:]}": r["ms"] for r, _ in steps})
+        report["kernel2_per_step"][dtype_name] = row
+        log(f"[kernels] kernel 2 per gradient step, {dtype_name}: 64 x {steps[0][0]['ms']:.5f} (B=16) + 15 x "
+            f"{steps[1][0]['ms']:.5f} (B={TRAIN_N}) = {row['ms']:.4f} ms; bound {row['bound_ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
 
     # -- phase 4: the served slice ---------------------------------------------
     root_dir = os.path.join(OUT_DIR, "serve_logs")
@@ -1534,6 +1594,12 @@ def main() -> int:
     # every kernel but symlog_symexp lies on a path, and that run must have launched it
     if any(k["launches"] == 0 for k in kernels if k["name"] != "symlog_symexp"):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")
+    for kernel, rows in per_step.items():  # the f32 bounds at the CUDA cores' rate, as before the tensor cores
+        if rows[0][0]["dtype"] == "float32":
+            t_bytes = sum(w * r["bytes"] for r, w in rows) / HBM_BYTES_PER_S * 1e3
+            t_old = max(t_bytes, sum(w * r["flops"] for r, w in rows) / CUDA_CORE_F32_FLOPS * 1e3)
+            log(f"[kernels] {kernel}: bound_ms {next(k for k in kernels if k['name'] == kernel)['bound_ms']:.5f} "
+                f"[CUDA-core f32 bound {t_old:.5f}]")
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "report.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)

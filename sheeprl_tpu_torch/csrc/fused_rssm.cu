@@ -20,11 +20,12 @@
 // weights (7.9 MB in bf16) and does 2 * 16 * 3.93 M operations: 2.35 us of
 // bytes at 3.35 TB/s against 0.13 us of bf16 tensor-core operations, so
 // reading the weights bounds it. 7.9 MB stays resident in the 50 MB L2
-// across the 64 steps of a sequence. This version is far from that bound
-// (about 70 us a launch on an H100 80GB HBM3 at 700 W, chip_smoke.py phase
-// 3): each stage's operand rebuild and the products' shared-memory reads
-// are latency one block waits on in series; tensor-core MMA on the bf16
-// tile and a reduction split across warps are the next steps.
+// across the 64 steps of a sequence. Measured (chip_smoke.py phase 3,
+// NVIDIA H100 80GB HBM3 at 700 W): bf16 42.6 us at B = 16 (73.8 us for the
+// CUDA-core version before it), f32 59.0 us. What keeps a launch ~18x above
+// its bound is latency, not the products: four dependent stages, three
+// grid-wide syncs, and in each stage an L2 round trip for the operand tile,
+// its LayerNorm statistics and activations before the first product.
 //
 // Design: one cooperative launch (a grid that is co-resident, sized from
 // the occupancy calculator) in four stages separated by grid-wide syncs:
@@ -32,72 +33,99 @@
 //   2. [z, h] @ Wg                -> g_pre  [B, 3R]  f32 scratch
 //   3. h' @ Wt1, [h', emb] @ Wr1  -> t1_pre, r1_pre  f32 scratch
 //   4. t1 @ Wt2 + bt2, r1 @ Wr2 + br2 -> prior_raw, post_raw
-// Every stage splits its output columns into units of 32 columns x 16 rows
-// (one row tile), spread over the grid in contiguous ranges. Before its
-// first unit of a row tile a block builds that tile's left operand in
-// shared memory as f32 (values already rounded to the compute dtype):
-// after a sync the whole block copies the previous stage's f32
-// pre-activations of the tile from L2 into shared memory, a warp a row
+// Every stage splits its output columns into units of 16 columns x 16 rows
+// (one m16 row tile, two n8 tiles), spread over the grid in contiguous
+// ranges. Before its first unit of a row tile a block builds that tile's
+// left operand A in shared memory in the compute dtype (the values the
+// reference rounds to it, so nothing is lost): after a sync the whole block
+// copies the previous stage's f32 pre-activations of the tile from L2 into
+// shared memory (16-byte loads where the widths allow), a warp a row
 // recomputes the LayerNorm statistics (the reference's two-pass order: the
 // mean, then the mean of squared deviations), and a thread a column applies
-// the affine, the activation or the GRU gates. In the products each of the
-// 16 warps owns two output columns: its lanes stride the reduction axis
-// (coalesced weight reads, conflict-free shared reads), each lane keeps
-// 2 x 16 partial sums, and a transposing butterfly of 31 shuffles leaves
-// one finished output in each lane. The products run on the CUDA cores in
-// f32 in both dtypes.
+// the affine, the activation or the GRU gates. Each segment's operand
+// starts at a 16-byte boundary and is zero-padded to whole chunks.
+//
+// The products run on the tensor cores. The 16 warps of a block are two n8
+// tiles x eight slices of the reduction axis; a slice's partial 16 x 8
+// tile goes through shared memory, and 256 threads sum the eight slices in
+// a fixed order and write the unit. A lane copies 16 contiguous bytes of
+// its weight row per chunk with cp.async into a ring of four chunk slots
+// that belongs to its warp; the ring runs ahead across unit and row-tile
+// boundaries, and the first chunks of a stage are issued before the grid
+// sync that precedes it, so weight loads overlap the sync, the operand
+// rebuild and the previous unit's products. Because a lane's 16 bytes are
+// 8 (bf16) or 4 (f32) consecutive k, the product takes the reduction axis
+// in a lane-permuted order: for bf16, the MMA k index 2t + j (j < 2) and
+// 2t + 8 + j stand for k 8t + j and 8t + 2 + j (and a second MMA for
+// 8t + 4 ... 8t + 7), and A's fragments are read in the same order with
+// one 16-byte shared load a row; the sum over k is the same. bf16 takes
+// mma.sync m16n8k16, f32 m16n8k8 3xTF32 (csrc/mma_common.cuh). A weight
+// whose row is not a multiple of 16 bytes (wm is [512, 1026] on CartPole:
+// rows 2,052 bytes apart) is copied 4 bytes at a time into the same slots,
+// so the kernel takes every row stride as it is.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "mma_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace mma_common;
+
 constexpr int kRows = 16;                          // rows per tile
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kColsPerWarp = 2;
-constexpr int kCols = kWarps * kColsPerWarp;       // output columns per unit
-constexpr int kUnroll = 4;                         // reduction steps in flight
+constexpr int kUnitTiles = 2;                      // n8 tiles a unit
+constexpr int kUnitCols = 8 * kUnitTiles;          // output columns a unit
+constexpr int kSlices = kWarps / kUnitTiles;       // reduction slices a unit
+// chunk slots a warp: enough in bf16 for a whole share of the CartPole
+// path's widest product (K = 1,026: five chunks) to be in flight
+template <typename T>
+__host__ __device__ constexpr int ring_slots() { return sizeof(T) == 2 ? 6 : 4; }
+constexpr int kChunkBytes = 32 * 16;               // a warp's chunk: 16 bytes a lane
+constexpr int kRedFloats = kSlices * kUnitTiles * kRows * 8;
 static_assert(kWarps == kRows, "the statistics pass gives each row a warp");
+static_assert(kUnitTiles * kRows * 8 <= kThreads, "a thread per output of a unit");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// K covered by one chunk (4 lanes of 16 bytes along a weight row)
+template <typename T>
+__host__ __device__ constexpr int chunk_k() { return 4 * (16 / static_cast<int>(sizeof(T))); }
 
 template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ int pad_k(int n) { return (n + chunk_k<T>() - 1) / chunk_k<T>() * chunk_k<T>(); }
+
+// The hardware's exp2 and reciprocal (a few ulp each, no branch): each
+// block recomputes the LayerNorm and the activations of its whole 16-row
+// tile, so these element-wise passes are issue-bound and every instruction
+// counts. tanh(v) = 1 - 2 / (1 + e^(2v)), exact at the limits and within
+// about 1e-7 absolute near 0, far inside the 1e-4 tolerance.
+__device__ __forceinline__ float rcp_f(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
 }
-
-// the value as the compute dtype holds it
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
-
-// the hardware's exp2 (a few ulp from expf) and a correctly rounded
-// reciprocal, in a fraction of the instructions of expf and a division
-__device__ __forceinline__ float sigmoid_f(float v) { return __frcp_rn(1.f + __expf(-v)); }
+__device__ __forceinline__ float sigmoid_f(float v) { return rcp_f(1.f + __expf(-v)); }
+__device__ __forceinline__ float tanh_f(float v) { return 1.f - 2.f * rcp_f(1.f + __expf(2.f * v)); }
 
 // activation codes, as ops/kernels/rssm.py:ACT_CODES numbers them
-__device__ __forceinline__ float apply_act(float v, int act) {
-  switch (act) {
-    case 0: return v * sigmoid_f(v);                          // silu
-    case 1: return fmaxf(v, 0.f);                             // relu
-    case 2: return tanhf(v);                                  // tanh
-    case 3: return v > 0.f ? v : expm1f(v);                   // elu, alpha 1
-    case 4: {                                                 // gelu, tanh form
-      const float k = 0.7978845608028654f;                    // sqrt(2 / pi)
-      return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
-    }
-    default: return v;                                        // identity
+template <int ACT>
+__device__ __forceinline__ float act_of(float v) {
+  if constexpr (ACT == 0) return v * sigmoid_f(v);                     // silu
+  if constexpr (ACT == 1) return fmaxf(v, 0.f);                        // relu
+  if constexpr (ACT == 2) return tanh_f(v);                            // tanh
+  if constexpr (ACT == 3) return v > 0.f ? v : expm1f(v);              // elu, alpha 1
+  if constexpr (ACT == 4) {                                            // gelu, tanh form
+    const float k = 0.7978845608028654f;                               // sqrt(2 / pi)
+    return 0.5f * v * (1.f + tanh_f(k * (v + 0.044715f * v * v * v)));
   }
+  return v;                                                            // identity
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -116,47 +144,64 @@ struct Params {
   void* h_out; float* prior; float* post;
   float* z_pre; float* g_pre; float* t1_pre; float* r1_pre;  // f32 scratch
   int B, Dx, R, D, Hd, E, SD;
-  int lda, ldp;  // row strides of the operand tile A and the pre-activation tile P
-  bool vec;      // 16-byte copies of the scratch rows (D, R, Hd % 4 == 0)
+  int lda, ldp;  // row strides of the operand tile A (elements) and the pre-activation tile P (floats)
   float mlp_eps, gru_eps, head_eps;
-  int act;
 };
 
 // One matrix product of a stage: out[:, :n] = A[:, a_off : a_off + k] @ w^T
-// (+ bias), w [n, k] row-major.
+// (+ bias), w [n, k] row-major; `mode` how its rows are copied (CopyMode).
 struct Segment {
   const void* w;
-  int n, k, a_off;
+  int n, k, a_off, mode;
   float* out;
   const float* bias;
 };
 
-// Staging a tile is latency-bound: every loop below keeps each thread's
-// loads independent of one another and of any branch, so that an unrolled
-// loop issues them back to back (a first version paid an L2 latency per
-// element). Each code path runs only a few times a launch, so the helpers
-// are not inlined: one copy each, shared by the stages, keeps the code
-// small.
+// Staging a tile is latency-bound: every copy of a stage's operand (the
+// previous stage's pre-activations, the inputs, the LayerNorm affines) is
+// issued as cp.async before the block waits once, so the tile costs about
+// one L2 round trip. A row whose bytes or address do not allow 16-byte
+// copies takes 4-byte copies, or plain loads; rows past B are zeros.
 
-// Copy the tile's rows (rt * 16 ... + 15) of a row-major [B, n] f32 array
-// written earlier in this launch by other blocks (so read through L2,
-// `__ldcg`) into shared memory at dst (row stride ld), rows past B zero.
-// With `vec` (n % 4 == 0, the array and dst 16-byte aligned, ld % 4 == 0)
-// the copy moves 16 bytes a load.
-__device__ __noinline__ void load_pre(const float* __restrict__ src, int n, int rt, int B,
-                                      float* __restrict__ dst, int ld, bool vec) {
+// Columns [0, n_pad) of the tile's 16 rows at dst (row stride ld) from rows
+// rt * 16 ... of a row-major [B, n] array of T in global memory, zeros past
+// n. Read-only inputs (x, h, emb): .ca copies are fine where 16 bytes do
+// not fit.
+template <typename T>
+__device__ __noinline__ void copy_rows(T* dst, int ld, const T* __restrict__ src, int n, int n_pad, int rt,
+                                       int B) {
+  constexpr int kE = 16 / sizeof(T);
+  int mode = copy_mode<T>(src, n);
+  const int dmode = copy_mode<T>(dst, ld);
+  if (dmode > mode) mode = dmode;
+  const int chunks = n_pad / kE;  // whole chunks; the rest of n_pad element by element
+  for (int e = threadIdx.x; e < kRows * chunks; e += kThreads) {
+    const int r = e / chunks, k = (e - r * chunks) * kE;
+    const int row = rt * kRows + r;
+    const int valid = row < B ? min(max(n - k, 0), kE) : 0;
+    copy_chunk(dst + r * ld + k, valid > 0 ? src + (size_t)row * n + k : src, valid, mode);
+  }
+  const int tail = n_pad - chunks * kE;
+  for (int e = threadIdx.x; e < kRows * tail; e += kThreads) {
+    const int r = e / tail, k = chunks * kE + e - r * tail;
+    const int row = rt * kRows + r;
+    dst[r * ld + k] = row < B && k < n ? src[(size_t)row * n + k] : from_f<T>(0.f);
+  }
+}
+
+// n floats a row of a [B, n] f32 array written earlier in this launch by
+// other blocks, so read through L2 only: 16-byte cp.async.cg where n and
+// the addresses allow, else __ldcg.
+__device__ __noinline__ void copy_pre(float* dst, int ld, const float* __restrict__ src, int n, int rt, int B) {
+  const bool vec = copy_mode<float>(src, n) == kCopy16 && copy_mode<float>(dst, ld) == kCopy16;
   if (vec) {
-    const int nv = n >> 2;
-#pragma unroll 8
+    const int nv = n / 4;
     for (int e = threadIdx.x; e < kRows * nv; e += kThreads) {
-      const int r = e / nv, k = (e - r * nv) << 2;
+      const int r = e / nv, k = (e - r * nv) * 4;
       const int row = rt * kRows + r;
-      const float4 v = row < B ? __ldcg(reinterpret_cast<const float4*>(src + (size_t)row * n + k))
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(dst + r * ld + k) = v;
+      cp_async16(dst + r * ld + k, row < B ? src + (size_t)row * n + k : src, row < B ? 16 : 0);
     }
   } else {
-#pragma unroll 4
     for (int e = threadIdx.x; e < kRows * n; e += kThreads) {
       const int r = e / n, k = e - r * n;
       const int row = rt * kRows + r;
@@ -165,15 +210,22 @@ __device__ __noinline__ void load_pre(const float* __restrict__ src, int n, int 
   }
 }
 
-// The same for an input in the compute dtype (x, h, emb; read-only), as f32.
+// n f32 values (a LayerNorm scale or offset) into shared memory.
+__device__ __noinline__ void copy_vec(float* dst, const float* __restrict__ src, int n) {
+  if (copy_mode<float>(src, n) == kCopy16 && copy_mode<float>(dst, n) == kCopy16) {
+    for (int e = threadIdx.x; e < n / 4; e += kThreads) cp_async16(dst + 4 * e, src + 4 * e, 16);
+  } else {
+    for (int e = threadIdx.x; e < n; e += kThreads) dst[e] = __ldg(src + e);
+  }
+}
+
+// Columns [c0, c1) of A's 16 rows become zeros.
 template <typename T>
-__device__ __noinline__ void load_input(const T* __restrict__ src, int n, int rt, int B,
-                                        float* __restrict__ dst, int ld) {
-#pragma unroll 8
+__device__ __noinline__ void zero_cols(T* A, int ld, int c0, int c1) {
+  const int n = c1 - c0;
   for (int e = threadIdx.x; e < kRows * n; e += kThreads) {
-    const int r = e / n, k = e - r * n;
-    const int row = rt * kRows + r;
-    dst[r * ld + k] = row < B ? to_f(__ldg(src + (size_t)row * n + k)) : 0.f;
+    const int r = e / n;
+    A[r * ld + c0 + (e - r * n)] = from_f<T>(0.f);
   }
 }
 
@@ -182,245 +234,413 @@ __device__ __noinline__ void load_input(const T* __restrict__ src, int n, int rt
 // deviations), by one warp.
 __device__ __noinline__ float2 row_stats(const float* row, int n, float eps) {
   const int lane = threadIdx.x % 32;
-  float s = 0.f;
-#pragma unroll 8
-  for (int k = lane; k < n; k += 32) s += row[k];
-  const float mean = warp_sum(s) / n;
-  float q = 0.f;
-#pragma unroll 8
-  for (int k = lane; k < n; k += 32) {
+  // four running sums a lane, so that the adds are not one dependent chain
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int k = lane;
+  for (; k + 96 < n; k += 128) {
+    s0 += row[k];
+    s1 += row[k + 32];
+    s2 += row[k + 64];
+    s3 += row[k + 96];
+  }
+  for (; k < n; k += 32) s0 += row[k];
+  const float mean = warp_sum((s0 + s1) + (s2 + s3)) / n;
+  float q0 = 0.f, q1 = 0.f, q2 = 0.f, q3 = 0.f;
+  for (k = lane; k + 96 < n; k += 128) {
+    const float c0 = row[k] - mean, c1 = row[k + 32] - mean, c2 = row[k + 64] - mean, c3 = row[k + 96] - mean;
+    q0 += c0 * c0;
+    q1 += c1 * c1;
+    q2 += c2 * c2;
+    q3 += c3 * c3;
+  }
+  for (; k < n; k += 32) {
     const float c = row[k] - mean;
-    q += c * c;
+    q0 += c * c;
   }
-  return make_float2(mean, rsqrtf(warp_sum(q) / n + eps));
+  return make_float2(mean, rsqrtf(warp_sum((q0 + q1) + (q2 + q3)) / n + eps));
 }
 
-// A[r, :n] = act(LN(pre[r, :n])) rounded to T for the tile's 16 rows (rows
-// past B zero), a thread per column: the column's scale and offset are read
-// once, the rows come from shared memory.
-template <typename T>
-__device__ __noinline__ void ln_act_tile(const float* pre, int ldp, const float2* st, int n,
-                                         const float* scale, const float* offset, int act, int live,
-                                         float* A, int lda) {
+// A[r, :n] = act(LN(pre[r, :n])) in T for the tile's 16 rows (rows past B
+// zero), a thread per column; scale and offset come from shared memory.
+// The 16 rows are loaded, then computed, then stored: stores to A cannot be
+// moved above loads from P, so a row at a time would be one dependent chain
+// of shared-memory and SFU latencies after another.
+template <typename T, int ACT>
+__device__ __noinline__ void ln_act_tile(const float* __restrict__ pre, int ldp, const float2* __restrict__ st, int n,
+                            const float* __restrict__ scale, const float* __restrict__ offset, int live,
+                            T* __restrict__ A, int lda) {
   for (int k = threadIdx.x; k < n; k += kThreads) {
-    const float sc = __ldg(scale + k), of = __ldg(offset + k);
-#pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      const float v = (pre[r * ldp + k] - st[2 * r].x) * st[2 * r].y * sc + of;
-      A[r * lda + k] = r < live ? round_to<T>(apply_act(v, act)) : 0.f;
-    }
+    const float sc = scale[k], of = offset[k];
+    float v[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) v[r] = pre[r * ldp + k];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) v[r] = act_of<ACT>((v[r] - st[2 * r].x) * st[2 * r].y * sc + of);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) A[r * lda + k] = r < live ? from_f<T>(v[r]) : from_f<T>(0.f);
   }
 }
 
-// Build the left operand of STAGE for row tile `rt` in shared memory: row r
-// of the tile at A + r * lda, rows past B zero. In three block-wide steps:
+// The LN-GRU gates of the tile: A[r, i] holds h and becomes h' (rows past
+// B zero), a thread per column i, loads before stores as above.
+template <typename T>
+__device__ __noinline__ void gru_gates(const float* __restrict__ P, int ldp, const float2* __restrict__ st, int R,
+                                       const float* __restrict__ sg, const float* __restrict__ og, int live,
+                                       T* __restrict__ A, int lda) {
+  for (int i = threadIdx.x; i < R; i += kThreads) {
+    const int c = R + i, u = 2 * R + i;
+    const float sr = sg[i], orr = og[i], sc = sg[c], oc = og[c], su = sg[u], ou = og[u];
+    float pr[kRows], pc[kRows], pu[kRows], hv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      pr[r] = P[r * ldp + i];
+      pc[r] = P[r * ldp + c];
+      pu[r] = P[r * ldp + u];
+      hv[r] = to_f(A[r * lda + i]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float m = st[2 * r].x, rs = st[2 * r].y;
+      const float update = sigmoid_f((pu[r] - m) * rs * su + ou - 1.f);
+      const float cand = tanh_f(sigmoid_f((pr[r] - m) * rs * sr + orr) * ((pc[r] - m) * rs * sc + oc));
+      hv[r] = update * cand + (1.f - update) * hv[r];
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) A[r * lda + i] = r < live ? from_f<T>(hv[r]) : from_f<T>(0.f);
+  }
+}
+
+// Build the left operand of `stage` for row tile `rt` in shared memory: row r
+// of the tile at A + r * lda in T, rows past B zero, each segment's operand
+// zero-padded to whole chunks. In three block-wide steps:
 //   1. copy the previous stage's f32 pre-activations of the tile into P
-//      (row stride ldp) and the tile's inputs (h, emb) into A;
+//      (row stride ldp), the tile's inputs (x, h, emb) into A and the
+//      LayerNorm affines into V (scale then offset, of each segment);
 //   2. the LayerNorm statistics of each row (and segment), a warp a row,
 //      into stats;
 //   3. a thread per column: the affine, the activation or the GRU gates,
 //      rounded to T, into A.
-template <typename T, int STAGE>
-__device__ void stage_operand(const Params& p, float* A, float* P, float2 (*stats)[2], int rt) {
-  if constexpr (STAGE == 1) {
-    load_input(static_cast<const T*>(p.x), p.Dx, rt, p.B, A, p.lda);
-  } else {
-    if constexpr (STAGE == 2) {  // [z, h]: z_pre -> P, h -> A[:, D:]
-      load_pre(p.z_pre, p.D, rt, p.B, P, p.ldp, p.vec);
-      load_input(static_cast<const T*>(p.h), p.R, rt, p.B, A + p.D, p.lda);
-    } else if constexpr (STAGE == 3) {  // [h', emb]: g_pre -> P, h -> A[:, :R], emb -> A[:, R:]
-      load_pre(p.g_pre, 3 * p.R, rt, p.B, P, p.ldp, p.vec);
-      load_input(static_cast<const T*>(p.h), p.R, rt, p.B, A, p.lda);
-      load_input(static_cast<const T*>(p.emb), p.E, rt, p.B, A + p.R, p.lda);
-    } else {  // [t1, r1]: t1_pre -> P[:, :Hd], r1_pre -> P[:, Hd:]
-      load_pre(p.t1_pre, p.Hd, rt, p.B, P, p.ldp, p.vec);
-      load_pre(p.r1_pre, p.Hd, rt, p.B, P + p.Hd, p.ldp, p.vec);
-    }
-    __syncthreads();
-    {
-      const int r = threadIdx.x / 32;  // one warp a row
-      const float* pre = P + r * p.ldp;
-      if constexpr (STAGE == 2) {
-        stats[r][0] = row_stats(pre, p.D, p.mlp_eps);
-      } else if constexpr (STAGE == 3) {
-        stats[r][0] = row_stats(pre, 3 * p.R, p.gru_eps);
-      } else {
-        const float2 a = row_stats(pre, p.Hd, p.head_eps);
-        const float2 b = row_stats(pre + p.Hd, p.Hd, p.head_eps);
-        stats[r][0] = a;
-        stats[r][1] = b;
-      }
-    }
-    __syncthreads();
-    const int live = min(kRows, p.B - rt * kRows);  // rows of the tile below B
-    if constexpr (STAGE == 2) {
-      ln_act_tile<T>(P, p.ldp, &stats[0][0], p.D, p.sm, p.om, p.act, live, A, p.lda);
-    } else if constexpr (STAGE == 3) {  // the LN-GRU gates; A[r, i] holds h and becomes h'
-      for (int i = threadIdx.x; i < p.R; i += kThreads) {
-        const int c = p.R + i, u = 2 * p.R + i;
-        const float sr = __ldg(p.sg + i), orr = __ldg(p.og + i);
-        const float sc = __ldg(p.sg + c), oc = __ldg(p.og + c);
-        const float su = __ldg(p.sg + u), ou = __ldg(p.og + u);
-#pragma unroll 2
-        for (int r = 0; r < kRows; ++r) {
-          const float* pre = P + r * p.ldp;
-          const float2 st = stats[r][0];
-          const float r_ = (pre[i] - st.x) * st.y * sr + orr;
-          const float c_ = (pre[c] - st.x) * st.y * sc + oc;
-          const float u_ = (pre[u] - st.x) * st.y * su + ou;
-          const float update = sigmoid_f(u_ - 1.f);
-          const float cand = tanhf(sigmoid_f(r_) * c_);
-          float* a = A + r * p.lda + i;
-          *a = r < live ? round_to<T>(update * cand + (1.f - update) * *a) : 0.f;
-        }
-      }
+// The wait for step 1's copies also waits for the weight chunks in flight,
+// which were issued earlier.
+template <typename T, int ACT>
+__device__ __noinline__ void stage_operand(const Params& p, int stage, T* A, float* P, float* V,
+                                           float2 (*stats)[2], int rt) {
+  const int lda = p.lda;
+  if (stage == 1) {
+    copy_rows(A, lda, static_cast<const T*>(p.x), p.Dx, pad_k<T>(p.Dx), rt, p.B);
+  } else if (stage == 2) {  // [z, h]: z_pre -> P, h -> A[:, D:]
+    copy_pre(P, p.ldp, p.z_pre, p.D, rt, p.B);
+    copy_rows(A + p.D, lda, static_cast<const T*>(p.h), p.R, pad_k<T>(p.D + p.R) - p.D, rt, p.B);
+    copy_vec(V, p.sm, p.D);
+    copy_vec(V + p.D, p.om, p.D);
+  } else if (stage == 3) {  // [h', emb]: g_pre -> P, h -> A[:, :R], emb -> A[:, R:]
+    copy_pre(P, p.ldp, p.g_pre, 3 * p.R, rt, p.B);
+    copy_rows(A, lda, static_cast<const T*>(p.h), p.R, p.R, rt, p.B);
+    copy_rows(A + p.R, lda, static_cast<const T*>(p.emb), p.E, pad_k<T>(p.R + p.E) - p.R, rt, p.B);
+    copy_vec(V, p.sg, 3 * p.R);
+    copy_vec(V + 3 * p.R, p.og, 3 * p.R);
+  } else {  // [t1, r1]: t1_pre -> P[:, :Hd], r1_pre -> P[:, Hd:]; r1 at A[:, pad(Hd):]
+    copy_pre(P, p.ldp, p.t1_pre, p.Hd, rt, p.B);
+    copy_pre(P + p.Hd, p.ldp, p.r1_pre, p.Hd, rt, p.B);
+    copy_vec(V, p.st1, p.Hd);
+    copy_vec(V + p.Hd, p.ot1, p.Hd);
+    copy_vec(V + 2 * p.Hd, p.sr1, p.Hd);
+    copy_vec(V + 3 * p.Hd, p.or1, p.Hd);
+    const int off = pad_k<T>(p.Hd);
+    zero_cols(A, lda, p.Hd, off);
+    zero_cols(A, lda, off + p.Hd, 2 * off);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (stage == 1) return;
+  {
+    const int r = threadIdx.x / 32;  // one warp a row
+    const float* pre = P + r * p.ldp;
+    if (stage == 2) {
+      stats[r][0] = row_stats(pre, p.D, p.mlp_eps);
+    } else if (stage == 3) {
+      stats[r][0] = row_stats(pre, 3 * p.R, p.gru_eps);
     } else {
-      ln_act_tile<T>(P, p.ldp, &stats[0][0], p.Hd, p.st1, p.ot1, p.act, live, A, p.lda);
-      ln_act_tile<T>(P + p.Hd, p.ldp, &stats[0][1], p.Hd, p.sr1, p.or1, p.act, live, A + p.Hd, p.lda);
+      const float2 a = row_stats(pre, p.Hd, p.head_eps);
+      const float2 b = row_stats(pre + p.Hd, p.Hd, p.head_eps);
+      stats[r][0] = a;
+      stats[r][1] = b;
     }
   }
-}
-
-// One step of the transposing butterfly over the lanes' 32 partial sums:
-// the lower half of the values stays with the lanes whose bit OFF is clear,
-// the upper half with the others, each summed with its partner's. Every
-// index is a compile-time constant, so v stays in registers (a select
-// between two array elements would be an address select, which puts v in
-// local memory).
-template <int OFF>
-__device__ __forceinline__ void butterfly_step(float (&v)[2 * 16], int lane) {
-  const bool upper = (lane & OFF) != 0;
-#pragma unroll
-  for (int j = 0; j < OFF; ++j) {
-    const float lo = v[j], hi = v[j + OFF];
-    const float send = upper ? lo : hi;
-    const float keep = upper ? hi : lo;
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  __syncthreads();
+  const int live = min(kRows, p.B - rt * kRows);  // rows of the tile below B
+  if (stage == 2) {
+    ln_act_tile<T, ACT>(P, p.ldp, &stats[0][0], p.D, V, V + p.D, live, A, lda);
+  } else if (stage == 3) {
+    gru_gates<T>(P, p.ldp, &stats[0][0], p.R, V, V + 3 * p.R, live, A, lda);
+  } else {
+    ln_act_tile<T, ACT>(P, p.ldp, &stats[0][0], p.Hd, V, V + p.Hd, live, A, lda);
+    ln_act_tile<T, ACT>(P + p.Hd, p.ldp, &stats[0][1], p.Hd, V + 2 * p.Hd, V + 3 * p.Hd, live,
+                   A + pad_k<T>(p.Hd), lda);
   }
 }
 
-// One unit: kCols output columns of segment `s` for row tile `rt`; warp w owns
-// columns c0 + 2w and c0 + 2w + 1.
+// A stage's units: per row tile, ceil(n0 / 16) units of segment 0, then
+// those of segment 1; this block's contiguous range [begin, end).
+struct StageDesc {
+  Segment s0, s1;
+  int c0, per_tile;
+  int begin, end;
+};
+
+__device__ __forceinline__ int unit_cols(int n) { return (n + kUnitCols - 1) / kUnitCols; }
+
+__device__ __forceinline__ StageDesc make_stage(const Segment& a, const Segment& b, int nseg, int B) {
+  StageDesc d;
+  d.s0 = a;
+  d.s1 = b;
+  d.c0 = unit_cols(a.n);
+  d.per_tile = d.c0 + (nseg > 1 ? unit_cols(b.n) : 0);
+  const int units = (B + kRows - 1) / kRows * d.per_tile;  // the host keeps units * grid in int
+  d.begin = units * blockIdx.x / gridDim.x;
+  d.end = units * (blockIdx.x + 1) / gridDim.x;
+  return d;
+}
+
+// This warp's share of unit u: its segment's fields (each picked by value,
+// so that nothing here needs an address and all of it stays in registers),
+// the first column of its n8 tile, and its chunks [lo, hi) of the
+// segment's reduction axis.
+struct Share {
+  const void* w;
+  float* out;
+  const float* bias;
+  int n, k, a_off, mode;
+  int col, lo, hi;
+};
+
 template <typename T>
-__device__ __noinline__ void product_unit(const Segment& s, const float* A, int lda, int rt, int chunk, int B) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = chunk * kCols + warp * kColsPerWarp;
-  if (n0 >= s.n) return;  // warp-uniform: the whole warp has no column
-  const T* w = static_cast<const T*>(s.w);
-  const T* w0 = w + (size_t)n0 * s.k;
-  const T* w1 = w + (size_t)min(n0 + 1, s.n - 1) * s.k;  // a ragged last column repeats
-  const float* a = A + s.a_off;
+__device__ __forceinline__ Share share_of(const StageDesc& d, int u) {
+  const int warp = threadIdx.x / 32;
+  const int cu = u % d.per_tile;
+  const bool second = cu >= d.c0;
+  Share sh;
+  sh.w = second ? d.s1.w : d.s0.w;
+  sh.out = second ? d.s1.out : d.s0.out;
+  sh.bias = second ? d.s1.bias : d.s0.bias;
+  sh.n = second ? d.s1.n : d.s0.n;
+  sh.k = second ? d.s1.k : d.s0.k;
+  sh.a_off = second ? d.s1.a_off : d.s0.a_off;
+  sh.mode = second ? d.s1.mode : d.s0.mode;
+  sh.col = (second ? cu - d.c0 : cu) * kUnitCols + (warp % kUnitTiles) * 8;
+  const int nck = (sh.k + chunk_k<T>() - 1) / chunk_k<T>();
+  const int slice = warp / kUnitTiles;
+  sh.lo = slice * nck / kSlices;
+  sh.hi = (slice + 1) * nck / kSlices;
+  return sh;
+}
 
-  float v[kColsPerWarp * kRows];
-#pragma unroll
-  for (int i = 0; i < kColsPerWarp * kRows; ++i) v[i] = 0.f;
+// The weight chunks of this warp over the block's units of one stage, in
+// the order the products take them, copied by cp.async into the warp's
+// ring of kSlots slots. Every issue() commits one group (an empty one past
+// the last chunk), so that waiting for all but kSlots - 2 groups always
+// means "the oldest chunk not yet taken has landed".
+template <typename T>
+struct WeightStream {
+  StageDesc d;
+  static constexpr int kSlots = ring_slots<T>();
+  unsigned char* ring;  // this warp's kSlots slots
+  int u;                // the next chunk to issue: unit u, chunk c of its share
+  int c;
+  Share sh;
+  int issued, taken;    // chunks issued and taken, counting from 0
 
-  int k = lane;
-  for (; k + 32 * (kUnroll - 1) < s.k; k += 32 * kUnroll) {
-    float wv0[kUnroll], wv1[kUnroll];
+  __device__ __forceinline__ void start(const StageDesc& desc, unsigned char* warp_ring) {
+    d = desc;
+    ring = warp_ring;
+    u = desc.begin;
+    c = 0;
+    issued = taken = 0;
+    seek();
 #pragma unroll
-    for (int q = 0; q < kUnroll; ++q) {
-      wv0[q] = to_f(__ldg(w0 + k + 32 * q));
-      wv1[q] = to_f(__ldg(w1 + k + 32 * q));
-    }
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float av = a[r * lda + k + 32 * q];
-        v[r] = fmaf(av, wv0[q], v[r]);
-        v[kRows + r] = fmaf(av, wv1[q], v[kRows + r]);
-      }
+    for (int i = 0; i < kSlots - 1; ++i) issue();
+  }
+
+  // move to the first unit from u on in which this warp has a chunk c
+  __device__ __forceinline__ void seek() {
+    for (; u < d.end; ++u, c = 0) {
+      sh = share_of<T>(d, u);
+      if (sh.lo + c < sh.hi) return;
     }
   }
-  for (; k < s.k; k += 32) {
-    const float wv0 = to_f(__ldg(w0 + k));
-    const float wv1 = to_f(__ldg(w1 + k));
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float av = a[r * lda + k];
-      v[r] = fmaf(av, wv0, v[r]);
-      v[kRows + r] = fmaf(av, wv1, v[kRows + r]);
+
+  __device__ __forceinline__ void issue() {
+    if (u < d.end) {
+      constexpr int kE = 16 / sizeof(T);
+      const int lane = threadIdx.x % 32;
+      const int n = sh.col + lane / 4;
+      const int k = (sh.lo + c) * chunk_k<T>() + kE * (lane % 4);
+      const int valid = n < sh.n ? min(max(sh.k - k, 0), kE) : 0;
+      const T* w = static_cast<const T*>(sh.w);
+      copy_chunk(reinterpret_cast<T*>(ring + (issued % kSlots) * kChunkBytes + 16 * lane),
+                 valid > 0 ? w + (size_t)n * sh.k + k : w, valid, sh.mode);
+      ++issued;
+      ++c;
+      seek();
     }
+    cp_async_commit();
   }
 
-  // transposing butterfly: afterwards lane i holds the warp's total of
-  // value i (column i / 16, row i % 16) in v[0]
-  butterfly_step<16>(v, lane);
-  butterfly_step<8>(v, lane);
-  butterfly_step<4>(v, lane);
-  butterfly_step<2>(v, lane);
-  butterfly_step<1>(v, lane);
-  const int col = n0 + lane / kRows;
-  const int row = rt * kRows + lane % kRows;
-  if (col < s.n && row < B) {
-    const float out = s.bias != nullptr ? v[0] + s.bias[col] : v[0];
-    s.out[(size_t)row * s.n + col] = out;
+  // the lane's 16 bytes of the oldest chunk not yet taken (issuing the next)
+  __device__ __forceinline__ uint4 take() {
+    cp_async_wait<kSlots - 2>();
+    __syncwarp();
+    const uint4 v = *reinterpret_cast<const uint4*>(ring + (taken % kSlots) * kChunkBytes + 16 * (threadIdx.x % 32));
+    ++taken;
+    __syncwarp();  // every lane has read the slot the next issue overwrites
+    issue();
+    return v;
+  }
+};
+
+// acc += A[:, a_off + chunk] @ W-chunk^T for one chunk, K in the lane order
+// described at the top: a lane's 16 bytes of A rows g and g + 8 pair with
+// its own 16 bytes of the weight row.
+template <typename T>
+__device__ __forceinline__ void chunk_mma(float (&acc0)[4], float (&acc1)[4], const T* A, int lda, int a_col,
+                                          uint4 b) {
+  // the chunk's two MMAs go to two accumulators, so that they do not wait
+  // on each other (summed once, at the end of the unit)
+  const int lane = threadIdx.x % 32;
+  const int col = a_col + (16 / static_cast<int>(sizeof(T))) * (lane % 4);
+  const uint4 lo = *reinterpret_cast<const uint4*>(A + (lane / 4) * lda + col);
+  const uint4 hi = *reinterpret_cast<const uint4*>(A + (lane / 4 + 8) * lda + col);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, b0[2] = {b.x, b.y};
+    const uint32_t a1[4] = {lo.z, hi.z, lo.w, hi.w}, b1[2] = {b.z, b.w};
+    mma_bf16(acc0, a0, b0);
+    mma_bf16(acc1, a1, b1);
+  } else {
+    const float a0[4] = {__uint_as_float(lo.x), __uint_as_float(hi.x), __uint_as_float(lo.y), __uint_as_float(hi.y)};
+    const float a1[4] = {__uint_as_float(lo.z), __uint_as_float(hi.z), __uint_as_float(lo.w), __uint_as_float(hi.w)};
+    const float b0[2] = {__uint_as_float(b.x), __uint_as_float(b.y)};
+    const float b1[2] = {__uint_as_float(b.z), __uint_as_float(b.w)};
+    uint32_t ah0[4], al0[4], bh0[2], bl0[2], ah1[4], al1[4], bh1[2], bl1[2];
+    split_tf32(a0, ah0, al0);
+    split_tf32(b0, bh0, bl0);
+    split_tf32(a1, ah1, al1);
+    split_tf32(b1, bh1, bl1);
+    mma_tf32(acc0, al0, bh0);  // the 3xTF32 terms, alternating accumulators
+    mma_tf32(acc1, al1, bh1);
+    mma_tf32(acc0, ah0, bl0);
+    mma_tf32(acc1, ah1, bl1);
+    mma_tf32(acc0, ah0, bh0);
+    mma_tf32(acc1, ah1, bh1);
   }
 }
 
-__device__ __forceinline__ int chunks(int n) { return (n + kCols - 1) / kCols; }
-
-template <typename T, int STAGE>
-__device__ void run_stage(const Params& p, float* A, float* P, float2 (*stats)[2],
-                          const Segment& s0, const Segment& s1, int nseg) {
-  const int c0 = chunks(s0.n);
-  const int per_tile = c0 + (nseg > 1 ? chunks(s1.n) : 0);
-  const int tiles = (p.B + kRows - 1) / kRows;
-  const long long units = (long long)tiles * per_tile;
-  const long long begin = units * blockIdx.x / gridDim.x;
-  const long long end = units * (blockIdx.x + 1) / gridDim.x;
+template <typename T, int ACT>
+__device__ __forceinline__ void run_stage(const Params& p, int stage, const StageDesc& d, WeightStream<T>& ws, T* A,
+                                       float* P, float* V, float* red, float2 (*stats)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int staged = -1;
-  for (long long u = begin; u < end; ++u) {
-    const int rt = static_cast<int>(u / per_tile);
-    int c = static_cast<int>(u % per_tile);
+  for (int u = d.begin; u < d.end; ++u) {
+    const int rt = u / d.per_tile;
     if (rt != staged) {
       __syncthreads();  // every warp is done with the previous tile
-      stage_operand<T, STAGE>(p, A, P, stats, rt);
+      stage_operand<T, ACT>(p, stage, A, P, V, stats, rt);
       __syncthreads();
       staged = rt;
     }
-    if (STAGE == 3 && c == 0) {  // h' leaves the kernel once per row tile
+    if (stage == 3 && u % d.per_tile == 0) {  // h' leaves the kernel once per row tile
       T* h_out = static_cast<T*>(p.h_out);
-      for (int e = threadIdx.x; e < kRows * p.R; e += kThreads) {
-        const int r = e / p.R, i = e % p.R;
-        const int row = rt * kRows + r;
-        if (row < p.B) h_out[(size_t)row * p.R + i] = from_f<T>(A[r * p.lda + i]);
+      const int live = min(kRows, p.B - rt * kRows);
+      if (copy_mode<T>(h_out, p.R) == kCopy16) {  // 16 bytes a store
+        constexpr int kE = 16 / sizeof(T);
+        const int per_row = p.R / kE;
+        for (int e = threadIdx.x; e < live * per_row; e += kThreads) {
+          const int r = e / per_row, i = (e - r * per_row) * kE;
+          *reinterpret_cast<uint4*>(h_out + (size_t)(rt * kRows + r) * p.R + i) =
+              *reinterpret_cast<const uint4*>(A + r * p.lda + i);
+        }
+      } else {
+        for (int r = 0; r < live; ++r)
+          for (int i = threadIdx.x; i < p.R; i += kThreads) h_out[(size_t)(rt * kRows + r) * p.R + i] = A[r * p.lda + i];
       }
     }
-    if (c < c0) {
-      product_unit<T>(s0, A, p.lda, rt, c, p.B);
-    } else {
-      product_unit<T>(s1, A, p.lda, rt, c - c0, p.B);
+    const Share sh = share_of<T>(d, u);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = sh.lo; c < sh.hi; ++c) chunk_mma(acc, acc1, A, p.lda, sh.a_off + c * chunk_k<T>(), ws.take());
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += acc1[q];
+
+    // the eight slices' partial tiles -> red[slice][tile][row][col]
+    const int g = lane / 4, t = lane % 4;
+    float* mine = red + warp * kRows * 8;  // warp = slice * kUnitTiles + tile
+    mine[g * 8 + 2 * t] = acc[0];
+    mine[g * 8 + 2 * t + 1] = acc[1];
+    mine[(g + 8) * 8 + 2 * t] = acc[2];
+    mine[(g + 8) * 8 + 2 * t + 1] = acc[3];
+    __syncthreads();
+    if (threadIdx.x < kUnitTiles * kRows * 8) {
+      const int tile = threadIdx.x / (kRows * 8), rem = threadIdx.x % (kRows * 8);
+      float v = 0.f;
+#pragma unroll
+      for (int sl = 0; sl < kSlices; ++sl) v += red[(sl * kUnitTiles + tile) * kRows * 8 + rem];
+      const int col = sh.col - (warp % kUnitTiles) * 8 + tile * 8 + rem % 8;
+      const int row = rt * kRows + rem / 8;
+      if (col < sh.n && row < p.B) sh.out[(size_t)row * sh.n + col] = sh.bias != nullptr ? v + sh.bias[col] : v;
     }
+    __syncthreads();  // red is free again
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) fused_rssm_kernel(const Params p) {
-  extern __shared__ float4 smem[];
-  float* A = reinterpret_cast<float*>(smem);  // the left operand: kRows x lda, f32
-  float* P = A + kRows * p.lda;               // pre-activations: kRows x ldp, f32
-  __shared__ float2 stats[kRows][2];          // each row's LayerNorm {mean, rstd}, two segments
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ Segment segment(const void* w, int n, int k, int a_off, float* out, const float* bias) {
+  return Segment{w, n, k, a_off, copy_mode<T>(w, k), out, bias};
+}
 
-  const Segment s1{p.wm, p.D, p.Dx, 0, p.z_pre, nullptr};
-  run_stage<T, 1>(p, A, P, stats, s1, s1, 1);
-  grid.sync();
-  const Segment s2{p.wg, 3 * p.R, p.D + p.R, 0, p.g_pre, nullptr};
-  run_stage<T, 2>(p, A, P, stats, s2, s2, 1);
-  grid.sync();
-  const Segment s3t{p.wt1, p.Hd, p.R, 0, p.t1_pre, nullptr};
-  const Segment s3r{p.wr1, p.Hd, p.R + p.E, 0, p.r1_pre, nullptr};
-  run_stage<T, 3>(p, A, P, stats, s3t, s3r, 2);
-  grid.sync();
-  const Segment s4t{p.wt2, p.SD, p.Hd, 0, p.prior, p.bt2};
-  const Segment s4r{p.wr2, p.SD, p.Hd, p.Hd, p.post, p.br2};
-  run_stage<T, 4>(p, A, P, stats, s4t, s4r, 2);
+// The products of `stage` and this block's units of it.
+template <typename T>
+__device__ __forceinline__ StageDesc stage_desc(const Params& p, int stage) {
+  if (stage == 1) {
+    const Segment s = segment<T>(p.wm, p.D, p.Dx, 0, p.z_pre, nullptr);
+    return make_stage(s, s, 1, p.B);
+  }
+  if (stage == 2) {
+    const Segment s = segment<T>(p.wg, 3 * p.R, p.D + p.R, 0, p.g_pre, nullptr);
+    return make_stage(s, s, 1, p.B);
+  }
+  if (stage == 3)
+    return make_stage(segment<T>(p.wt1, p.Hd, p.R, 0, p.t1_pre, nullptr),
+                      segment<T>(p.wr1, p.Hd, p.R + p.E, 0, p.r1_pre, nullptr), 2, p.B);
+  return make_stage(segment<T>(p.wt2, p.SD, p.Hd, 0, p.prior, p.bt2),
+                    segment<T>(p.wr2, p.SD, p.Hd, pad_k<T>(p.Hd), p.post, p.br2), 2, p.B);
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads, 1) fused_rssm_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float4 smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);         // kWarps x ring_slots chunk slots
+  float* red = reinterpret_cast<float*>(ring + kWarps * ring_slots<T>() * kChunkBytes);  // a unit's partial tiles
+  T* A = reinterpret_cast<T*>(red + kRedFloats);                        // the left operand: kRows x lda, T
+  float* P = reinterpret_cast<float*>(A + kRows * p.lda);               // pre-activations: kRows x ldp, f32
+  float* V = P + kRows * p.ldp;                                         // a stage's LayerNorm affines, f32
+  __shared__ float2 stats[kRows][2];  // each row's LayerNorm {mean, rstd}, two segments
+  cg::grid_group grid = cg::this_grid();
+  unsigned char* warp_ring = ring + (threadIdx.x / 32) * ring_slots<T>() * kChunkBytes;
+  // one copy of the stage code for all four stages (the loop is not
+  // unrolled): the instruction cache holds it after the first
+  WeightStream<T> ws;
+  StageDesc d;
+#pragma unroll 1
+  for (int stage = 1; stage <= 4; ++stage) {
+    d = stage_desc<T>(p, stage);
+    ws.start(d, warp_ring);  // the first weight chunks load across the sync
+    if (stage > 1) grid.sync();
+    run_stage<T, ACT>(p, stage, d, ws, A, P, V, red, stats);
+  }
+  cp_async_wait<0>();
 }
 
 int max_units_per_tile(const Params& p) {
-  auto ch = [](int n) { return (n + kCols - 1) / kCols; };
+  auto ch = [](int n) { return (n + kUnitCols - 1) / kUnitCols; };
   int m = ch(p.D);
   if (ch(3 * p.R) > m) m = ch(3 * p.R);
   if (2 * ch(p.Hd) > m) m = 2 * ch(p.Hd);
@@ -428,20 +648,21 @@ int max_units_per_tile(const Params& p) {
   return m;
 }
 
-template <typename T>
+template <typename T, int ACT>
 int launch(Params p, cudaStream_t stream) {
-  int lda = p.Dx;
-  if (p.D + p.R > lda) lda = p.D + p.R;
-  if (p.R + p.E > lda) lda = p.R + p.E;
-  if (2 * p.Hd > lda) lda = 2 * p.Hd;
-  p.lda = lda;
-  int ldp = p.D;
-  if (3 * p.R > ldp) ldp = 3 * p.R;
-  if (2 * p.Hd > ldp) ldp = 2 * p.Hd;
-  p.ldp = ldp;
-  const size_t smem = static_cast<size_t>(kRows) * (lda + ldp) * sizeof(float);
-  const void* fn = reinterpret_cast<const void*>(fused_rssm_kernel<T>);
-  cudaError_t err = cudaFuncSetAttribute(fused_rssm_kernel<T>,
+  // the tile strides come from ops/kernels/rssm.py:launch_plan; check that
+  // every stage's padded operand fits and that A's rows keep 16-byte chunks
+  auto pad = [](int n) { return (n + chunk_k<T>() - 1) / chunk_k<T>() * chunk_k<T>(); };
+  const int need_a = max(max(pad(p.Dx), pad(p.D + p.R)), max(pad(p.R + p.E), 2 * pad(p.Hd)));
+  const int need_p = max(max(p.D, 3 * p.R), 2 * p.Hd);
+  if (p.lda < need_a || (p.lda * static_cast<int>(sizeof(T))) % 16 != 0 || p.ldp < need_p || p.ldp % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = max(max(2 * p.D, 6 * p.R), 4 * p.Hd);  // the affines of the widest stage
+  const size_t smem = static_cast<size_t>(kWarps) * ring_slots<T>() * kChunkBytes + kRedFloats * sizeof(float) +
+                      static_cast<size_t>(kRows) * p.lda * sizeof(T) +
+                      (static_cast<size_t>(kRows) * p.ldp + vec) * sizeof(float);
+  const void* fn = reinterpret_cast<const void*>(fused_rssm_kernel<T, ACT>);
+  cudaError_t err = cudaFuncSetAttribute(fused_rssm_kernel<T, ACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -452,18 +673,33 @@ int launch(Params p, cudaStream_t stream) {
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_rssm_kernel<T>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_rssm_kernel<T, ACT>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const long long tiles = (p.B + kRows - 1) / kRows;
   const long long units = tiles * max_units_per_tile(p);
   long long grid = static_cast<long long>(sms) * per_sm;
   if (units < grid) grid = units;
+  if (units * (grid + 1) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);  // int unit arithmetic
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads), args,
                                     smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// one kernel per activation: the element-wise passes carry no switch, and
+// each kernel's code holds only its own activation
+template <typename T>
+int launch_act(int act, const Params& p, cudaStream_t stream) {
+  switch (act) {
+    case 0: return launch<T, 0>(p, stream);
+    case 1: return launch<T, 1>(p, stream);
+    case 2: return launch<T, 2>(p, stream);
+    case 3: return launch<T, 3>(p, stream);
+    case 4: return launch<T, 4>(p, stream);
+    default: return launch<T, 5>(p, stream);
+  }
 }
 
 }  // namespace
@@ -473,16 +709,17 @@ int launch(Params p, cudaStream_t stream) {
 // identity. The LN scales and offsets, the head biases, prior_raw and
 // post_raw [B, SD] and the scratch [B, D + 3R + 2Hd] are float32. Weights
 // are [out, in]: wm [D, Dx], wg [3R, D + R], wt1 [Hd, R], wt2 [SD, Hd],
-// wr1 [Hd, R + E], wr2 [SD, Hd]. Returns a cudaError_t; a grid that cannot
-// be co-resident is refused (cudaErrorCooperativeLaunchTooLarge), never
-// run another way.
+// wr1 [Hd, R + E], wr2 [SD, Hd]. lda and ldp are the shared tiles' row
+// strides from ops/kernels/rssm.py:launch_plan. Returns a cudaError_t; a
+// grid that cannot be co-resident is refused
+// (cudaErrorCooperativeLaunchTooLarge), never run another way.
 extern "C" int fused_rssm_forward(
     int dtype, int act, const void* x, const void* h, const void* emb, const void* wm,
     const void* sm, const void* om, const void* wg, const void* sg, const void* og,
     const void* wt1, const void* st1, const void* ot1, const void* wt2, const void* bt2,
     const void* wr1, const void* sr1, const void* or1, const void* wr2, const void* br2,
     void* h_out, void* prior, void* post, void* scratch, int B, int Dx, int R, int D, int Hd,
-    int E, int SD, float mlp_eps, float gru_eps, float head_eps, void* stream) {
+    int E, int SD, int lda, int ldp, float mlp_eps, float gru_eps, float head_eps, void* stream) {
   if (B < 1 || act < 0 || act > 5) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x; p.h = h; p.emb = emb;
@@ -500,12 +737,10 @@ extern "C" int fused_rssm_forward(
   p.g_pre = p.z_pre + (size_t)B * D;
   p.t1_pre = p.g_pre + (size_t)B * 3 * R;
   p.r1_pre = p.t1_pre + (size_t)B * Hd;
-  p.B = B; p.Dx = Dx; p.R = R; p.D = D; p.Hd = Hd; p.E = E; p.SD = SD; p.lda = p.ldp = 0;
-  p.vec = D % 4 == 0 && R % 4 == 0 && Hd % 4 == 0 && reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  p.B = B; p.Dx = Dx; p.R = R; p.D = D; p.Hd = Hd; p.E = E; p.SD = SD; p.lda = lda; p.ldp = ldp;
   p.mlp_eps = mlp_eps; p.gru_eps = gru_eps; p.head_eps = head_eps;
-  p.act = act;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, st);
+  if (dtype == 0) return launch_act<float>(act, p, st);
+  if (dtype == 1) return launch_act<__nv_bfloat16>(act, p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

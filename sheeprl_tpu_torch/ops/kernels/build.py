@@ -26,7 +26,7 @@ import torch
 
 __all__ = [
     "BUILD_DIR", "CSRC_DIR", "DTYPE_CODES", "SOURCES", "bind", "build_all", "build_log",
-    "load_library", "reduction_splits",
+    "library_path", "load_library", "reduction_splits",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
@@ -105,6 +105,11 @@ def load_library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+def library_path(name: str) -> Path:
+    """Where the current library of `name` is (or will be) built."""
+    return _target(name)
 
 
 def build_log(name: str) -> str:

@@ -4,10 +4,15 @@ forward under autodiff `_gru_forward_with_residuals` and its backward
 `_gru_bwd`.
 
 The CUDA kernel is `csrc/ln_gru.cu`; one launch computes either forward
-(the residual outputs are optional pointers). One deviation from the
-reference's signature: the weight is in the port's Linear layout,
-[3H, Dx + H] (out, in) — the transpose of the reference's [Dx + H, 3H] —
-so the module's own parameter feeds the kernel without a copy per step.
+(the residual outputs are optional pointers). Its projection runs on the
+tensor cores: a ring of four shared-memory stages filled by 16-byte
+`cp.async` copies, `mma.sync` in bf16, or three TF32 products an operand
+pair (3xTF32) in f32 (`csrc/mma_common.cuh`). `launch_plan` chooses the
+tile rows and how far the reduction axis is split across the grid. One
+deviation from the reference's signature: the weight is in the port's
+Linear layout, [3H, Dx + H] (out, in) — the transpose of the reference's
+[Dx + H, 3H] — so the module's own parameter feeds the kernel without a
+copy per step.
 
 `layernorm_gru_cell` is the entry point the modules call. When autograd
 needs its gradient it runs through `_LayerNormGRU`, whose forward is the
@@ -21,20 +26,40 @@ import ctypes
 
 import torch
 
-from .build import DTYPE_CODES, bind, reduction_splits
+from .build import DTYPE_CODES, bind
 
 __all__ = [
-    "layernorm_gru_cell", "layernorm_gru_cell_plain", "layernorm_gru_cell_residuals",
-    "layernorm_gru_cell_residuals_plain",
+    "MAX_HIDDEN", "launch_plan", "layernorm_gru_cell", "layernorm_gru_cell_plain",
+    "layernorm_gru_cell_residuals", "layernorm_gru_cell_residuals_plain",
 ]
 
-# projection tile of csrc/ln_gru.cu: output columns x rows, reduction depth
-_TILE_COLS, _TILE_ROWS, _TILE_DEPTH = 64, 16, 32
+# projection tile of csrc/ln_gru.cu: output columns a block, shared-memory
+# stages, bytes of K a stage and row, and the padded row in shared memory
+_TILE_COLS, _STAGES, _ROW_BYTES, _LD_BYTES = 128, 4, 128, 144
+_SMS = 132  # an H100's streaming multiprocessors
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# ln_gru_forward(dtype, pointers..., sizes..., eps, stream)
-_ARGTYPES = [_I, *[_P] * 9, _I, _I, _I, _I, ctypes.c_float, _P]
+# ln_gru_forward(dtype, pointers..., B, Dx, H, bm, splits, k_per_split, eps, stream)
+_ARGTYPES = [_I, *[_P] * 9, *[_I] * 6, ctypes.c_float, _P]
 # the row pass keeps a 3H f32 row in shared memory (<= 227 KB on Hopper)
 MAX_HIDDEN = 16384
+
+
+def launch_plan(batch: int, k: int, n: int, itemsize: int) -> dict:
+    """The projection's launch of csrc/ln_gru.cu for x, h rows `batch`,
+    reduction length k = Dx + H and n = 3H outputs in a dtype of `itemsize`
+    bytes: tile rows `bm` (16 at B <= 16, else 64), `splits` slices of the
+    reduction axis of `k_per_split` each (whole stages; the last may be
+    short, none is empty) so that the grid fills the card, and the dynamic
+    shared memory of the stage ring in bytes."""
+    bm = 16 if batch <= 16 else 64
+    depth = _ROW_BYTES // itemsize
+    # split until the grid holds two blocks an SM in f32, one in bf16: a bf16
+    # stage carries twice the K, so each block keeps as many stages
+    blocks = -(-n // _TILE_COLS) * -(-batch // bm)
+    want = max(1, min(-(-_SMS * itemsize // 2 // blocks), -(-k // depth)))
+    k_per_split = -(-(-(-k // want)) // depth) * depth
+    return dict(bm=bm, splits=-(-k // k_per_split), k_per_split=k_per_split,
+                smem=_STAGES * (bm + _TILE_COLS) * _LD_BYTES)
 
 
 def _gates(post: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -98,9 +123,9 @@ def _launch(x, h, w, scale, offset, eps, residuals: bool):
     if hidden > MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} exceeds the kernel's {MAX_HIDDEN}")
     k, n = x.shape[1] + hidden, 3 * hidden
-    splits = reduction_splits(-(-n // _TILE_COLS) * -(-batch // _TILE_ROWS), k, _TILE_DEPTH)
+    plan = launch_plan(batch, k, n, x.element_size())
     forward = bind("ln_gru", "ln_gru_forward", _ARGTYPES)
-    parts = torch.empty((splits, batch, n), device=x.device, dtype=torch.float32)
+    parts = torch.empty((plan["splits"], batch, n), device=x.device, dtype=torch.float32)
     out = torch.empty_like(h)
     hat = rstd = None
     if residuals:
@@ -111,7 +136,7 @@ def _launch(x, h, w, scale, offset, eps, residuals: bool):
             DTYPE_CODES[x.dtype], x.data_ptr(), h.data_ptr(), w.data_ptr(),
             scale.data_ptr(), offset.data_ptr(), parts.data_ptr(), out.data_ptr(),
             None if hat is None else hat.data_ptr(), None if rstd is None else rstd.data_ptr(),
-            batch, x.shape[1], hidden, splits, float(eps),
+            batch, x.shape[1], hidden, plan["bm"], plan["splits"], plan["k_per_split"], float(eps),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

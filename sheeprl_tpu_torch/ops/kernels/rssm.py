@@ -5,7 +5,11 @@ recomputes through the plain twin.
 
 One step is the pre-MLP (Linear -> LayerNorm -> act), the LayerNorm-GRU and
 the prior and posterior heads (Linear -> LayerNorm -> act -> Linear + b).
-The CUDA kernel is `csrc/fused_rssm.cu`, one cooperative launch. One
+The CUDA kernel is `csrc/fused_rssm.cu`, one cooperative launch in four
+grid-synced stages whose products run on the tensor cores (`mma.sync` in
+bf16, 3xTF32 in f32, `csrc/mma_common.cuh`), each warp streaming its slice
+of the weights through a ring of 16-byte `cp.async` copies; `launch_plan`
+gives the shared tiles' strides and the shared memory they need. One
 deviation from the reference's signature: the six weights are in the
 port's Linear layout, [out, in] (the transpose of the reference's
 [in, out]), so the modules' own parameters feed the kernel without a copy
@@ -28,7 +32,7 @@ from ...nn.core import activation
 from .build import DTYPE_CODES, bind
 
 __all__ = [
-    "ACT_CODES", "fused_rssm_step", "fused_rssm_step_plain", "fused_rssm_supported",
+    "ACT_CODES", "fused_rssm_step", "fused_rssm_step_plain", "fused_rssm_supported", "launch_plan",
 ]
 
 # the weights of one step must fit the reference's VMEM budget
@@ -37,13 +41,17 @@ _FUSED_VMEM_BUDGET_BYTES = 10 * 1024 * 1024
 # the activations with an in-kernel implementation (the reference's
 # _KERNEL_ACTS), by the code csrc/fused_rssm.cu switches on
 ACT_CODES = {"silu": 0, "relu": 1, "tanh": 2, "elu": 3, "gelu": 4, "identity": 5}
-# a block holds two 16-row f32 tiles in shared memory: a stage's left
-# operand and the previous stage's pre-activations
+# the most dynamic shared memory a block may have on Hopper
 _SMEM_BYTES = 227 * 1024
+# csrc/fused_rssm.cu's block: 16 rows, 16 warps with a ring of chunk slots
+# of 512 bytes each (6 in bf16, 4 in f32), a unit's 8 x 2 partial 16 x 8
+# f32 tiles (the operand tiles and the affines follow from the widths:
+# launch_plan)
+_ROWS, _RED_BYTES = 16, 8 * 2 * 16 * 8 * 4
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # fused_rssm_forward(dtype, act, 19 inputs, h_out, prior, post, scratch,
-#                    B, Dx, R, D, Hd, E, SD, 3 eps, stream)
-_ARGTYPES = [_I, _I, *[_P] * 23, *[_I] * 7, _F, _F, _F, _P]
+#                    B, Dx, R, D, Hd, E, SD, lda, ldp, 3 eps, stream)
+_ARGTYPES = [_I, _I, *[_P] * 23, *[_I] * 9, _F, _F, _F, _P]
 _MATS = (3, 6, 9, 12, 14, 17)  # positions of the six weight matrices among the 19 inputs
 
 
@@ -139,15 +147,41 @@ def _check(tensors, act: str) -> None:
         raise ValueError(f"fused_rssm_step runs on cpu or cuda tensors, got {x.device}")
 
 
+def launch_plan(dx: int, rec: int, d: int, hd: int, e: int, itemsize: int) -> dict:
+    """The shared tiles of csrc/fused_rssm.cu for one step's widths in a
+    dtype of `itemsize` bytes. The operand tile A holds, per stage, [x],
+    [z, h], [h', emb] or [t1, pad, r1], each segment zero-padded to whole
+    chunks (4 lanes x 16 bytes of K: `chunk` elements); its row is a
+    multiple of 16 bytes and 64 past a multiple of 128, so that the 16-byte
+    fragment reads of rows g and g + 1 fall in distinct banks. The f32
+    pre-activation tile P holds D, 3R or 2Hd floats a row, and V the
+    widest stage's LayerNorm scales and offsets. -> lda (elements), ldp
+    (floats), chunk, smem (bytes)."""
+    chunk = 64 // itemsize
+
+    def pad(n):
+        return -(-n // chunk) * chunk
+
+    row = max(pad(dx), pad(d + rec), pad(rec + e), 2 * pad(hd)) * itemsize
+    row = -(-row // 64) * 64
+    if row % 128 == 0:
+        row += 64
+    lda, ldp = row // itemsize, -(-max(d, 3 * rec, 2 * hd) // 4) * 4
+    ring = 16 * (6 if itemsize == 2 else 4) * 512
+    smem = ring + _RED_BYTES + _ROWS * (lda * itemsize + ldp * 4) + 4 * max(2 * d, 6 * rec, 4 * hd)
+    return dict(lda=lda, ldp=ldp, chunk=chunk, smem=smem)
+
+
 def _launch(tensors, act: str, eps):
     """One cooperative launch of csrc/fused_rssm.cu -> (h', prior_raw, post_raw)."""
     x, h, emb, wm, _, _, _, _, _, wt1, _, _, wt2 = tensors[:13]
     batch, dx = x.shape
     rec, e = h.shape[1], emb.shape[1]
     d, hd, sd = wm.shape[0], wt1.shape[0], wt2.shape[0]
-    lda, ldp = max(dx, d + rec, rec + e, 2 * hd), max(d, 3 * rec, 2 * hd)
-    if 16 * (lda + ldp) * 4 > _SMEM_BYTES:
-        raise ValueError(f"a stage's tiles of {lda} + {ldp} columns exceed the kernel's shared memory")
+    plan = launch_plan(dx, rec, d, hd, e, x.element_size())
+    if plan["smem"] > _SMEM_BYTES:
+        raise ValueError(f"a stage's tiles of {plan['lda']} + {plan['ldp']} columns exceed the kernel's "
+                         "shared memory")
     forward = bind("fused_rssm", "fused_rssm_forward", _ARGTYPES)
     h_out = torch.empty_like(h)
     prior = torch.empty((batch, sd), device=x.device, dtype=torch.float32)
@@ -157,7 +191,7 @@ def _launch(tensors, act: str, eps):
         err = forward(
             DTYPE_CODES[x.dtype], ACT_CODES[act], *(t.data_ptr() for t in tensors),
             h_out.data_ptr(), prior.data_ptr(), post.data_ptr(), scratch.data_ptr(),
-            batch, dx, rec, d, hd, e, sd, *(float(v) for v in eps),
+            batch, dx, rec, d, hd, e, sd, plan["lda"], plan["ldp"], *(float(v) for v in eps),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions, at the
 serving path's shapes (DreamerV3 width, rungs 1 and 8) and at the training
 path's (residual forwards and backwards, the deconv and two_hot, the fused
-RSSM step at the CartPole path's widths and B = 1, 16 and 1,024), the fused
+RSSM step at the CartPole path's widths and B = 1, 16 and 1,024), the
+tensor-core GRU at B = 1 ... 1,024 and the tensor-core fused RSSM step also
+at ragged widths (no width a whole 16-byte chunk or tile), the fused
 int8 SAC trunk (bit-exact, at Pendulum's and wider trunks, odd widths and
 the device-memory scratch path) and symlog/symexp, and the gradient
 reaching the parameters through CNN, DeCNN and LayerNormGRUCell on CUDA
@@ -42,22 +44,40 @@ def _rand(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen) * scale
 
 
+# (B, Dx, H): DreamerV3's width at the serving rungs, the scan's 16 rows,
+# imagination's 1,024 and a ragged 1,000; and a ragged width (Dx = 37 is
+# not a whole 16-byte chunk in either dtype, 3H = 144 not a whole tile)
+GRU_SHAPES = [(1, 512, 512), (8, 512, 512), (16, 512, 512), (1000, 512, 512), (1024, 512, 512),
+              (5, 37, 48), (1000, 37, 48)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", [1, 8])
-def test_gru_kernel_matches_plain(cuda_device, dtype, batch):
-    gen = torch.Generator().manual_seed(batch)
-    x = _rand(gen, batch, 512).to(cuda_device, dtype)
-    h = torch.tanh(_rand(gen, batch, 512)).to(cuda_device, dtype)
-    w = _rand(gen, 1536, 1024, scale=0.03).to(cuda_device, dtype)
-    scale = (1.0 + _rand(gen, 1536, scale=0.1)).to(cuda_device)
-    offset = _rand(gen, 1536, scale=0.1).to(cuda_device)
-    before = gru.layernorm_gru_cell.launches
-    got = gru.layernorm_gru_cell(x, h, w, scale, offset, 1e-5)
+@pytest.mark.parametrize("shape", GRU_SHAPES, ids=lambda s: "B{}_Dx{}_H{}".format(*s))
+def test_gru_kernel_matches_plain(cuda_device, dtype, shape):
+    """Both forwards of csrc/ln_gru.cu (the serving one and the residual
+    one) against their plain versions; hat and rstd are f32 and held to
+    the f32 tolerance in either dtype (f32 sums of the same products)."""
+    batch, dx, hidden = shape
+    gen = torch.Generator().manual_seed(batch + dx)
+    k, n = dx + hidden, 3 * hidden
+    x = _rand(gen, batch, dx).to(cuda_device, dtype)
+    h = torch.tanh(_rand(gen, batch, hidden)).to(cuda_device, dtype)
+    w = _rand(gen, n, k, scale=k ** -0.5).to(cuda_device, dtype)
+    scale = (1.0 + _rand(gen, n, scale=0.1)).to(cuda_device)
+    offset = _rand(gen, n, scale=0.1).to(cuda_device)
+    args = (x, h, w, scale, offset, 1e-5)
+    before = gru.layernorm_gru_cell.launches, gru.layernorm_gru_cell_residuals.launches
+    got = gru.layernorm_gru_cell(*args)
+    got_res = gru.layernorm_gru_cell_residuals(*args)
     torch.cuda.synchronize()
-    assert gru.layernorm_gru_cell.launches == before + 1
-    want = gru.layernorm_gru_cell_plain(x, h, w, scale, offset, 1e-5)
+    assert (gru.layernorm_gru_cell.launches, gru.layernorm_gru_cell_residuals.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = gru.layernorm_gru_cell_plain(*args)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for g, wv in zip(got_res, gru.layernorm_gru_cell_residuals_plain(*args)):
+        tol = TOL[g.dtype]
+        torch.testing.assert_close(g.float(), wv.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -191,13 +211,20 @@ def _rssm_inputs(gen, device, dtype, batch, dx=1026, rec=512, d=512, hd=512, e=5
     ]
 
 
+# the CartPole path's widths (wm's rows are 1,026 elements: 2,052 bytes
+# apart in bf16, only 4-byte aligned) and a ragged set (no width a whole
+# chunk or tile; wm's bf16 rows 74 bytes apart, only 2-byte aligned)
+RSSM_DIMS = {"cartpole": {}, "ragged": dict(dx=37, rec=48, d=40, hd=24, e=20, sd=72)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch", [1, 16, 1024])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
-def test_fused_rssm_kernel_matches_plain(cuda_device, dtype, batch, act):
+@pytest.mark.parametrize("dims", list(RSSM_DIMS))
+def test_fused_rssm_kernel_matches_plain(cuda_device, dtype, batch, act, dims):
     gen = torch.Generator().manual_seed(batch)
-    inputs = _rssm_inputs(gen, cuda_device, dtype, batch)
+    inputs = _rssm_inputs(gen, cuda_device, dtype, batch, **RSSM_DIMS[dims])
     before = rssm.fused_rssm_step.launches
     with torch.no_grad():
         got = rssm.fused_rssm_step(*inputs, act, (1e-3, 1e-5, 1e-3))
