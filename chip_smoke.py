@@ -14,20 +14,26 @@ the final line:
      `sheeprl_tpu_torch/csrc/` with nvcc for sm_90a, one nvcc per source,
      started together; each kernel's registers, stack and spills from
      `-Xptxas -v`, and the HMMA (tensor-core) instructions in the SASS of
-     the two tensor-core libraries (`ln_gru`, `fused_rssm`) where the
-     toolkit has cuobjdump (none fails the run);
+     the four tensor-core libraries (`ln_gru`, `fused_rssm`,
+     `conv_ln_silu`, `deconv_ln_silu`) where the toolkit has cuobjdump
+     (none fails the run);
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the serving path gives it (and the GRU at training batch 1024), and
      the training path's kernels at its shapes (the residual GRU at B = 16
      and 1,024, the residual conv and the deconv at N = 1,024 for every
      encoder and decoder stage, two_hot at N = 1,024 and 15,360, the fused
-     RSSM step at the CartPole path's widths and B = 16, 1 and 1,024), in
+     RSSM step at the CartPole path's widths and B = 16, 1 and 1,024), the
+     conv and deconv at Cout 768 and 1,024 (N = 64, both forwards) and the
+     fused RSSM step at three wider widths its guard admits (B = 16; E
+     2,048 and 8,192 in bf16 and E 1,024 in f32 take its wide form), in
      float32 and bfloat16, with CUDA-event times for the kernel, the plain
      version and a library yardstick the port never calls, and the bound
      from bytes (3.35 TB/s) and operations (f32 at the 3xTF32 rate, 495 / 3
      = 165 TFLOP/s, with the CUDA cores' 67 TFLOP/s bound logged beside it;
-     989 TFLOP/s bf16); kernel 2's B = 16 and B = 1,024 rows and their sum
-     over a gradient step (64 and 15 launches) in both dtypes; each
+     989 TFLOP/s bf16; the fused RSSM step's yardstick, the unfused module
+     path, replayed as one CUDA graph); kernel 2's B = 16 and B = 1,024
+     rows and their sum over a gradient step (64 and 15 launches) in both
+     dtypes; each
      backward against autograd through the plain version;
   4. slice: `sheeprl_tpu_torch serve --algo dreamer_v3` at DreamerV3's full
      default width on `discrete_dummy` pixels, rungs 1/2/4/8, 1,024 timed
@@ -147,6 +153,22 @@ def device_ms(torch, fn) -> float:
     return times[len(times) // 2]
 
 
+def graphed(torch, fn):
+    """`fn` captured once in a CUDA graph -> a callable that replays it: a
+    yardstick of many small launches timed by its device work, not by the
+    host's pace of enqueueing them."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
 def errors(torch, got, want, dtype_name):
     a, b = got.float(), want.float()
     diff = (a - b).abs()
@@ -168,8 +190,11 @@ def cuda_core_bound(nbytes: float, flops: float, dtype_name: str) -> float | Non
     return bound(nbytes, flops, dtype_name, CUDA_CORE_F32_FLOPS)[0] if dtype_name == "float32" else None
 
 
+TENSOR_CORE_LIBS = ("ln_gru", "fused_rssm", "conv_ln_silu", "deconv_ln_silu")
+
+
 def hmma_counts(build) -> dict | None:
-    """HMMA (tensor-core MMA) instructions in the SASS of the two libraries
+    """HMMA (tensor-core MMA) instructions in the SASS of the libraries
     whose products run on the tensor cores, from the toolkit's cuobjdump;
     None where the toolkit has none."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
@@ -178,7 +203,7 @@ def hmma_counts(build) -> dict | None:
     if tool is None:
         return None
     counts = {}
-    for name in ("ln_gru", "fused_rssm"):
+    for name in TENSOR_CORE_LIBS:
         out = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True, text=True,
                              timeout=300)
         if out.returncode != 0:
@@ -256,13 +281,7 @@ def check_conv(torch, F, cnn, n, stage, dtype, gen):
     want = cnn.conv_ln_silu_plain(x, w, scale, offset, eps)
     name = str(dtype).split(".")[-1]
     max_abs, max_rel, ok = errors(torch, got, want, name)
-    w_oihw = w.permute(3, 2, 0, 1).contiguous()
-
-    def library():  # cuDNN on the NHWC (channels_last) view, in the working dtype
-        y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=2, padding=1)
-        y = F.layer_norm(y.permute(0, 2, 3, 1).float(), (cout,), scale, offset, eps)
-        return F.silu(y).to(dtype)
-
+    library = conv_library(torch, F, x, w, scale, offset, eps)
     ms = device_ms(torch, lambda: cnn.conv_ln_silu(x, w, scale, offset, eps))
     plain_ms = device_ms(torch, lambda: cnn.conv_ln_silu_plain(x, w, scale, offset, eps))
     library_ms = device_ms(torch, library)
@@ -275,6 +294,39 @@ def check_conv(torch, F, cnn, n, stage, dtype, gen):
                 max_abs_err=max_abs, max_rel_err=max_rel, within_tol=ok, tol=TOL[name], ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, name), bytes=nbytes, flops=flops)
+
+
+def conv_library(torch, F, x, w, scale, offset, eps):
+    """The encoder stage as cuDNN's conv on the NHWC (channels_last) view,
+    F.layer_norm and SiLU, in the working dtype: the yardstick of kernel 3."""
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    cout = w.shape[3]
+
+    def library():
+        y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=2, padding=1)
+        y = F.layer_norm(y.permute(0, 2, 3, 1).float(), (cout,), scale, offset, eps)
+        return F.silu(y).to(x.dtype)
+
+    return library
+
+
+def deconv_library(torch, F, x, k, scale, offset, eps):
+    """The decoder stage as cuDNN's conv with the dense 2 x 2 phase kernel,
+    the interleave, F.layer_norm and SiLU: the yardstick of kernel 4."""
+    from sheeprl_tpu_torch.ops.kernels import deconv
+
+    n, size, cout = x.shape[0], x.shape[1], k.shape[3]
+    kk = deconv.phase_kernel(k).contiguous()
+
+    def library():
+        ph = F.conv2d(x.permute(0, 3, 1, 2), kk, padding=1).permute(0, 2, 3, 1)
+        ph = ph.reshape(n, size + 1, size + 1, 2, 2, cout)
+        row0 = torch.stack([ph[:, :size, :size, 0, 0], ph[:, :size, 1:, 0, 1]], dim=3)
+        row1 = torch.stack([ph[:, 1:, :size, 1, 0], ph[:, 1:, 1:, 1, 1]], dim=3)
+        y = torch.stack([row0, row1], dim=2).reshape(n, 2 * size, 2 * size, cout)
+        return F.silu(F.layer_norm(y.float(), (cout,), scale, offset, eps)).to(x.dtype)
+
+    return library
 
 
 # ---------------------------------------------------------------------------
@@ -399,13 +451,7 @@ def train_kernel_checks(torch, F, gen, log_row):
             scale = (1.0 + 0.1 * torch.randn(cout, generator=gen)).to(dev)
             offset = (0.1 * torch.randn(cout, generator=gen)).to(dev)
             args = (x, w, scale, offset, 1e-3)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous()
-
-            def library(x=x, w_oihw=w_oihw, scale=scale, offset=offset, cout=cout, dtype=dtype):
-                y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=2, padding=1)
-                y = F.layer_norm(y.permute(0, 2, 3, 1).float(), (cout,), scale, offset, 1e-3)
-                return F.silu(y).to(dtype)
-
+            library = conv_library(torch, F, *args)
             pixels = TRAIN_N * (size // 2) ** 2
             shape = f"N={TRAIN_N} {cin}->{cout} @{size}x{size}"
             nbytes = item * (x.numel() + w.numel() + pixels * cout) + 4 * (2 * cout + pixels * cout)
@@ -426,16 +472,7 @@ def train_kernel_checks(torch, F, gen, log_row):
             scale = (1.0 + 0.1 * torch.randn(cout, generator=gen)).to(dev)
             offset = (0.1 * torch.randn(cout, generator=gen)).to(dev)
             args = (x, k, scale, offset, 1e-3)
-            kk = deconv.phase_kernel(k).contiguous()
-
-            def library(x=x, kk=kk, scale=scale, offset=offset, cout=cout, size=size, dtype=dtype):
-                ph = F.conv2d(x.permute(0, 3, 1, 2), kk, padding=1).permute(0, 2, 3, 1)
-                ph = ph.reshape(TRAIN_N, size + 1, size + 1, 2, 2, cout)
-                row0 = torch.stack([ph[:, :size, :size, 0, 0], ph[:, :size, 1:, 0, 1]], dim=3)
-                row1 = torch.stack([ph[:, 1:, :size, 1, 0], ph[:, 1:, 1:, 1, 1]], dim=3)
-                y = torch.stack([row0, row1], dim=2).reshape(TRAIN_N, 2 * size, 2 * size, cout)
-                return F.silu(F.layer_norm(y.float(), (cout,), scale, offset, 1e-3)).to(dtype)
-
+            library = deconv_library(torch, F, *args)
             pixels = TRAIN_N * (2 * size) ** 2
             shape = f"N={TRAIN_N} {cin}->{cout} @{size}x{size}->{2 * size}x{2 * size}"
             nbytes = item * (x.numel() + k.numel() + pixels * cout) + 4 * (2 * cout + pixels * cout)
@@ -485,74 +522,154 @@ def train_kernel_checks(torch, F, gen, log_row):
     return rows, back
 
 
+# kernels 3 and 4 past the 512 channels a warp's registers hold in their
+# pixel pass: the last encoder stage at --cnn_channels_multiplier 96 and
+# 128 (384 -> 768, 512 -> 1,024 at 8 x 8) and the first decoder stage at
+# 192 and 256 (1,536 -> 768, 2,048 -> 1,024 at 4 x 4), N = 64 images
+WIDE_N = 64
+WIDE_CONV_STAGES = [(384, 768, 8), (512, 1024, 8)]
+WIDE_DECONV_STAGES = [(1536, 768, 4), (2048, 1024, 4)]
+
+
+def wide_stage_checks(torch, F, gen, log_row):
+    """Both forwards of the conv and the deconv at Cout 768 and 1,024 in
+    float32 and bfloat16 against their plain versions, timed beside their
+    cuDNN yardsticks. -> forward rows."""
+    from sheeprl_tpu_torch.ops.kernels import cnn, deconv
+
+    dev = torch.device("cuda")
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        item = torch.empty((), dtype=dtype).element_size()
+        for kernel, stages in (("conv", WIDE_CONV_STAGES), ("deconv", WIDE_DECONV_STAGES)):
+            for cin, cout, size in stages:
+                x = F.silu(torch.randn(WIDE_N, size, size, cin, generator=gen)).to(dev, dtype)
+                w = (torch.randn(4, 4, cin, cout, generator=gen) * (2.0 / (16 * (cin + cout))) ** 0.5).to(dev, dtype)
+                scale = (1.0 + 0.1 * torch.randn(cout, generator=gen)).to(dev)
+                offset = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+                args = (x, w, scale, offset, 1e-3)
+                if kernel == "conv":
+                    pixels, flops = WIDE_N * (size // 2) ** 2, 2.0 * WIDE_N * (size // 2) ** 2 * cout * 16 * cin
+                    shape = f"N={WIDE_N} {cin}->{cout} @{size}x{size}"
+                    cases = (("conv_ln_silu", cnn.conv_ln_silu, cnn.conv_ln_silu_plain, cnn.conv_ln_silu, False),
+                             ("conv_ln_silu_residuals", cnn.conv_ln_silu_residuals, cnn.conv_ln_silu_residuals_plain,
+                              cnn.conv_ln_silu_residuals, True))
+                    library = conv_library(torch, F, *args)
+                else:
+                    pixels, flops = WIDE_N * (2 * size) ** 2, 2.0 * WIDE_N * (2 * size) ** 2 * cout * 4 * cin
+                    shape = f"N={WIDE_N} {cin}->{cout} @{size}x{size}->{2 * size}x{2 * size}"
+                    cases = (("deconv_ln_silu", deconv.deconv_ln_silu, deconv.deconv_ln_silu_plain,
+                              deconv.deconv_ln_silu, False),
+                             ("deconv_ln_silu", deconv.deconv_ln_silu_residuals, deconv.deconv_ln_silu_residuals_plain,
+                              deconv.deconv_ln_silu, True))
+                    library = deconv_library(torch, F, *args)
+                for label, fn, plain, counter, residuals in cases:
+                    nbytes = item * (x.numel() + w.numel() + pixels * cout) + 4 * (2 * cout + residuals * pixels * cout)
+                    with torch.no_grad():
+                        rows.append(check_case(
+                            torch, label, shape + ("" if residuals or kernel == "conv" else " fwd"), name,
+                            lambda a=args, fn=fn: fn(*a), lambda a=args, plain=plain: plain(*a),
+                            lambda counter=counter: counter.launches, nbytes, flops, library))
+                    log_row(rows[-1])
+    return rows
+
+
 # the fused RSSM step on the CartPole path: one-hot posterior (32 x 32) and a
 # 2-way action, DreamerV3's default dense, recurrent and hidden width
 RSSM_DIMS = dict(dx=32 * 32 + 2, rec=512, d=512, hd=512, e=512, sd=32 * 32)
 RSSM_BATCHES = (16, 1, TRAIN_N)  # the scan's B, one row, the imagination's rows
 RSSM_EPS = (1e-3, 1e-5, 1e-3)
+# wider widths the reference's 10 MiB guard admits, each with the dtypes it
+# admits it in: pixels at --cnn_channels_multiplier 16 (embedding 2,048),
+# and R 512 with D = Hd = 256 at E 1,024 and 8,192 (the widest bf16 case);
+# all but E 1,024 in bf16 pass shared memory staged and take the wide form
+RSSM_WIDE = [
+    (dict(RSSM_DIMS, e=2048), ("bfloat16",)),
+    (dict(RSSM_DIMS, d=256, hd=256, e=1024), ("float32", "bfloat16")),
+    (dict(RSSM_DIMS, d=256, hd=256, e=8192), ("bfloat16",)),
+]
 
 
-def rssm_shape(batch: int) -> str:
-    g = RSSM_DIMS
+def rssm_shape(batch: int, g: dict = RSSM_DIMS) -> str:
     return f"B={batch} Dx={g['dx']} R={g['rec']} D={g['d']} Hd={g['hd']} E={g['e']} SD={g['sd']}"
+
+
+def rssm_inputs(torch, gen, g: dict, batch: int, dtype):
+    """x (one-hot posterior ++ one-hot action), h, emb and the 16 weights
+    of one step at widths `g`, on the card."""
+    dev = torch.device("cuda")
+
+    def mat(o, i):
+        return (torch.randn(o, i, generator=gen) / i ** 0.5).to(dev, dtype)
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
+
+    dx, rec, d, hd, e, sd = g["dx"], g["rec"], g["d"], g["hd"], g["e"], g["sd"]
+    post = torch.eye(32)[torch.randint(0, 32, (batch, 32), generator=gen)].reshape(batch, -1)
+    act = torch.eye(2)[torch.randint(0, 2, (batch,), generator=gen)]
+    return [
+        torch.cat([post, act], dim=-1)[:, :dx].to(dev, dtype),
+        torch.tanh(torch.randn(batch, rec, generator=gen)).to(dev, dtype),
+        torch.randn(batch, e, generator=gen).to(dev, dtype),
+        mat(d, dx), vec(d, 1.0), vec(d), mat(3 * rec, d + rec), vec(3 * rec, 1.0), vec(3 * rec),
+        mat(hd, rec), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
+        mat(hd, rec + e), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
+    ]
+
+
+def rssm_row(torch, F, g: dict, batch: int, dtype, inputs):
+    """One `fused_rssm_step` row at widths `g`: the kernel against its plain
+    version, with the unfused module path on cuBLAS (`F.linear` +
+    `F.layer_norm` + activations and gates) replayed as one CUDA graph as
+    its library yardstick."""
+    from sheeprl_tpu_torch.ops.kernels import rssm
+
+    name = str(dtype).split(".")[-1]
+    item = torch.empty((), dtype=dtype).element_size()
+    dx, rec, d, hd, e, sd = g["dx"], g["rec"], g["d"], g["hd"], g["e"], g["sd"]
+    mats = ((d, dx), (3 * rec, d + rec), (hd, rec), (sd, hd), (hd, rec + e), (sd, hd))
+
+    def unfused(t=inputs):
+        x, h, emb, wm, sm, om, wg, sg, og, wt1, st1, ot1, wt2, bt2, wr1, sr1, or1, wr2, br2 = t
+        z = F.silu(F.layer_norm(F.linear(x, wm).float(), (d,), sm, om, 1e-3)).to(dtype)
+        parts = F.layer_norm(F.linear(torch.cat([z, h], dim=-1), wg).float(), (3 * rec,), sg, og, 1e-5)
+        r, c, u = parts.chunk(3, dim=-1)
+        upd = torch.sigmoid(u - 1.0)
+        hn = (upd * torch.tanh(torch.sigmoid(r) * c) + (1.0 - upd) * h.float()).to(dtype)
+        t1 = F.silu(F.layer_norm(F.linear(hn, wt1).float(), (hd,), st1, ot1, 1e-3)).to(dtype)
+        r1 = F.layer_norm(F.linear(torch.cat([hn, emb], dim=-1), wr1).float(), (hd,), sr1, or1, 1e-3)
+        r1 = F.silu(r1).to(dtype)
+        return hn, F.linear(t1, wt2).float() + bt2, F.linear(r1, wr2).float() + br2
+
+    nbytes = (item * (sum(t.numel() for t in inputs[:3]) + sum(o * i for o, i in mats) + batch * rec)
+              + 4 * (2 * (d + 3 * rec + 2 * hd) + 2 * sd + 2 * batch * sd))
+    flops = 2.0 * batch * sum(o * i for o, i in mats)
+    with torch.no_grad():
+        row = check_case(
+            torch, "fused_rssm_step", rssm_shape(batch, g), name,
+            lambda t=inputs: rssm.fused_rssm_step(*t, "silu", RSSM_EPS),
+            lambda t=inputs: rssm.fused_rssm_step_plain(*t, "silu", RSSM_EPS),
+            lambda: rssm.fused_rssm_step.launches, nbytes, flops, graphed(torch, unfused), rounded_inside=True)
+    row["wide"] = rssm.launch_plan(dx, rec, d, hd, e, item)["wide"]
+    return row
 
 
 def rssm_kernel_checks(torch, F, gen, log_row):
     """`fused_rssm_step` against its plain version at the CartPole path's
-    widths, B = 16, 1 and 1,024, in float32 and bfloat16, with the unfused
-    module path on cuBLAS (`F.linear` + `F.layer_norm` + activations and
-    gates) as its library yardstick; then the gradients of all 19 inputs
-    at B = 16 against autograd through the plain version, in both dtypes.
+    widths, B = 16, 1 and 1,024, in float32 and bfloat16, and at the wide
+    widths (RSSM_WIDE) at B = 16; then the gradients of all 19 inputs at
+    B = 16 against autograd through the plain version, in both dtypes.
     -> (forward rows, backward rows)."""
     from sheeprl_tpu_torch.ops.kernels import rssm
 
-    dev = torch.device("cuda")
-    g = RSSM_DIMS
-    dx, rec, d, hd, e, sd = g["dx"], g["rec"], g["d"], g["hd"], g["e"], g["sd"]
-    mats = ((d, dx), (3 * rec, d + rec), (hd, rec), (sd, hd), (hd, rec + e), (sd, hd))
     rows, back = [], []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        item = torch.empty((), dtype=dtype).element_size()
         for batch in RSSM_BATCHES:
-            def mat(o, i):
-                return (torch.randn(o, i, generator=gen) / i ** 0.5).to(dev, dtype)
-
-            def vec(n, base=0.0):
-                return (base + 0.1 * torch.randn(n, generator=gen)).to(dev)
-
-            post = torch.eye(32)[torch.randint(0, 32, (batch, 32), generator=gen)].reshape(batch, -1)
-            act = torch.eye(2)[torch.randint(0, 2, (batch,), generator=gen)]
-            inputs = [
-                torch.cat([post, act], dim=-1).to(dev, dtype),
-                torch.tanh(torch.randn(batch, rec, generator=gen)).to(dev, dtype),
-                torch.randn(batch, e, generator=gen).to(dev, dtype),
-                mat(d, dx), vec(d, 1.0), vec(d), mat(3 * rec, d + rec), vec(3 * rec, 1.0), vec(3 * rec),
-                mat(hd, rec), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
-                mat(hd, rec + e), vec(hd, 1.0), vec(hd), mat(sd, hd), vec(sd),
-            ]
-
-            def library(t=inputs, dtype=dtype):
-                x, h, emb, wm, sm, om, wg, sg, og, wt1, st1, ot1, wt2, bt2, wr1, sr1, or1, wr2, br2 = t
-                z = F.silu(F.layer_norm(F.linear(x, wm).float(), (d,), sm, om, 1e-3)).to(dtype)
-                parts = F.layer_norm(F.linear(torch.cat([z, h], dim=-1), wg).float(), (3 * rec,), sg, og, 1e-5)
-                r, c, u = parts.chunk(3, dim=-1)
-                upd = torch.sigmoid(u - 1.0)
-                hn = (upd * torch.tanh(torch.sigmoid(r) * c) + (1.0 - upd) * h.float()).to(dtype)
-                t1 = F.silu(F.layer_norm(F.linear(hn, wt1).float(), (hd,), st1, ot1, 1e-3)).to(dtype)
-                r1 = F.layer_norm(F.linear(torch.cat([hn, emb], dim=-1), wr1).float(), (hd,), sr1, or1, 1e-3)
-                r1 = F.silu(r1).to(dtype)
-                return hn, F.linear(t1, wt2).float() + bt2, F.linear(r1, wr2).float() + br2
-
-            nbytes = (item * (sum(t.numel() for t in inputs[:3]) + sum(o * i for o, i in mats) + batch * rec)
-                      + 4 * (2 * (d + 3 * rec + 2 * hd) + 2 * sd + 2 * batch * sd))
-            flops = 2.0 * batch * sum(o * i for o, i in mats)
-            with torch.no_grad():
-                rows.append(check_case(
-                    torch, "fused_rssm_step", rssm_shape(batch), name,
-                    lambda t=inputs: rssm.fused_rssm_step(*t, "silu", RSSM_EPS),
-                    lambda t=inputs: rssm.fused_rssm_step_plain(*t, "silu", RSSM_EPS),
-                    lambda: rssm.fused_rssm_step.launches, nbytes, flops, library, rounded_inside=True))
+            inputs = rssm_inputs(torch, gen, RSSM_DIMS, batch, dtype)
+            rows.append(rssm_row(torch, F, RSSM_DIMS, batch, dtype, inputs))
             log_row(rows[-1])
             if batch == 16:
                 back.append(check_backward(torch, "fused_rssm_step", rssm_shape(batch), name,
@@ -560,6 +677,13 @@ def rssm_kernel_checks(torch, F, gen, log_row):
                                            lambda *t: rssm.fused_rssm_step_plain(*t, "silu", RSSM_EPS),
                                            inputs, (True,) * len(inputs), gen))
                 log_row(back[-1])
+        for g, dtypes in RSSM_WIDE:
+            if name in dtypes:
+                inputs = rssm_inputs(torch, gen, g, 16, dtype)
+                if not rssm.fused_rssm_supported("silu", *inputs[3:]):
+                    raise RuntimeError(f"{rssm_shape(16, g)} {name} is not under the reference's guard")
+                rows.append(rssm_row(torch, F, g, 16, dtype, inputs))
+                log_row(rows[-1])
     return rows, back
 
 
@@ -717,7 +841,7 @@ def fmt(r: dict) -> str:
         f"max_rel={r['max_rel_err']:.3e} tol={r['tol']:g} ok={r['within_tol']} "
         f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={library} "
         f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
-        + ("" if old is None else f" [CUDA-core f32 bound {old:.5f}]")
+        + ("" if old is None else f" [CUDA-core f32 bound {old:.5f}]") + (" wide form" if r.get("wide") else "")
     )
 
 
@@ -1388,6 +1512,7 @@ def main() -> int:
                 log("[kernels]" + fmt(results[-1]))
     train_rows, backward_rows = train_kernel_checks(torch, F, gen, lambda r: log("[kernels]" + fmt(r)))
     results += train_rows
+    results += wide_stage_checks(torch, F, gen, lambda r: log("[kernels]" + fmt(r)))
     rssm_rows, rssm_backward = rssm_kernel_checks(torch, F, gen, lambda r: log("[kernels]" + fmt(r)))
     results += rssm_rows
     backward_rows += rssm_backward

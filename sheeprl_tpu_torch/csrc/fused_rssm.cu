@@ -63,6 +63,20 @@
 // whose row is not a multiple of 16 bytes (wm is [512, 1026] on CartPole:
 // rows 2,052 bytes apart) is copied 4 bytes at a time into the same slots,
 // so the kernel takes every row stride as it is.
+//
+// Wide steps. Staging a row tile's whole operand and pre-activation rows
+// needs 16 x (the widest operand row + the widest f32 pre-activation row)
+// in shared memory, which passes 227 KB at widths the reference's 10 MiB
+// guard admits (E = 2,048 on pixels at multiplier 16, R = 512 in bf16).
+// There (ops/kernels/rssm.py:launch_plan says which, `wide`) the kernel
+// takes a second form, with shared memory fixed at the weight rings and the
+// reduction tile, whatever the widths: each stage first builds its whole
+// operand [B, lda] once, in the compute dtype, into a device scratch that
+// stays in L2 (a warp a row: the statistics in the same two-pass order, then
+// the same affine, activation or gates, reading the pre-activations from
+// L2), a grid-wide sync, then the same products with A's fragments read
+// from L2 (16-byte loads past L1). Seven grid syncs instead of three, and
+// no operand rebuilt per block.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -145,6 +159,7 @@ struct Params {
   float* z_pre; float* g_pre; float* t1_pre; float* r1_pre;  // f32 scratch
   int B, Dx, R, D, Hd, E, SD;
   int lda, ldp;  // row strides of the operand tile A (elements) and the pre-activation tile P (floats)
+  void* a_wide;  // wide steps: the operand [16 ceil(B / 16), lda] in the compute dtype (else null)
   float mlp_eps, gru_eps, head_eps;
 };
 
@@ -229,32 +244,42 @@ __device__ __noinline__ void zero_cols(T* A, int ld, int c0, int c1) {
   }
 }
 
-// LayerNorm statistics {mean, rstd} of n f32 values in shared memory, in
-// the reference's two-pass order (the mean, then the mean of squared
-// deviations), by one warp.
+// a value of a row in shared memory, or (kL2) of a global array written
+// earlier in this launch, read through L2 only
+template <bool kL2>
+__device__ __forceinline__ float ld_row(const float* row, int k) {
+  if constexpr (kL2) return __ldcg(row + k);
+  return row[k];
+}
+
+// LayerNorm statistics {mean, rstd} of n f32 values in shared memory (or,
+// kL2, in global memory), in the reference's two-pass order (the mean, then
+// the mean of squared deviations), by one warp.
+template <bool kL2>
 __device__ __noinline__ float2 row_stats(const float* row, int n, float eps) {
   const int lane = threadIdx.x % 32;
   // four running sums a lane, so that the adds are not one dependent chain
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   int k = lane;
   for (; k + 96 < n; k += 128) {
-    s0 += row[k];
-    s1 += row[k + 32];
-    s2 += row[k + 64];
-    s3 += row[k + 96];
+    s0 += ld_row<kL2>(row, k);
+    s1 += ld_row<kL2>(row, k + 32);
+    s2 += ld_row<kL2>(row, k + 64);
+    s3 += ld_row<kL2>(row, k + 96);
   }
-  for (; k < n; k += 32) s0 += row[k];
+  for (; k < n; k += 32) s0 += ld_row<kL2>(row, k);
   const float mean = warp_sum((s0 + s1) + (s2 + s3)) / n;
   float q0 = 0.f, q1 = 0.f, q2 = 0.f, q3 = 0.f;
   for (k = lane; k + 96 < n; k += 128) {
-    const float c0 = row[k] - mean, c1 = row[k + 32] - mean, c2 = row[k + 64] - mean, c3 = row[k + 96] - mean;
+    const float c0 = ld_row<kL2>(row, k) - mean, c1 = ld_row<kL2>(row, k + 32) - mean,
+                c2 = ld_row<kL2>(row, k + 64) - mean, c3 = ld_row<kL2>(row, k + 96) - mean;
     q0 += c0 * c0;
     q1 += c1 * c1;
     q2 += c2 * c2;
     q3 += c3 * c3;
   }
   for (; k < n; k += 32) {
-    const float c = row[k] - mean;
+    const float c = ld_row<kL2>(row, k) - mean;
     q0 += c * c;
   }
   return make_float2(mean, rsqrtf(warp_sum((q0 + q1) + (q2 + q3)) / n + eps));
@@ -358,12 +383,12 @@ __device__ __noinline__ void stage_operand(const Params& p, int stage, T* A, flo
     const int r = threadIdx.x / 32;  // one warp a row
     const float* pre = P + r * p.ldp;
     if (stage == 2) {
-      stats[r][0] = row_stats(pre, p.D, p.mlp_eps);
+      stats[r][0] = row_stats<false>(pre, p.D, p.mlp_eps);
     } else if (stage == 3) {
-      stats[r][0] = row_stats(pre, 3 * p.R, p.gru_eps);
+      stats[r][0] = row_stats<false>(pre, 3 * p.R, p.gru_eps);
     } else {
-      const float2 a = row_stats(pre, p.Hd, p.head_eps);
-      const float2 b = row_stats(pre + p.Hd, p.Hd, p.head_eps);
+      const float2 a = row_stats<false>(pre, p.Hd, p.head_eps);
+      const float2 b = row_stats<false>(pre + p.Hd, p.Hd, p.head_eps);
       stats[r][0] = a;
       stats[r][1] = b;
     }
@@ -378,6 +403,74 @@ __device__ __noinline__ void stage_operand(const Params& p, int stage, T* A, flo
     ln_act_tile<T, ACT>(P, p.ldp, &stats[0][0], p.Hd, V, V + p.Hd, live, A, lda);
     ln_act_tile<T, ACT>(P + p.Hd, p.ldp, &stats[0][1], p.Hd, V + 2 * p.Hd, V + 3 * p.Hd, live,
                    A + pad_k<T>(p.Hd), lda);
+  }
+}
+
+// The wide steps' operand of `stage`, whole, into p.a_wide: row r of
+// [16 ceil(B / 16), lda] in T, the same values stage_operand builds in
+// shared memory (rows past B and the padding columns zero), a warp a row
+// over the grid. Stage 3 also writes h' to h_out.
+template <typename T, int ACT>
+__device__ __noinline__ void wide_operand(const Params& p, int stage) {
+  const int lane = threadIdx.x % 32;
+  const int rows = (p.B + kRows - 1) / kRows * kRows;
+  const T zero = from_f<T>(0.f);
+  for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < rows; r += gridDim.x * kWarps) {
+    T* out = static_cast<T*>(p.a_wide) + (size_t)r * p.lda;
+    if (r >= p.B) {
+      for (int k = lane; k < p.lda; k += 32) out[k] = zero;
+      continue;
+    }
+    if (stage == 1) {  // [x]
+      const T* x = static_cast<const T*>(p.x) + (size_t)r * p.Dx;
+      for (int k = lane; k < p.lda; k += 32) out[k] = k < p.Dx ? x[k] : zero;
+    } else if (stage == 2) {  // [z, h]
+      const float* pre = p.z_pre + (size_t)r * p.D;
+      const float2 st = row_stats<true>(pre, p.D, p.mlp_eps);
+      const T* h = static_cast<const T*>(p.h) + (size_t)r * p.R;
+      for (int k = lane; k < p.lda; k += 32) {
+        if (k < p.D)
+          out[k] = from_f<T>(act_of<ACT>((__ldcg(pre + k) - st.x) * st.y * __ldg(p.sm + k) + __ldg(p.om + k)));
+        else
+          out[k] = k < p.D + p.R ? h[k - p.D] : zero;
+      }
+    } else if (stage == 3) {  // [h', emb]; h' also to h_out
+      const float* pre = p.g_pre + (size_t)r * 3 * p.R;
+      const float2 st = row_stats<true>(pre, 3 * p.R, p.gru_eps);
+      const T* h = static_cast<const T*>(p.h) + (size_t)r * p.R;
+      const T* emb = static_cast<const T*>(p.emb) + (size_t)r * p.E;
+      T* h_out = static_cast<T*>(p.h_out) + (size_t)r * p.R;
+      for (int k = lane; k < p.lda; k += 32) {
+        if (k < p.R) {
+          const int c = p.R + k, u = 2 * p.R + k;
+          const float m = st.x, rs = st.y;
+          const float update = sigmoid_f((__ldcg(pre + u) - m) * rs * __ldg(p.sg + u) + __ldg(p.og + u) - 1.f);
+          const float cand = tanh_f(sigmoid_f((__ldcg(pre + k) - m) * rs * __ldg(p.sg + k) + __ldg(p.og + k)) *
+                                    ((__ldcg(pre + c) - m) * rs * __ldg(p.sg + c) + __ldg(p.og + c)));
+          const T hn = from_f<T>(update * cand + (1.f - update) * to_f(h[k]));
+          out[k] = hn;
+          h_out[k] = hn;
+        } else {
+          out[k] = k < p.R + p.E ? emb[k - p.R] : zero;
+        }
+      }
+    } else {  // [t1, pad, r1]
+      const float* t1 = p.t1_pre + (size_t)r * p.Hd;
+      const float* r1 = p.r1_pre + (size_t)r * p.Hd;
+      const float2 sa = row_stats<true>(t1, p.Hd, p.head_eps);
+      const float2 sb = row_stats<true>(r1, p.Hd, p.head_eps);
+      const int off = pad_k<T>(p.Hd);
+      for (int k = lane; k < p.lda; k += 32) {
+        if (k < p.Hd) {
+          out[k] = from_f<T>(act_of<ACT>((__ldcg(t1 + k) - sa.x) * sa.y * __ldg(p.st1 + k) + __ldg(p.ot1 + k)));
+        } else if (k >= off && k < off + p.Hd) {
+          const int i = k - off;
+          out[k] = from_f<T>(act_of<ACT>((__ldcg(r1 + i) - sb.x) * sb.y * __ldg(p.sr1 + i) + __ldg(p.or1 + i)));
+        } else {
+          out[k] = zero;
+        }
+      }
+    }
   }
 }
 
@@ -501,16 +594,23 @@ struct WeightStream {
 
 // acc += A[:, a_off + chunk] @ W-chunk^T for one chunk, K in the lane order
 // described at the top: a lane's 16 bytes of A rows g and g + 8 pair with
-// its own 16 bytes of the weight row.
-template <typename T>
+// its own 16 bytes of the weight row. kL2: A is the wide steps' operand in
+// global memory, written earlier in this launch.
+template <typename T, bool kL2>
 __device__ __forceinline__ void chunk_mma(float (&acc0)[4], float (&acc1)[4], const T* A, int lda, int a_col,
                                           uint4 b) {
   // the chunk's two MMAs go to two accumulators, so that they do not wait
   // on each other (summed once, at the end of the unit)
   const int lane = threadIdx.x % 32;
   const int col = a_col + (16 / static_cast<int>(sizeof(T))) * (lane % 4);
-  const uint4 lo = *reinterpret_cast<const uint4*>(A + (lane / 4) * lda + col);
-  const uint4 hi = *reinterpret_cast<const uint4*>(A + (lane / 4 + 8) * lda + col);
+  uint4 lo, hi;
+  if constexpr (kL2) {
+    lo = __ldcg(reinterpret_cast<const uint4*>(A + (size_t)(lane / 4) * lda + col));
+    hi = __ldcg(reinterpret_cast<const uint4*>(A + (size_t)(lane / 4 + 8) * lda + col));
+  } else {
+    lo = *reinterpret_cast<const uint4*>(A + (lane / 4) * lda + col);
+    hi = *reinterpret_cast<const uint4*>(A + (lane / 4 + 8) * lda + col);
+  }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, b0[2] = {b.x, b.y};
     const uint32_t a1[4] = {lo.z, hi.z, lo.w, hi.w}, b1[2] = {b.z, b.w};
@@ -535,20 +635,22 @@ __device__ __forceinline__ void chunk_mma(float (&acc0)[4], float (&acc1)[4], co
   }
 }
 
-template <typename T, int ACT>
+template <typename T, int ACT, bool WIDE>
 __device__ __forceinline__ void run_stage(const Params& p, int stage, const StageDesc& d, WeightStream<T>& ws, T* A,
                                        float* P, float* V, float* red, float2 (*stats)[2]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int staged = -1;
   for (int u = d.begin; u < d.end; ++u) {
     const int rt = u / d.per_tile;
-    if (rt != staged) {
+    if constexpr (WIDE) {  // the operand is whole in p.a_wide, h' already in h_out
+      A = static_cast<T*>(p.a_wide) + (size_t)rt * kRows * p.lda;
+    } else if (rt != staged) {
       __syncthreads();  // every warp is done with the previous tile
       stage_operand<T, ACT>(p, stage, A, P, V, stats, rt);
       __syncthreads();
       staged = rt;
     }
-    if (stage == 3 && u % d.per_tile == 0) {  // h' leaves the kernel once per row tile
+    if (!WIDE && stage == 3 && u % d.per_tile == 0) {  // h' leaves the kernel once per row tile
       T* h_out = static_cast<T*>(p.h_out);
       const int live = min(kRows, p.B - rt * kRows);
       if (copy_mode<T>(h_out, p.R) == kCopy16) {  // 16 bytes a store
@@ -566,7 +668,7 @@ __device__ __forceinline__ void run_stage(const Params& p, int stage, const Stag
     }
     const Share sh = share_of<T>(d, u);
     float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c = sh.lo; c < sh.hi; ++c) chunk_mma(acc, acc1, A, p.lda, sh.a_off + c * chunk_k<T>(), ws.take());
+    for (int c = sh.lo; c < sh.hi; ++c) chunk_mma<T, WIDE>(acc, acc1, A, p.lda, sh.a_off + c * chunk_k<T>(), ws.take());
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[q] += acc1[q];
 
@@ -614,14 +716,16 @@ __device__ __forceinline__ StageDesc stage_desc(const Params& p, int stage) {
                     segment<T>(p.wr2, p.SD, p.Hd, pad_k<T>(p.Hd), p.post, p.br2), 2, p.B);
 }
 
-template <typename T, int ACT>
+template <typename T, int ACT, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1) fused_rssm_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem);         // kWarps x ring_slots chunk slots
   float* red = reinterpret_cast<float*>(ring + kWarps * ring_slots<T>() * kChunkBytes);  // a unit's partial tiles
-  T* A = reinterpret_cast<T*>(red + kRedFloats);                        // the left operand: kRows x lda, T
-  float* P = reinterpret_cast<float*>(A + kRows * p.lda);               // pre-activations: kRows x ldp, f32
-  float* V = P + kRows * p.ldp;                                         // a stage's LayerNorm affines, f32
+  // staged steps only: the left operand (kRows x lda, T), the
+  // pre-activations (kRows x ldp, f32) and a stage's LayerNorm affines (f32)
+  T* A = WIDE ? nullptr : reinterpret_cast<T*>(red + kRedFloats);
+  float* P = WIDE ? nullptr : reinterpret_cast<float*>(A + kRows * p.lda);
+  float* V = WIDE ? nullptr : P + kRows * p.ldp;
   __shared__ float2 stats[kRows][2];  // each row's LayerNorm {mean, rstd}, two segments
   cg::grid_group grid = cg::this_grid();
   unsigned char* warp_ring = ring + (threadIdx.x / 32) * ring_slots<T>() * kChunkBytes;
@@ -634,7 +738,11 @@ __global__ void __launch_bounds__(kThreads, 1) fused_rssm_kernel(const __grid_co
     d = stage_desc<T>(p, stage);
     ws.start(d, warp_ring);  // the first weight chunks load across the sync
     if (stage > 1) grid.sync();
-    run_stage<T, ACT>(p, stage, d, ws, A, P, V, red, stats);
+    if constexpr (WIDE) {
+      wide_operand<T, ACT>(p, stage);
+      grid.sync();
+    }
+    run_stage<T, ACT, WIDE>(p, stage, d, ws, A, P, V, red, stats);
   }
   cp_async_wait<0>();
 }
@@ -648,21 +756,25 @@ int max_units_per_tile(const Params& p) {
   return m;
 }
 
-template <typename T, int ACT>
-int launch(Params p, cudaStream_t stream) {
-  // the tile strides come from ops/kernels/rssm.py:launch_plan; check that
-  // every stage's padded operand fits and that A's rows keep 16-byte chunks
+template <typename T, int ACT, bool WIDE>
+int launch(Params p, size_t smem, cudaStream_t stream) {
+  // the tile strides and the shared memory come from
+  // ops/kernels/rssm.py:launch_plan; check that every stage's padded
+  // operand fits, that A's rows keep 16-byte chunks and that the shared
+  // memory is what this form of the kernel lays out
   auto pad = [](int n) { return (n + chunk_k<T>() - 1) / chunk_k<T>() * chunk_k<T>(); };
   const int need_a = max(max(pad(p.Dx), pad(p.D + p.R)), max(pad(p.R + p.E), 2 * pad(p.Hd)));
   const int need_p = max(max(p.D, 3 * p.R), 2 * p.Hd);
   if (p.lda < need_a || (p.lda * static_cast<int>(sizeof(T))) % 16 != 0 || p.ldp < need_p || p.ldp % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (WIDE != (p.a_wide != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = max(max(2 * p.D, 6 * p.R), 4 * p.Hd);  // the affines of the widest stage
-  const size_t smem = static_cast<size_t>(kWarps) * ring_slots<T>() * kChunkBytes + kRedFloats * sizeof(float) +
-                      static_cast<size_t>(kRows) * p.lda * sizeof(T) +
-                      (static_cast<size_t>(kRows) * p.ldp + vec) * sizeof(float);
-  const void* fn = reinterpret_cast<const void*>(fused_rssm_kernel<T, ACT>);
-  cudaError_t err = cudaFuncSetAttribute(fused_rssm_kernel<T, ACT>,
+  size_t want = static_cast<size_t>(kWarps) * ring_slots<T>() * kChunkBytes + kRedFloats * sizeof(float);
+  if (!WIDE)
+    want += static_cast<size_t>(kRows) * p.lda * sizeof(T) + (static_cast<size_t>(kRows) * p.ldp + vec) * sizeof(float);
+  if (smem != want) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = reinterpret_cast<const void*>(fused_rssm_kernel<T, ACT, WIDE>);
+  cudaError_t err = cudaFuncSetAttribute(fused_rssm_kernel<T, ACT, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -673,7 +785,7 @@ int launch(Params p, cudaStream_t stream) {
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_rssm_kernel<T, ACT>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_rssm_kernel<T, ACT, WIDE>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const long long tiles = (p.B + kRows - 1) / kRows;
@@ -690,16 +802,21 @@ int launch(Params p, cudaStream_t stream) {
 
 // one kernel per activation: the element-wise passes carry no switch, and
 // each kernel's code holds only its own activation
-template <typename T>
-int launch_act(int act, const Params& p, cudaStream_t stream) {
+template <typename T, bool WIDE>
+int launch_act(int act, const Params& p, size_t smem, cudaStream_t stream) {
   switch (act) {
-    case 0: return launch<T, 0>(p, stream);
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
-    case 4: return launch<T, 4>(p, stream);
-    default: return launch<T, 5>(p, stream);
+    case 0: return launch<T, 0, WIDE>(p, smem, stream);
+    case 1: return launch<T, 1, WIDE>(p, smem, stream);
+    case 2: return launch<T, 2, WIDE>(p, smem, stream);
+    case 3: return launch<T, 3, WIDE>(p, smem, stream);
+    case 4: return launch<T, 4, WIDE>(p, smem, stream);
+    default: return launch<T, 5, WIDE>(p, smem, stream);
   }
+}
+
+template <typename T>
+int launch_form(int act, const Params& p, size_t smem, cudaStream_t stream) {
+  return p.a_wide != nullptr ? launch_act<T, true>(act, p, smem, stream) : launch_act<T, false>(act, p, smem, stream);
 }
 
 }  // namespace
@@ -710,17 +827,19 @@ int launch_act(int act, const Params& p, cudaStream_t stream) {
 // post_raw [B, SD] and the scratch [B, D + 3R + 2Hd] are float32. Weights
 // are [out, in]: wm [D, Dx], wg [3R, D + R], wt1 [Hd, R], wt2 [SD, Hd],
 // wr1 [Hd, R + E], wr2 [SD, Hd]. lda and ldp are the shared tiles' row
-// strides from ops/kernels/rssm.py:launch_plan. Returns a cudaError_t; a
-// grid that cannot be co-resident is refused
+// strides from ops/kernels/rssm.py:launch_plan, as are `smem` (the dynamic
+// shared memory in bytes) and `a_wide`: null for the staged form, else the
+// wide steps' operand scratch [16 ceil(B / 16), lda] in the compute dtype.
+// Returns a cudaError_t; a grid that cannot be co-resident is refused
 // (cudaErrorCooperativeLaunchTooLarge), never run another way.
 extern "C" int fused_rssm_forward(
     int dtype, int act, const void* x, const void* h, const void* emb, const void* wm,
     const void* sm, const void* om, const void* wg, const void* sg, const void* og,
     const void* wt1, const void* st1, const void* ot1, const void* wt2, const void* bt2,
     const void* wr1, const void* sr1, const void* or1, const void* wr2, const void* br2,
-    void* h_out, void* prior, void* post, void* scratch, int B, int Dx, int R, int D, int Hd,
-    int E, int SD, int lda, int ldp, float mlp_eps, float gru_eps, float head_eps, void* stream) {
-  if (B < 1 || act < 0 || act > 5) return static_cast<int>(cudaErrorInvalidValue);
+    void* h_out, void* prior, void* post, void* scratch, void* a_wide, int B, int Dx, int R, int D, int Hd,
+    int E, int SD, int lda, int ldp, int smem, float mlp_eps, float gru_eps, float head_eps, void* stream) {
+  if (B < 1 || act < 0 || act > 5 || smem < 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x; p.h = h; p.emb = emb;
   p.wm = wm; p.sm = static_cast<const float*>(sm); p.om = static_cast<const float*>(om);
@@ -738,9 +857,10 @@ extern "C" int fused_rssm_forward(
   p.t1_pre = p.g_pre + (size_t)B * 3 * R;
   p.r1_pre = p.t1_pre + (size_t)B * Hd;
   p.B = B; p.Dx = Dx; p.R = R; p.D = D; p.Hd = Hd; p.E = E; p.SD = SD; p.lda = lda; p.ldp = ldp;
+  p.a_wide = a_wide;
   p.mlp_eps = mlp_eps; p.gru_eps = gru_eps; p.head_eps = head_eps;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_act<float>(act, p, st);
-  if (dtype == 1) return launch_act<__nv_bfloat16>(act, p, st);
+  if (dtype == 0) return launch_form<float>(act, p, static_cast<size_t>(smem), st);
+  if (dtype == 1) return launch_form<__nv_bfloat16>(act, p, static_cast<size_t>(smem), st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,14 @@
-// Shared by csrc/ln_gru.cu and csrc/fused_rssm.cu: tensor-core products
-// with mma.sync, ldmatrix fragment loads, cp.async copies into shared
-// memory, and the TF32 split behind the f32 path.
+// Shared by csrc/ln_gru.cu, csrc/fused_rssm.cu and csrc/conv_common.cuh
+// (the conv and deconv): tensor-core products with mma.sync, ldmatrix
+// fragment loads, cp.async copies into shared memory, and the TF32 split
+// behind the f32 path.
 //
-// Both kernels compute row tiles of [rows, K] @ W^T with f32 sums, W in
-// the port's Linear layout [out, in] (K contiguous). That layout is the
-// `.col` B operand of mma.sync as it stands, so a weight row is copied as
-// it lies in memory, 16 bytes at a time.
+// The GRU and the RSSM step compute row tiles of [rows, K] @ W^T with f32
+// sums, W in the port's Linear layout [out, in] (K contiguous). That layout
+// is the `.col` B operand of mma.sync as it stands, so a weight row is
+// copied as it lies in memory, 16 bytes at a time. The conv's HWIO weight
+// is [K, Cout] (Cout contiguous), a `.row` tile: bf16 fragments come
+// through ldmatrix.trans, TF32 ones through 32-bit shared loads.
 //
 // f32 numerics (3xTF32). A single TF32 product keeps about 11 significant
 // bits of each operand, too few for the f32 kernels' 1e-4 tolerance. Each
@@ -89,6 +92,16 @@ __device__ __forceinline__ void split_tf32(const float (&v)[N], uint32_t (&hi)[N
 // columns 2 (lane % 4) and 2 (lane % 4) + 1 of matrix j.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// The same four matrices transposed: lanes 8j .. 8j+7 give the addresses of
+// rows 0 ... 7 of matrix j as it lies in shared memory, and r[j] receives
+// its elements [2 (lane % 4)][lane / 4] and [2 (lane % 4) + 1][lane / 4]:
+// from a [k][n] tile that is the `.col` B fragment of an n8 x k8 slice.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row)));
 }

@@ -26,7 +26,7 @@ import torch
 
 __all__ = [
     "BUILD_DIR", "CSRC_DIR", "DTYPE_CODES", "SOURCES", "bind", "build_all", "build_log",
-    "library_path", "load_library", "reduction_splits",
+    "library_path", "load_library",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
@@ -125,8 +125,6 @@ def build_log(name: str) -> str:
 
 # the dtype argument of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# split a reduction axis until a grid holds two blocks per H100 SM
-_TARGET_BLOCKS = 2 * 132
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
@@ -141,9 +139,3 @@ def bind(name: str, fn: str, argtypes: list, restype=ctypes.c_int) -> ctypes._CF
         func.restype = restype
         _bound[key] = func
     return _bound[key]
-
-
-def reduction_splits(blocks: int, k: int, depth: int) -> int:
-    """How many slices to cut a reduction of length `k` into (in steps of
-    `depth`) so that `blocks` output tiles fill the card."""
-    return max(1, min(-(-_TARGET_BLOCKS // blocks), -(-k // depth)))

@@ -3,8 +3,10 @@ of `conv_ln_silu` (sheeprl_tpu/ops/pallas_cnn.py:236): its forward
 `_enc_call`, its forward with residuals and its backward
 `_conv_ln_silu_bwd`.
 
-The CUDA kernel is `csrc/conv_ln_silu.cu`; one launch computes either
-forward (the f32 pre-activation is an optional output). Layouts are the
+The CUDA kernel is `csrc/conv_ln_silu.cu`; one call computes either
+forward (the f32 pre-activation is an optional output): an implicit GEMM
+on the tensor cores, then a LayerNorm -> SiLU pass over any Cout
+(`csrc/conv_common.cuh`), planned by `launch_plan`. Layouts are the
 reference's: x [N, H, W, Cin] NHWC, w [4, 4, Cin, Cout] HWIO,
 y [N, H/2, W/2, Cout].
 
@@ -22,27 +24,55 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .build import DTYPE_CODES, bind, reduction_splits
+from .build import DTYPE_CODES, bind
 
 __all__ = [
-    "MAX_COUT", "cnn_stage_supported", "conv_ln_silu", "conv_ln_silu_plain",
-    "conv_ln_silu_residuals", "conv_ln_silu_residuals_plain", "ln_silu_backward", "ln_stats",
+    "cnn_stage_supported", "conv_ln_silu", "conv_ln_silu_plain", "conv_ln_silu_residuals",
+    "conv_ln_silu_residuals_plain", "gemm_plan", "launch_plan", "launch_stage", "ln_silu_backward", "ln_stats",
 ]
 
-# the pixel pass of csrc/conv_common.cuh holds Cout in one warp's registers
-MAX_COUT = 512
-# projection tile of csrc/conv_ln_silu.cu: channels x pixels, reduction depth
-_TILE_COLS, _TILE_ROWS, _TILE_DEPTH = 64, 64, 16
+# csrc/conv_common.cuh: the cp.async ring's stages; K split until the grid
+# holds two blocks per H100 SM, each split at least four stages deep
+_STAGES, _TARGET_BLOCKS, _MIN_STAGES_PER_SPLIT = 4, 2 * 132, 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# conv_ln_silu_forward(dtype, pointers..., sizes..., eps, stream)
-_ARGTYPES = [_I, *[_P] * 7, *[_I] * 6, ctypes.c_float, _P]
+# conv_ln_silu_forward(dtype, pointers..., sizes..., plan..., eps, stream)
+_ARGTYPES = [_I, *[_P] * 7, *[_I] * 10, ctypes.c_float, _P]
+
+
+def gemm_plan(pixels: int, k: int, cout: int, itemsize: int, phases: int = 1) -> dict:
+    """The launch of csrc/conv_common.cuh's implicit GEMM for `phases`
+    products [pixels, k] x [k, cout] in a dtype of `itemsize` bytes: warps
+    along the pixels `wm` (a 128 x 64 tile, or 256 x 32 for Cout <= 32),
+    the tile `bm` x `bn` and its reduction depth a stage `bk` (128 bytes,
+    64 for the 256 x 32 tile), `splits` slices of K of `k_per_split` each
+    (whole stages, none empty; split only where the tiles alone leave SMs
+    idle), the ring's `stages`, the dynamic shared memory `smem` in bytes,
+    the `grid`, and whether the LayerNorm -> SiLU is `fused` into the
+    product's epilogue (one split, Cout <= bn)."""
+    wm = 8 if cout <= 32 else 4
+    bm, bn = 32 * wm, 32 * (8 // wm)
+    elems = 16 // itemsize
+    bk = (8 if wm == 4 else 4) * elems
+    tiles = phases * -(-pixels // bm) * -(-cout // bn)
+    ktiles = -(-k // bk)
+    want = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-ktiles // _MIN_STAGES_PER_SPLIT)))
+    k_per_split = -(-ktiles // want) * bk
+    splits = -(-k // k_per_split)
+    smem = _STAGES * (bm * (bk + elems) + bk * (bn + 8)) * itemsize
+    return dict(wm=wm, bm=bm, bn=bn, bk=bk, splits=splits, k_per_split=k_per_split, stages=_STAGES, smem=smem,
+                grid=(-(-pixels // bm), -(-cout // bn), phases * splits), fused=splits == 1 and cout <= bn)
+
+
+def launch_plan(n: int, h: int, w: int, cin: int, cout: int, itemsize: int) -> dict:
+    """`gemm_plan` of the encoder stage x [n, h, w, cin] -> [n, h/2, w/2,
+    cout]: pixels n * h/2 * w/2, K = 16 cin."""
+    return gemm_plan(n * (h // 2) * (w // 2), 16 * cin, cout, itemsize)
 
 
 def cnn_stage_supported(kernel_shape, stride, padding, has_norm: bool, act) -> bool:
     """Structural eligibility for the fused stage, the reference's guard
     (sheeprl_tpu/ops/pallas_cnn.py:73-83): the Dreamer k4/s2/SAME
-    LayerNorm-SiLU miniblock exactly. A stage the CUDA kernel cannot hold
-    (Cout above MAX_COUT) is eligible all the same and raises on the card."""
+    LayerNorm-SiLU miniblock exactly, at any channel count."""
     return (
         tuple(kernel_shape[:2]) == (4, 4)
         and tuple(stride) == (2, 2)
@@ -123,28 +153,39 @@ def _check(x, w, scale, offset) -> None:
         raise ValueError(f"conv_ln_silu runs on cpu or cuda tensors, got {x.device}")
 
 
-def _launch(x, w, scale, offset, eps, residuals: bool):
-    """One launch of csrc/conv_ln_silu.cu -> y, or (y, pre) with residuals."""
+def launch_stage(name: str, x, w, scale, offset, eps, residuals: bool, plan: dict, out_pixels: int, out_shape):
+    """One call of csrc/<name>.cu's forward with `plan` -> y, or (y, pre)
+    with residuals. The f32 scratch of the split sums is allocated only
+    where the pixel pass reads it and it is not the residual itself."""
     n, h, wd, cin = x.shape
     cout = w.shape[3]
-    if cout > MAX_COUT:
-        raise ValueError(f"Cout {cout} exceeds the kernel's {MAX_COUT} channels")
-    pixels = n * (h // 2) * (wd // 2)
-    splits = reduction_splits(-(-cout // _TILE_COLS) * -(-pixels // _TILE_ROWS), 16 * cin, _TILE_DEPTH)
-    forward = bind("conv_ln_silu", "conv_ln_silu_forward", _ARGTYPES)
-    scratch = torch.empty((splits, pixels, cout), device=x.device, dtype=torch.float32)
-    y = torch.empty((n, h // 2, wd // 2, cout), device=x.device, dtype=x.dtype)
-    pre = torch.empty((n, h // 2, wd // 2, cout), device=x.device, dtype=torch.float32) if residuals else None
+    forward = bind(name, f"{name}_forward", _ARGTYPES)
+    splits = plan["splits"]
+    direct = plan["fused"] or (residuals and splits == 1)
+    scratch = None if direct else torch.empty((splits, out_pixels, cout), device=x.device, dtype=torch.float32)
+    y = torch.empty(out_shape, device=x.device, dtype=x.dtype)
+    pre = torch.empty(out_shape, device=x.device, dtype=torch.float32) if residuals else None
     with torch.cuda.device(x.device):
         err = forward(
-            DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-            offset.data_ptr(), scratch.data_ptr(), y.data_ptr(),
-            None if pre is None else pre.data_ptr(), n, h, wd, cin, cout, splits,
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+            DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), y.data_ptr(),
+            None if pre is None else pre.data_ptr(), n, h, wd, cin, cout, plan["wm"], splits,
+            plan["k_per_split"], plan["stages"], plan["smem"], float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"conv_ln_silu_forward launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name}_forward launch failed: CUDA error {err}")
     return (y, pre) if residuals else y
+
+
+def _launch(x, w, scale, offset, eps, residuals: bool):
+    """One call of csrc/conv_ln_silu.cu -> y, or (y, pre) with residuals."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    plan = launch_plan(n, h, wd, cin, cout, x.element_size())
+    pixels = n * (h // 2) * (wd // 2)
+    return launch_stage("conv_ln_silu", x, w, scale, offset, eps, residuals, plan, pixels,
+                        (n, h // 2, wd // 2, cout))
 
 
 def conv_ln_silu_residuals(x, w, scale, offset, eps: float = 1e-3):

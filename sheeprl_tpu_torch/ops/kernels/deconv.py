@@ -3,7 +3,9 @@ the port of `deconv_ln_silu` (sheeprl_tpu/ops/pallas_cnn.py:388): its
 forward `_dec_call` (with and without residuals) and its backward
 `_deconv_ln_silu_bwd`.
 
-The CUDA kernel is `csrc/deconv_ln_silu.cu`. Layouts are the reference's:
+The CUDA kernel is `csrc/deconv_ln_silu.cu`: the four phases' implicit
+GEMMs on the tensor cores and the LayerNorm -> SiLU pass of
+`csrc/conv_common.cuh`, planned by `launch_plan`. Layouts are the reference's:
 x [N, H, W, Cin] NHWC, k [4, 4, Cin, Cout] HWIO, y [N, 2H, 2W, Cout].
 
 The transposed conv is the reference's subpixel form (`_subpixel_k4s2`,
@@ -16,24 +18,22 @@ padding rule), so the plain version here is the phase regrouping itself.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from .build import DTYPE_CODES, bind, reduction_splits
-from .cnn import MAX_COUT, ln_silu_backward, ln_stats
+from .build import DTYPE_CODES
+from .cnn import gemm_plan, launch_stage, ln_silu_backward, ln_stats
 
 __all__ = [
     "deconv_ln_silu", "deconv_ln_silu_plain", "deconv_ln_silu_residuals",
-    "deconv_ln_silu_residuals_plain", "phase_kernel", "subpixel_deconv",
+    "deconv_ln_silu_residuals_plain", "launch_plan", "phase_kernel", "subpixel_deconv",
 ]
 
-# projection tile of csrc/deconv_ln_silu.cu: channels x pixels, reduction depth
-_TILE_COLS, _TILE_ROWS, _TILE_DEPTH = 64, 64, 16
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# deconv_ln_silu_forward(dtype, pointers..., sizes..., eps, stream)
-_ARGTYPES = [_I, *[_P] * 7, *[_I] * 6, ctypes.c_float, _P]
+
+def launch_plan(n: int, h: int, w: int, cin: int, cout: int, itemsize: int) -> dict:
+    """`cnn.gemm_plan` of the decoder stage x [n, h, w, cin] -> [n, 2h, 2w,
+    cout]: four phase products of n * h * w pixels, K = 4 cin."""
+    return gemm_plan(n * h * w, 4 * cin, cout, itemsize, phases=4)
 
 
 def phase_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -106,29 +106,14 @@ def _check(x, k, scale, offset) -> None:
 
 
 def _launch(x, k, scale, offset, eps, residuals: bool):
-    """One launch of csrc/deconv_ln_silu.cu -> y, or (y, pre) with residuals."""
+    """One call of csrc/deconv_ln_silu.cu -> y, or (y, pre) with residuals."""
     n, h, w, cin = x.shape
     cout = k.shape[3]
-    if cout > MAX_COUT:
-        raise ValueError(f"Cout {cout} exceeds the kernel's {MAX_COUT} channels")
-    pixels = n * h * w  # per phase
-    tiles = 4 * -(-cout // _TILE_COLS) * -(-pixels // _TILE_ROWS)
-    splits = reduction_splits(tiles, 4 * cin, _TILE_DEPTH)
-    forward = bind("deconv_ln_silu", "deconv_ln_silu_forward", _ARGTYPES)
-    scratch = torch.empty((splits, 4 * pixels, cout), device=x.device, dtype=torch.float32)
-    y = torch.empty((n, 2 * h, 2 * w, cout), device=x.device, dtype=x.dtype)
-    pre = torch.empty((n, 2 * h, 2 * w, cout), device=x.device, dtype=torch.float32) if residuals else None
-    with torch.cuda.device(x.device):
-        err = forward(
-            DTYPE_CODES[x.dtype], x.data_ptr(), k.data_ptr(), scale.data_ptr(),
-            offset.data_ptr(), scratch.data_ptr(), y.data_ptr(),
-            None if pre is None else pre.data_ptr(), n, h, w, cin, cout, splits,
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"deconv_ln_silu_forward launch failed: CUDA error {err}")
+    plan = launch_plan(n, h, w, cin, cout, x.element_size())
+    out = launch_stage("deconv_ln_silu", x, k, scale, offset, eps, residuals, plan, 4 * n * h * w,
+                       (n, 2 * h, 2 * w, cout))
     deconv_ln_silu.launches += 1
-    return (y, pre) if residuals else y
+    return out
 
 
 def deconv_ln_silu_residuals(x, k, scale, offset, eps: float = 1e-3):

@@ -9,7 +9,10 @@ The CUDA kernel is `csrc/fused_rssm.cu`, one cooperative launch in four
 grid-synced stages whose products run on the tensor cores (`mma.sync` in
 bf16, 3xTF32 in f32, `csrc/mma_common.cuh`), each warp streaming its slice
 of the weights through a ring of 16-byte `cp.async` copies; `launch_plan`
-gives the shared tiles' strides and the shared memory they need. One
+gives the shared tiles' strides, the shared memory they need, and whether
+the step is wide: past 227 KB of staged tiles each stage builds its operand
+once into an L2-resident scratch instead, so the kernel takes every width
+the guard admits with shared memory fixed by the dtype. One
 deviation from the reference's signature: the six weights are in the
 port's Linear layout, [out, in] (the transpose of the reference's
 [in, out]), so the modules' own parameters feed the kernel without a copy
@@ -41,17 +44,18 @@ _FUSED_VMEM_BUDGET_BYTES = 10 * 1024 * 1024
 # the activations with an in-kernel implementation (the reference's
 # _KERNEL_ACTS), by the code csrc/fused_rssm.cu switches on
 ACT_CODES = {"silu": 0, "relu": 1, "tanh": 2, "elu": 3, "gelu": 4, "identity": 5}
-# the most dynamic shared memory a block may have on Hopper
-_SMEM_BYTES = 227 * 1024
+# the most shared memory a block may have on Hopper, of which the kernel's
+# static `stats` (16 rows x 2 float2) takes 256 bytes
+_SMEM_BYTES, _STATIC_BYTES = 227 * 1024, 16 * 2 * 8
 # csrc/fused_rssm.cu's block: 16 rows, 16 warps with a ring of chunk slots
 # of 512 bytes each (6 in bf16, 4 in f32), a unit's 8 x 2 partial 16 x 8
 # f32 tiles (the operand tiles and the affines follow from the widths:
 # launch_plan)
 _ROWS, _RED_BYTES = 16, 8 * 2 * 16 * 8 * 4
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# fused_rssm_forward(dtype, act, 19 inputs, h_out, prior, post, scratch,
-#                    B, Dx, R, D, Hd, E, SD, lda, ldp, 3 eps, stream)
-_ARGTYPES = [_I, _I, *[_P] * 23, *[_I] * 9, _F, _F, _F, _P]
+# fused_rssm_forward(dtype, act, 19 inputs, h_out, prior, post, scratch, a_wide,
+#                    B, Dx, R, D, Hd, E, SD, lda, ldp, smem, 3 eps, stream)
+_ARGTYPES = [_I, _I, *[_P] * 24, *[_I] * 10, _F, _F, _F, _P]
 _MATS = (3, 6, 9, 12, 14, 17)  # positions of the six weight matrices among the 19 inputs
 
 
@@ -155,8 +159,11 @@ def launch_plan(dx: int, rec: int, d: int, hd: int, e: int, itemsize: int) -> di
     multiple of 16 bytes and 64 past a multiple of 128, so that the 16-byte
     fragment reads of rows g and g + 1 fall in distinct banks. The f32
     pre-activation tile P holds D, 3R or 2Hd floats a row, and V the
-    widest stage's LayerNorm scales and offsets. -> lda (elements), ldp
-    (floats), chunk, smem (bytes)."""
+    widest stage's LayerNorm scales and offsets. Where those tiles would
+    not fit beside the weight rings, the step is `wide`: the operand lives
+    in a device scratch of rows of `lda` elements, and shared memory holds
+    only the rings and the partial tiles, a constant of the dtype. -> lda
+    (elements), ldp (floats), chunk, smem (dynamic bytes), wide."""
     chunk = 64 // itemsize
 
     def pad(n):
@@ -167,9 +174,10 @@ def launch_plan(dx: int, rec: int, d: int, hd: int, e: int, itemsize: int) -> di
     if row % 128 == 0:
         row += 64
     lda, ldp = row // itemsize, -(-max(d, 3 * rec, 2 * hd) // 4) * 4
-    ring = 16 * (6 if itemsize == 2 else 4) * 512
-    smem = ring + _RED_BYTES + _ROWS * (lda * itemsize + ldp * 4) + 4 * max(2 * d, 6 * rec, 4 * hd)
-    return dict(lda=lda, ldp=ldp, chunk=chunk, smem=smem)
+    fixed = 16 * (6 if itemsize == 2 else 4) * 512 + _RED_BYTES
+    staged = fixed + _ROWS * (lda * itemsize + ldp * 4) + 4 * max(2 * d, 6 * rec, 4 * hd)
+    wide = staged + _STATIC_BYTES > _SMEM_BYTES
+    return dict(lda=lda, ldp=ldp, chunk=chunk, smem=fixed if wide else staged, wide=wide)
 
 
 def _launch(tensors, act: str, eps):
@@ -179,20 +187,20 @@ def _launch(tensors, act: str, eps):
     rec, e = h.shape[1], emb.shape[1]
     d, hd, sd = wm.shape[0], wt1.shape[0], wt2.shape[0]
     plan = launch_plan(dx, rec, d, hd, e, x.element_size())
-    if plan["smem"] > _SMEM_BYTES:
-        raise ValueError(f"a stage's tiles of {plan['lda']} + {plan['ldp']} columns exceed the kernel's "
-                         "shared memory")
     forward = bind("fused_rssm", "fused_rssm_forward", _ARGTYPES)
     h_out = torch.empty_like(h)
     prior = torch.empty((batch, sd), device=x.device, dtype=torch.float32)
     post = torch.empty((batch, sd), device=x.device, dtype=torch.float32)
     scratch = torch.empty((batch * (d + 3 * rec + 2 * hd),), device=x.device, dtype=torch.float32)
+    a_wide = None
+    if plan["wide"]:
+        a_wide = torch.empty((-(-batch // _ROWS) * _ROWS, plan["lda"]), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         err = forward(
             DTYPE_CODES[x.dtype], ACT_CODES[act], *(t.data_ptr() for t in tensors),
             h_out.data_ptr(), prior.data_ptr(), post.data_ptr(), scratch.data_ptr(),
-            batch, dx, rec, d, hd, e, sd, plan["lda"], plan["ldp"], *(float(v) for v in eps),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            None if a_wide is None else a_wide.data_ptr(), batch, dx, rec, d, hd, e, sd, plan["lda"], plan["ldp"],
+            plan["smem"], *(float(v) for v in eps), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_rssm_forward launch failed: CUDA error {err}")

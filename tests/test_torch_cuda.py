@@ -3,7 +3,10 @@ serving path's shapes (DreamerV3 width, rungs 1 and 8) and at the training
 path's (residual forwards and backwards, the deconv and two_hot, the fused
 RSSM step at the CartPole path's widths and B = 1, 16 and 1,024), the
 tensor-core GRU at B = 1 ... 1,024 and the tensor-core fused RSSM step also
-at ragged widths (no width a whole 16-byte chunk or tile), the fused
+at ragged widths (no width a whole 16-byte chunk or tile) and at the wide
+widths whose staged tiles pass shared memory, the tensor-core conv and
+deconv at Cout past 512, ragged Cin (3, 37) and Cout (45) and N = 1, 8 and
+1,024, the fused
 int8 SAC trunk (bit-exact, at Pendulum's and wider trunks, odd widths and
 the device-memory scratch path) and symlog/symexp, and the gradient
 reaching the parameters through CNN, DeCNN and LayerNormGRUCell on CUDA
@@ -213,18 +216,34 @@ def _rssm_inputs(gen, device, dtype, batch, dx=1026, rec=512, d=512, hd=512, e=5
 
 # the CartPole path's widths (wm's rows are 1,026 elements: 2,052 bytes
 # apart in bf16, only 4-byte aligned) and a ragged set (no width a whole
-# chunk or tile; wm's bf16 rows 74 bytes apart, only 2-byte aligned)
-RSSM_DIMS = {"cartpole": {}, "ragged": dict(dx=37, rec=48, d=40, hd=24, e=20, sd=72)}
+# chunk or tile; wm's bf16 rows 74 bytes apart, only 2-byte aligned), in
+# both dtypes; and the wide steps, whose staged tiles would pass shared
+# memory, each in the dtypes the 10 MiB guard admits: pixels at
+# --cnn_channels_multiplier 16 (E 2,048) in bf16, R 512 / E 1,024 / D = Hd
+# = 256 in both, and the widest bf16 case, E 8,192
+RSSM_DIMS = {
+    "cartpole": {}, "ragged": dict(dx=37, rec=48, d=40, hd=24, e=20, sd=72),
+    "pixels_m16": dict(e=2048), "e1024": dict(d=256, hd=256, e=1024), "e8192": dict(d=256, hd=256, e=8192),
+}
+RSSM_CASES = [(dims, dtype) for dims in ("cartpole", "ragged", "e1024") for dtype in (torch.float32, torch.bfloat16)]
+RSSM_CASES += [("pixels_m16", torch.bfloat16), ("e8192", torch.bfloat16)]
+# the cases whose staged tiles pass shared memory (E 1,024 fits in bf16)
+WIDE_RSSM_CASES = {("pixels_m16", torch.bfloat16), ("e8192", torch.bfloat16), ("e1024", torch.float32)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch", [1, 16, 1024])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
-@pytest.mark.parametrize("dims", list(RSSM_DIMS))
+@pytest.mark.parametrize("dims,dtype", RSSM_CASES, ids=lambda v: str(v).split(".")[-1])
 def test_fused_rssm_kernel_matches_plain(cuda_device, dtype, batch, act, dims):
     gen = torch.Generator().manual_seed(batch)
     inputs = _rssm_inputs(gen, cuda_device, dtype, batch, **RSSM_DIMS[dims])
+    if dims in ("pixels_m16", "e1024", "e8192"):  # widths the reference's guard runs fused
+        assert rssm.fused_rssm_supported(act, *inputs[3:])
+    width = dict(dx=1026, rec=512, d=512, hd=512, e=512) | RSSM_DIMS[dims]
+    wide = rssm.launch_plan(width["dx"], width["rec"], width["d"], width["hd"], width["e"],
+                            inputs[0].element_size())["wide"]
+    assert wide == ((dims, dtype) in WIDE_RSSM_CASES)
     before = rssm.fused_rssm_step.launches
     with torch.no_grad():
         got = rssm.fused_rssm_step(*inputs, act, (1e-3, 1e-5, 1e-3))
@@ -273,14 +292,83 @@ def test_fused_rssm_raises_instead_of_falling_back(cuda_device):
         rssm.fused_rssm_step(*inputs, "sigmoid")
 
 
+def _stage(gen, device, dtype, n, size, cin, cout):
+    """x [n, size, size, cin], an HWIO kernel [4, 4, cin, cout], scale and
+    offset, drawn as the stages of a DreamerV3 CNN are."""
+    x = torch.nn.functional.silu(_rand(gen, n, size, size, cin)).to(device, dtype)
+    w = _rand(gen, 4, 4, cin, cout, scale=(2.0 / (16 * (cin + cout))) ** 0.5).to(device, dtype)
+    return x, w, (1.0 + _rand(gen, cout, scale=0.1)).to(device), _rand(gen, cout, scale=0.1).to(device)
+
+
+def _both_forwards_match(kernel, args, dtype):
+    """The plain forward and the residual forward of `kernel` ("conv" or
+    "deconv") on the card against their plain versions, one counted launch
+    each; the f32 residual at the f32 tolerance in either dtype."""
+    if kernel == "conv":
+        fwd, res, fwd_plain, res_plain = (cnn.conv_ln_silu, cnn.conv_ln_silu_residuals, cnn.conv_ln_silu_plain,
+                                          cnn.conv_ln_silu_residuals_plain)
+        counters = (cnn.conv_ln_silu, cnn.conv_ln_silu_residuals)
+    else:
+        fwd, res, fwd_plain, res_plain = (deconv.deconv_ln_silu, deconv.deconv_ln_silu_residuals,
+                                          deconv.deconv_ln_silu_plain, deconv.deconv_ln_silu_residuals_plain)
+        counters = (deconv.deconv_ln_silu, deconv.deconv_ln_silu)
+    before = sum(c.launches for c in set(counters))
+    with torch.no_grad():
+        got = fwd(*args, 1e-3)
+        got_res = res(*args, 1e-3)
+    torch.cuda.synchronize()
+    assert sum(c.launches for c in set(counters)) == before + 2
+    torch.testing.assert_close(got.float(), fwd_plain(*args, 1e-3).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for g, w in zip(got_res, res_plain(*args, 1e-3)):
+        tol = TOL[g.dtype]
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
-def test_wider_stage_than_the_kernel_raises_on_cuda(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [513, 768, 1024])
+@pytest.mark.parametrize("kernel", ["conv", "deconv"])
+def test_wide_stage_matches_plain_on_cuda(cuda_device, kernel, cout, dtype):
+    """Stages wider than the 512 channels a warp's registers hold in the
+    pixel pass (the reference's guard admits any Cout): both forwards
+    launch and match their plain versions."""
+    gen = torch.Generator().manual_seed(cout)
+    args = _stage(gen, cuda_device, dtype, 2, 8 if kernel == "conv" else 4, 16, cout)
+    _both_forwards_match(kernel, args, dtype)
+
+
+@pytest.mark.cuda
+def test_wide_cnn_stage_runs_through_the_module_on_cuda(cuda_device):
+    """A CNN stage of Cout 513 through the module, forward and backward, on
+    the kernel: the gradient equals the CPU's plain one."""
     from sheeprl_tpu_torch.nn.blocks import CNN
 
-    wide = CNN(8, [cnn.MAX_COUT + 1], kernel_sizes=[4], strides=[2], act="silu", layer_norm=True,
-               use_bias=False).to(cuda_device)
-    with pytest.raises(ValueError, match="Cout"):
-        wide(torch.zeros(1, 8, 8, 8, device=cuda_device))
+    gen = torch.Generator().manual_seed(1)
+    wide = CNN(8, [513], kernel_sizes=[4], strides=[2], act="silu", layer_norm=True, use_bias=False,
+               generator=gen)
+    x = torch.rand(2, 8, 8, 8, generator=gen)
+    grads = {}
+    for device in ("cpu", cuda_device):
+        m = wide.to(device)
+        m.zero_grad(set_to_none=True)
+        m(x.to(device)).pow(2).mean().backward()
+        grads[str(device)] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+    for n, g in grads["cpu"].items():
+        _grad_close(grads[str(cuda_device)][n], g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 1024])
+@pytest.mark.parametrize("cin,cout", [(3, 32), (37, 45)], ids=["cin3_cout32", "cin37_cout45"])
+@pytest.mark.parametrize("kernel", ["conv", "deconv"])
+def test_ragged_stage_matches_plain_on_cuda(cuda_device, kernel, cin, cout, n, dtype):
+    """Channels that are not whole 16-byte chunks (the first encoder stage's
+    Cin 3; Cin 37 and an odd Cout 45, gathered element by element) at one
+    image, the serving rung and the training batch."""
+    gen = torch.Generator().manual_seed(n + cin)
+    args = _stage(gen, cuda_device, dtype, n, 8, cin, cout)
+    _both_forwards_match(kernel, args, dtype)
 
 
 def _int8_trunk(gen, dims, batch):

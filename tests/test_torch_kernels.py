@@ -66,7 +66,10 @@ def _conv_inputs(rng, n, size, cin, cout):
     return x, w, scale, offset
 
 
-@pytest.mark.parametrize("n,size,cin,cout", [(2, 16, 3, 8), (1, 8, 8, 16), (3, 4, 16, 32)])
+# the last case is wider than the 512 channels a warp's registers hold in
+# the CUDA kernel's pixel pass: the plain version the card is held against
+# is itself the reference's there
+@pytest.mark.parametrize("n,size,cin,cout", [(2, 16, 3, 8), (1, 8, 8, 16), (3, 4, 16, 32), (2, 8, 16, 640)])
 def test_conv_plain_matches_pallas_kernel(pallas_interpret, n, size, cin, cout):
     rng = np.random.default_rng(n * 1000 + size + cout)
     args = _conv_inputs(rng, n, size, cin, cout)
@@ -101,10 +104,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     cx, cw, cs, co = map(torch.from_numpy, _conv_inputs(rng, 1, 8, 3, 8))
     with pytest.raises(ValueError, match="even"):
         cnn.conv_ln_silu(cx[:, :7], cw, cs, co)
-    # a Cout above the CUDA kernel's limit is the reference's stage all the
-    # same: the CPU takes the plain version, the card raises
-    # (tests/test_torch_cuda.py)
-    wide = cnn.MAX_COUT + 1
+    # a Cout past the 512 channels a warp's registers hold in the kernel's
+    # pixel pass is the reference's stage all the same, and the kernel's
+    # (tests/test_torch_cuda.py holds it against the plain version there)
+    wide = 513
     y = cnn.conv_ln_silu(cx, torch.zeros(4, 4, 3, wide), torch.ones(wide), torch.zeros(wide))
     assert y.shape == (1, 4, 4, wide)
     assert cnn.cnn_stage_supported((4, 4, 3, wide), (2, 2), "SAME", True, "silu")

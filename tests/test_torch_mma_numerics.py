@@ -1,6 +1,7 @@
 """Why the f32 path of the tensor-core kernels splits each operand in three
-(3xTF32, `csrc/mma_common.cuh`), and the launch plans of the two redesigned
-kernels, on the CPU.
+(3xTF32, `csrc/mma_common.cuh`), and the launch plans of the tensor-core
+kernels (the GRU, the fused RSSM step, the conv and the deconv), on the
+CPU.
 
 The TF32 rounding of `cvt.rna.tf32.f32` (round to nearest on the 10-bit
 mantissa, ties away from zero) is emulated bit for bit; a product of two
@@ -9,7 +10,9 @@ stands for the MMA's products with f32 sums. At kernel 2's path shapes
 (K = 1,024, 3H = 1,536, B = 16, and 128 rows drawn as the B = 1,024 case
 draws them) the LayerNorm-GRU output through 3xTF32 stays within the f32
 kernels' tolerance (atol = rtol = 1e-4) of the float64 result with a wide
-margin, while one TF32 product per pair misses it.
+margin, while one TF32 product per pair misses it. The conv's and the
+deconv's implicit GEMMs (the im2col rows against HWIO weight rows, K up to
+2,048) are held the same way at an encoder and a decoder stage.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import gru, rssm
+from sheeprl_tpu_torch.ops.kernels import cnn, deconv, gru, rssm
 
 TOL = 1e-4  # the f32 kernels' atol and rtol against their plain versions
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have on Hopper
@@ -89,6 +92,58 @@ def test_3xtf32_keeps_the_gru_within_f32_tolerance(rows, batch):
     assert r1 > 50 * r3, (r1, r3)
 
 
+def im2col(x: np.ndarray, kernel: str, phase: int = 0) -> tuple[np.ndarray, list]:
+    """The implicit GEMM's A rows as the kernels gather them, K = tap * Cin +
+    ci: the conv's 4 x 4 stride-2 window (SAME pads one pixel), or phase
+    (dh, dw) of the deconv's 2 x 2 window over the input padded by one. ->
+    (A [pixels, taps * Cin], the HWIO taps (ky, kx) of its K blocks)."""
+    n, h, w, cin = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    if kernel == "conv":
+        taps = [(ky, kx) for ky in range(4) for kx in range(4)]
+        cols = [xp[:, ky:ky + h:2, kx:kx + w:2] for ky, kx in taps]
+    else:
+        dh, dw = divmod(phase, 2)
+        taps = [(2 * a + dh, 2 * b + dw) for a in range(2) for b in range(2)]
+        cols = [xp[:, dh + a:dh + a + h, dw + b:dw + b + w] for a in range(2) for b in range(2)]
+    return np.concatenate(cols, axis=-1).reshape(-1, len(taps) * cin), taps
+
+
+def ln_silu(pre, scale, offset, eps=1e-3):
+    mean = pre.mean(-1, keepdim=True)
+    c = pre - mean
+    z = c * torch.rsqrt((c * c).mean(-1, keepdim=True) + eps) * scale + offset
+    return z * torch.sigmoid(z)
+
+
+# (kernel, N, input size, Cin, Cout): the last encoder stage and the first
+# decoder stage of DreamerV3 at width 32 (K = 2,048 and 1,024)
+STAGE_CASES = [("conv", 2, 8, 128, 256), ("deconv", 2, 4, 256, 128)]
+
+
+@pytest.mark.parametrize("kernel,n,size,cin,cout", STAGE_CASES, ids=["encoder_128to256", "decoder_256to128"])
+def test_3xtf32_keeps_the_conv_within_f32_tolerance(kernel, n, size, cin, cout):
+    rng = np.random.default_rng(cin + cout)
+    x = 1.0 / (1.0 + np.exp(-rng.standard_normal((n, size, size, cin))))
+    x = x * rng.standard_normal((n, size, size, cin))  # silu-like activations
+    w = rng.standard_normal((4, 4, cin, cout)) * (2.0 / (16 * (cin + cout))) ** 0.5
+    scale = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(cout))
+    offset = torch.from_numpy(0.1 * rng.standard_normal(cout))
+    for phase in range(1 if kernel == "conv" else 4):
+        a, taps = im2col(x, kernel, phase)
+        wm = np.concatenate([w[ky, kx] for ky, kx in taps], axis=0)  # [K, Cout]: the weight rows
+        a, wm = torch.from_numpy(a), torch.from_numpy(wm)
+        want = ln_silu(a @ wm, scale, offset)
+        a32, wt32, s32, o32 = a.float(), wm.t().contiguous().float(), scale.float(), offset.float()
+        three = ln_silu(product(a32, wt32, 3), s32, o32)
+        one = ln_silu(product(a32, wt32, 1), s32, o32)
+        plain = ln_silu(a32 @ wt32.t(), s32, o32)
+        r3, r1, rp = worst_ratio(three, want), worst_ratio(one, want), worst_ratio(plain, want)
+        assert r3 < 0.05, (phase, r3)
+        assert r3 < 4 * rp + 1e-3, (phase, r3, rp)
+        assert r1 > 20 * r3, (phase, r1, r3)
+
+
 def test_tf32_rounding_is_round_to_nearest_ties_away():
     one = 1.0 + 2.0 ** -10  # the next TF32 value above 1
     x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, one + 2.0 ** -11 - 2.0 ** -23],
@@ -122,33 +177,92 @@ def _under_guard(dx, rec, d, hd, e, sd, itemsize):
     return mats * itemsize + 4 * vecs <= 10 * 1024 * 1024
 
 
+RSSM_STATIC_SMEM = 16 * 2 * 8  # csrc/fused_rssm.cu's static `stats`
+
+
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
 def test_fused_rssm_launch_plan(itemsize):
-    """For widths under the reference's 10 MiB guard, the operand tile holds
-    every stage's zero-padded operand, its rows are whole 16-byte chunks
-    and 64 bytes past a multiple of 128 (conflict-free fragment reads), P
-    holds the widest pre-activation; the CartPole path's widths fit shared
-    memory in both dtypes."""
-    widths = (1, 2, 3, 4, 5, 8, 16, 20, 24, 37, 40, 48, 64, 100, 128, 255, 256, 512, 768, 1024, 1026)
-    checked = 0
-    for dx in (1, 34, 37, 1026, 4096):
+    """For widths under the reference's 10 MiB guard, with E and D swept
+    independently of R: the operand tile holds every stage's zero-padded
+    operand, its rows are whole 16-byte chunks and 64 bytes past a multiple
+    of 128 (conflict-free fragment reads), P holds the widest
+    pre-activation, and the shared memory (with the kernel's static 256
+    bytes) fits the card at every width: the staged tiles where they fit,
+    else the wide form's constant. The CartPole path's widths stay staged;
+    the three widths that raised before the wide form take it."""
+    widths = (1, 2, 3, 5, 8, 20, 37, 48, 64, 100, 128, 255, 256, 512, 768, 1024, 1026)
+    fixed = {4: 4, 2: 6}[itemsize] * 16 * 512 + 8 * 2 * 16 * 8 * 4  # the rings and the partial tiles
+    checked = wide = 0
+    for dx in (1, 37, 1026, 4096):
         for rec in widths:
             for hd in widths:
-                d = e = rec
-                sd = 2 * hd
-                if not _under_guard(dx, rec, d, hd, e, sd, itemsize):
-                    continue
-                plan = rssm.launch_plan(dx, rec, d, hd, e, itemsize)
-                chunk, lda, ldp = plan["chunk"], plan["lda"], plan["ldp"]
-                assert chunk == 64 // itemsize
+                for d in (rec, 1, 40, 256, 512, 2048):
+                    for e in (rec, 1, 20, 1024, 2048, 8192, 65536):
+                        sd = 2 * hd
+                        if not _under_guard(dx, rec, d, hd, e, sd, itemsize):
+                            continue
+                        plan = rssm.launch_plan(dx, rec, d, hd, e, itemsize)
+                        chunk, lda, ldp = plan["chunk"], plan["lda"], plan["ldp"]
+                        assert chunk == 64 // itemsize
 
-                def pad(n):
-                    return -(-n // chunk) * chunk
+                        def pad(n):
+                            return -(-n // chunk) * chunk
 
-                assert lda >= max(pad(dx), pad(d + rec), pad(rec + e), 2 * pad(hd))
-                assert (lda * itemsize) % 128 == 64
-                assert ldp >= max(d, 3 * rec, 2 * hd) and ldp % 4 == 0
-                checked += 1
-    assert checked > 1000
+                        assert lda >= max(pad(dx), pad(d + rec), pad(rec + e), 2 * pad(hd))
+                        assert (lda * itemsize) % 128 == 64
+                        assert ldp >= max(d, 3 * rec, 2 * hd) and ldp % 4 == 0
+                        assert plan["smem"] + RSSM_STATIC_SMEM <= SMEM_LIMIT, (dx, rec, d, hd, e, plan)
+                        staged = fixed + 16 * (lda * itemsize + ldp * 4) + 4 * max(2 * d, 6 * rec, 4 * hd)
+                        assert plan["wide"] == (staged + RSSM_STATIC_SMEM > SMEM_LIMIT)
+                        assert plan["smem"] == (fixed if plan["wide"] else staged)
+                        checked += 1
+                        wide += plan["wide"]
+    assert checked > 5000 and wide > 100, (checked, wide)
     cartpole = rssm.launch_plan(32 * 32 + 2, 512, 512, 512, 512, itemsize)
-    assert cartpole["smem"] <= SMEM_LIMIT
+    assert not cartpole["wide"] and cartpole["smem"] + RSSM_STATIC_SMEM <= SMEM_LIMIT
+    # the widths that raised: pixels at multiplier 16 (bf16), R 512 with D =
+    # Hd = 256 at E 1,024 (f32; bf16 fits staged) and E 8,192 (bf16)
+    cases = {2: [(512, 512, 512, 2048), (512, 256, 256, 8192)], 4: [(512, 256, 256, 1024)]}[itemsize]
+    for rec, d, hd, e in cases:
+        assert _under_guard(1026, rec, d, hd, e, 1024, itemsize)
+        plan = rssm.launch_plan(1026, rec, d, hd, e, itemsize)
+        assert plan["wide"] and plan["smem"] == fixed
+
+
+def _check_conv_plan(plan, pixels, k, cout, itemsize, phases):
+    """What csrc/conv_common.cuh:check_plan requires, and the grid's limits."""
+    elems = 16 // itemsize
+    bm, bn, bk, splits, kps = plan["bm"], plan["bn"], plan["bk"], plan["splits"], plan["k_per_split"]
+    assert (plan["wm"], bm, bn) == ((8, 256, 32) if cout <= 32 else (4, 128, 64))
+    assert bk == (8 if bn == 64 else 4) * elems and plan["stages"] == 4
+    assert kps > 0 and kps % bk == 0
+    assert (splits - 1) * kps < k <= splits * kps, plan  # K covered, no split empty
+    assert plan["smem"] == plan["stages"] * (bm * (bk + elems) + bk * (bn + 8)) * itemsize
+    assert plan["smem"] <= SMEM_LIMIT
+    gx, gy, gz = plan["grid"]
+    assert (gx, gy, gz) == (-(-pixels // bm), -(-cout // bn), phases * splits)
+    assert gx <= 2 ** 31 - 1 and gy <= 65535 and gz <= 65535
+    assert plan["fused"] == (splits == 1 and cout <= bn)
+
+
+CINS = (*range(1, 41), 48, 64, 96, 127, 128, 255, 256, 384, 512, 768, 1000, 1024)
+COUTS = (*range(1, 41), 45, 63, 64, 65, 96, 128, 256, 511, 512, 513, 640, 768, 1024, 1536, 2047, 2048)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["conv", "deconv"])
+def test_conv_launch_plan_covers_every_width(kernel, itemsize):
+    """Cin 1 ... 1,024, Cout 1 ... 2,048 at N = 1, 8 and 1,024 (64 x 64 and
+    8 x 8 inputs for the conv, 16 x 16 and 4 x 4 for the deconv): the tile,
+    the splits covering K in whole stages, the shared memory and the grid."""
+    sizes = (64, 8) if kernel == "conv" else (16, 4)
+    for n in (1, 8, 1024):
+        for size in sizes:
+            for cin in CINS:
+                for cout in COUTS:
+                    if kernel == "conv":
+                        plan = cnn.launch_plan(n, size, size, cin, cout, itemsize)
+                        _check_conv_plan(plan, n * (size // 2) ** 2, 16 * cin, cout, itemsize, 1)
+                    else:
+                        plan = deconv.launch_plan(n, size, size, cin, cout, itemsize)
+                        _check_conv_plan(plan, n * size * size, 4 * cin, cout, itemsize, 4)
