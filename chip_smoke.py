@@ -13,10 +13,10 @@ the final line:
   2. build: every kernel of the port (seven sources) compiled from
      `sheeprl_tpu_torch/csrc/` with nvcc for sm_90a, one nvcc per source,
      started together; each kernel's registers, stack and spills from
-     `-Xptxas -v`, and the HMMA (tensor-core) instructions in the SASS of
-     the four tensor-core libraries (`ln_gru`, `fused_rssm`,
-     `conv_ln_silu`, `deconv_ln_silu`) where the toolkit has cuobjdump
-     (none fails the run);
+     `-Xptxas -v`, and the tensor-core instructions in the SASS where the
+     toolkit has cuobjdump: HMMA in the four float libraries (`ln_gru`,
+     `fused_rssm`, `conv_ln_silu`, `deconv_ln_silu`), IMMA in `int8_trunk`
+     (a count of 0 fails the run);
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the serving path gives it (and the GRU at training batch 1024), and
      the training path's kernels at its shapes (the residual GRU at B = 16
@@ -26,7 +26,9 @@ the final line:
      conv and deconv at Cout 768 and 1,024 (N = 64, both forwards) and the
      fused RSSM step at three wider widths its guard admits (B = 16; E
      2,048 and 8,192 in bf16 and E 1,024 in f32 take its wide form), in
-     float32 and bfloat16, with CUDA-event times for the kernel, the plain
+     float32 and bfloat16, two_hot also at N = 15,360, K = 2,048, at the
+     misaligned N = 1,023, K = 257 and at N = 512, K = 20,000 (rows cut into
+     chunks), with CUDA-event times for the kernel, the plain
      version and a library yardstick the port never calls, and the bound
      from bytes (3.35 TB/s) and operations (f32 at the 3xTF32 rate, 495 / 3
      = 165 TFLOP/s, with the CUDA cores' 67 TFLOP/s bound logged beside it;
@@ -72,9 +74,13 @@ the final line:
 
 Phase 3 also holds kernel 6 (`fused_int8_trunk`) bit-exact against its plain
 version at B = 1, 2, 4, 8, 64, 1,024 at Pendulum's 3 -> 256 -> 256 -> 1,
-HalfCheetah's 17 -> 1,024 -> 1,024 -> 6 and a trunk on the device-memory
-scratch path, and kernel 8 (symlog/symexp, no caller) forward and backward
-at f32 rtol/atol 1e-6 and one bf16 step, on [1024, 255] and [4096].
+HalfCheetah's 17 -> 1,024 -> 1,024 -> 6, the widest trunk the 10 MiB guard
+admits (3 -> 3,224 -> 3,224 -> 1) and a trunk on the device-memory scratch
+path, and kernel 8 (symlog/symexp, no caller) forward and backward at f32
+rtol/atol 1e-6 and one bf16 step, on [1024, 255] and [4096]. The critic
+loss's two_hot launch (N = 15,360, K = 255) is timed again with the L2
+flushed before each launch, and an empty kernel launch (`torch.cuda._sleep(0)`)
+is timed by the same `device_ms`: the least any row's time can be.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 `{"ok": true, "device": {...}}` as the last line. Detailed results (report.json,
@@ -153,6 +159,31 @@ def device_ms(torch, fn) -> float:
     return times[len(times) // 2]
 
 
+L2_FLUSH_BYTES = 256 * 1024 * 1024  # five times the H100's 50 MB L2
+
+
+def device_ms_cold(torch, fn, flush) -> float:
+    """Median device time of one call of `fn` with the L2 flushed before
+    each: `flush` (a float32 tensor larger than L2) is read between the
+    launches, outside the events. A read leaves L2 full of clean lines; a
+    write would leave dirty ones, and the timed kernel would pay for their
+    write-back."""
+    sink = torch.empty((), device=flush.device)
+    for _ in range(3):
+        fn()
+    events = []
+    for _ in range(TIMED_LAUNCHES):
+        torch.sum(flush, dim=0, out=sink)
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        events.append(pair)
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    return times[len(times) // 2]
+
+
 def graphed(torch, fn):
     """`fn` captured once in a CUDA graph -> a callable that replays it: a
     yardstick of many small launches timed by its device work, not by the
@@ -190,12 +221,15 @@ def cuda_core_bound(nbytes: float, flops: float, dtype_name: str) -> float | Non
     return bound(nbytes, flops, dtype_name, CUDA_CORE_F32_FLOPS)[0] if dtype_name == "float32" else None
 
 
-TENSOR_CORE_LIBS = ("ln_gru", "fused_rssm", "conv_ln_silu", "deconv_ln_silu")
+# the libraries whose products run on the tensor cores, with the SASS
+# opcode of their MMAs: HMMA for bf16/TF32, IMMA for int8
+TENSOR_CORE_LIBS = {"ln_gru": "HMMA", "fused_rssm": "HMMA", "conv_ln_silu": "HMMA", "deconv_ln_silu": "HMMA",
+                    "int8_trunk": "IMMA"}
 
 
-def hmma_counts(build) -> dict | None:
-    """HMMA (tensor-core MMA) instructions in the SASS of the libraries
-    whose products run on the tensor cores, from the toolkit's cuobjdump;
+def tensor_core_counts(build) -> dict | None:
+    """{library: (opcode, count)}: the tensor-core MMA instructions in the
+    SASS of each library of TENSOR_CORE_LIBS, from the toolkit's cuobjdump;
     None where the toolkit has none."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     tool = os.path.join(home, "bin", "cuobjdump")
@@ -203,12 +237,12 @@ def hmma_counts(build) -> dict | None:
     if tool is None:
         return None
     counts = {}
-    for name in TENSOR_CORE_LIBS:
+    for name, opcode in TENSOR_CORE_LIBS.items():
         out = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True, text=True,
                              timeout=300)
         if out.returncode != 0:
             raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()}")
-        counts[name] = sum("HMMA" in line for line in out.stdout.splitlines())
+        counts[name] = (opcode, sum(opcode in line for line in out.stdout.splitlines()))
     return counts
 
 
@@ -337,6 +371,45 @@ def deconv_library(torch, F, x, k, scale, offset, eps):
 DECONV_STAGES = [(256, 128, 4), (128, 64, 8), (64, 32, 16)]  # DreamerV3 decoder at width 32
 TRAIN_N = 1024  # T * B = 64 * 16 images or rows per gradient step
 TWO_HOT_ROWS = (1024, 15360)  # reward loss (T*B) and critic loss (H*T*B)
+# two_hot past the default 255 bins: the critic loss at --bins 2048, rows
+# whose starts are not 16-byte aligned (N = 1,023, K = 257), and rows too
+# long for one stage of the kernel's ring (K = 20,000, taken in chunks)
+TWO_HOT_WIDE = ((15360, 2048), (1023, 257), (512, 20000))
+
+
+def two_hot_inputs(torch, gen, n_rows: int, k: int, dtype):
+    """Targets (some beyond the edge bins, some on a bin), logits and bins
+    for `n_rows` rows over `k` bins spread on [-20, 20], on the card."""
+    dev = torch.device("cuda")
+    bins = torch.linspace(-20.0, 20.0, k)[None].to(dev)
+    vals = 6.0 * torch.randn(n_rows, 1, generator=gen)
+    vals[::7] = 25.0 * torch.sign(vals[::7])  # beyond the edge bins
+    vals[3::11] = bins[0, k // 2 + torch.arange(vals[3::11].shape[0]) % max(1, k // 5)].cpu()[:, None]  # on a bin
+    logits = (2.0 * torch.randn(n_rows, k, generator=gen)).to(dev, dtype)
+    return vals.to(dev), logits, bins
+
+
+def two_hot_row(torch, F, two_hot, gen, n_rows: int, k: int, dtype, flush=None):
+    """One two_hot_log_prob row: the kernel against its plain version, with
+    cross-entropy against the dense two-hot target as its library
+    yardstick; with `flush`, also its time with the L2 flushed before each
+    launch (`cold_ms`). -> (the row, its inputs)."""
+    name = str(dtype).split(".")[-1]
+    x, logits, bins = two_hot_inputs(torch, gen, n_rows, k, dtype)
+    target = two_hot.two_hot(x[:, 0], bins[0])
+
+    def library():
+        return F.cross_entropy(logits.float(), target, reduction="none")
+
+    nbytes = logits.element_size() * logits.numel() + 4 * (2 * n_rows + k)
+    row = check_case(torch, "two_hot_log_prob", f"N={n_rows} K={k}", name,
+                     lambda: two_hot.two_hot_log_prob(x, logits, bins),
+                     lambda: two_hot.two_hot_log_prob_plain(x, logits, bins),
+                     lambda: two_hot.two_hot_log_prob.launches, nbytes, 5.0 * logits.numel(), library)
+    if flush is not None:
+        row["cold_ms"] = device_ms_cold(torch, lambda: two_hot.two_hot_log_prob(x, logits, bins), flush)
+    row["plan"] = two_hot.launch_plan(n_rows, k, logits.element_size())
+    return row, (x, logits, bins)
 
 
 def _flat(out):
@@ -495,30 +568,20 @@ def train_kernel_checks(torch, F, gen, log_row):
                                        lambda *t: deconv.deconv_ln_silu_plain(*t, 1e-3),
                                        args[:4], (True,) * 4, gen))
             log_row(back[-1])
-        bins = torch.linspace(-20.0, 20.0, 255)[None].to(dev)
-        for n_rows in TWO_HOT_ROWS:
-            vals = 6.0 * torch.randn(n_rows, 1, generator=gen)
-            vals[::7] = 25.0 * torch.sign(vals[::7])  # beyond the edge bins
-            vals[3::11] = bins[0, 100 + torch.arange(vals[3::11].shape[0]) % 50].cpu()[:, None]  # on a bin
-            x = vals.to(dev)
-            logits = (2.0 * torch.randn(n_rows, 255, generator=gen)).to(dev, dtype)
-            target = two_hot.two_hot(x[:, 0], bins[0])
-
-            def library(logits=logits, target=target):
-                return F.cross_entropy(logits.float(), target, reduction="none")
-
-            shape = f"N={n_rows} K=255"
-            nbytes = item * logits.numel() + 4 * (2 * n_rows + 255)
-            rows.append(check_case(
-                torch, "two_hot_log_prob", shape, name,
-                lambda x=x, logits=logits: two_hot.two_hot_log_prob(x, logits, bins),
-                lambda x=x, logits=logits: two_hot.two_hot_log_prob_plain(x, logits, bins),
-                lambda: two_hot.two_hot_log_prob.launches, nbytes, 5.0 * logits.numel(), library))
+        flush = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+        for n_rows in TWO_HOT_ROWS:  # the critic loss's launch is timed after an L2 flush too
+            row, inputs = two_hot_row(torch, F, two_hot, gen, n_rows, 255, dtype,
+                                      flush if n_rows == TWO_HOT_ROWS[-1] else None)
+            rows.append(row)
             log_row(rows[-1])
-            back.append(check_backward(torch, "two_hot_log_prob", shape, name,
+            back.append(check_backward(torch, "two_hot_log_prob", row["shape"], name,
                                        two_hot.two_hot_log_prob, two_hot.two_hot_log_prob_plain,
-                                       (x, logits, bins), (False, True, False), gen))
+                                       inputs, (False, True, False), gen))
             log_row(back[-1])
+        for n_rows, k in TWO_HOT_WIDE:
+            rows.append(two_hot_row(torch, F, two_hot, gen, n_rows, k, dtype)[0])
+            log_row(rows[-1])
+        del flush
     return rows, back
 
 
@@ -689,9 +752,11 @@ def rssm_kernel_checks(torch, F, gen, log_row):
 
 # the fused int8 SAC trunk (kernel 6): Pendulum's 3 -> 256 -> 256 -> 1 at the
 # serving rungs and beyond, HalfCheetah's 17 -> 1,024 -> 1,024 -> 6 (1.07 MB
-# of trunk, well inside the 10 MiB guard), and a trunk whose hidden int8
-# images exceed shared memory (the device-memory scratch path)
-INT8_TRUNKS = {(3, 256, 256, 1): (1, 2, 4, 8, 64, 1024), (17, 1024, 1024, 6): (8, 1024), (3, 12288, 64, 1): (20,)}
+# of trunk, well inside the 10 MiB guard), the widest square trunk the guard
+# admits (10.48 MB), and a trunk whose int8 images exceed shared memory (the
+# device-memory scratch path)
+INT8_TRUNKS = {(3, 256, 256, 1): (1, 2, 4, 8, 64, 1024), (17, 1024, 1024, 6): (8, 1024), (3, 3224, 3224, 1): (8,),
+               (3, 12288, 64, 1): (20,)}
 INT8_PATH_SHAPE = "B=8 3->256->256->1"  # a served rung-8 step
 
 
@@ -740,6 +805,8 @@ def int8_trunk_checks(torch, F, gen, log_row):
             if int8_trunk.fused_int8_trunk.launches != before + 1:
                 raise RuntimeError("fused_int8_trunk did not count its launch")
             want = int8_trunk.int8_trunk_reference(x, *t)
+            if not int8_trunk.fused_int8_trunk_supported(*t):
+                raise RuntimeError(f"{dims} is not under the reference's 10 MiB guard")
             max_abs = float((got - want).abs().max())
             nbytes = 4 * x.numel() + sum(v.numel() * v.element_size() for v in t) + 4 * batch * dims[-1]
             ops = 2.0 * batch * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
@@ -751,7 +818,7 @@ def int8_trunk_checks(torch, F, gen, log_row):
                 ms=device_ms(torch, lambda x=x, t=t: int8_trunk.fused_int8_trunk(x, *t)),
                 plain_ms=device_ms(torch, lambda x=x, t=t: int8_trunk.int8_trunk_reference(x, *t)),
                 library_ms=device_ms(torch, library), bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, flops=ops))
+                bytes=nbytes, flops=ops, plan=int8_trunk.launch_plan(batch, *dims)))
             log_row(rows[-1])
     return rows
 
@@ -839,9 +906,12 @@ def fmt(r: dict) -> str:
     return (
         f"  {r['kernel']:<28} {r['shape']:<42} {r['dtype']:<8} max_abs={r['max_abs_err']:.3e} "
         f"max_rel={r['max_rel_err']:.3e} tol={r['tol']:g} ok={r['within_tol']} "
-        f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} library_ms={library} "
+        f"ms={r['ms']:.5f}" + (f" (L2 flushed {r['cold_ms']:.5f})" if "cold_ms" in r else "")
+        + f" plain_ms={r['plain_ms']:.5f} library_ms={library} "
         f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
         + ("" if old is None else f" [CUDA-core f32 bound {old:.5f}]") + (" wide form" if r.get("wide") else "")
+        + (f" cluster {r['plan']['cluster']}" + (" scratch" if r["plan"]["scratch_bytes"] else "")
+           if r["kernel"] == "fused_int8_trunk" else "")
     )
 
 
@@ -1493,11 +1563,12 @@ def main() -> int:
         for line in sorted(set(lines)):
             log(f"[build] {src}: {lines.count(line)} x {line}")
     report["build_seconds"] = build_s
-    hmma = hmma_counts(build)
-    log(f"[build] HMMA instructions in the SASS: {hmma if hmma is not None else 'not counted (no cuobjdump)'}")
-    if hmma is not None and min(hmma.values()) == 0:
-        raise RuntimeError(f"a tensor-core library has no HMMA instruction: {hmma}")
-    report["hmma"] = hmma
+    mma = tensor_core_counts(build)
+    log("[build] tensor-core instructions in the SASS: "
+        + (", ".join(f"{k} {op} {n}" for k, (op, n) in mma.items()) if mma is not None else "not counted (no cuobjdump)"))
+    if mma is not None and min(n for _, n in mma.values()) == 0:
+        raise RuntimeError(f"a tensor-core library has no tensor-core instruction: {mma}")
+    report["tensor_core_instructions"] = mma
 
     # -- phase 3: kernels against their plain versions --------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1520,6 +1591,11 @@ def main() -> int:
     symlog_rows, symlog_backward = symlog_checks(torch, gen, lambda r: log("[kernels]" + fmt(r)))
     results += symlog_rows
     backward_rows += symlog_backward
+    # the least a launch costs as device_ms times it: an empty kernel (the
+    # rows whose bound lies below it are read against it)
+    report["empty_launch_ms"] = device_ms(torch, lambda: torch.cuda._sleep(0))
+    log(f"[kernels] an empty kernel launch (torch.cuda._sleep(0)) by the same timing: "
+        f"{report['empty_launch_ms']:.5f} ms")
     report["kernel_checks"] = results
     report["backward_checks"] = backward_rows
     bad = [r for r in results + backward_rows if not r["within_tol"]]

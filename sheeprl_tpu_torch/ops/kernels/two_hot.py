@@ -3,9 +3,16 @@
 and its backward `_two_hot_bwd`.
 
 The CUDA kernel is `csrc/two_hot.cu`. x [N, 1] f32 targets (already in
-symlog space), logits [N, K], bins [1, K] f32 -> log-prob [N, 1] f32. The
-gradient reaches the logits only, (two_hot(x) - softmax(logits)) * g: the
-DreamerV3 losses treat the two-hot target as a constant.
+symlog space), logits [N, K], bins [1, K] f32 -> log-prob [N, 1] f32, at
+any N and K >= 1. The gradient reaches the logits only, (two_hot(x) -
+softmax(logits)) * g: the DreamerV3 losses treat the two-hot target as a
+constant.
+
+`launch_plan` is the kernel's launch: a persistent grid whose blocks walk
+over units of the logits (runs of whole rows, or chunks of one row where a
+row is too long for a stage) through a two-stage shared-memory ring.
+`staging` is how each unit's bytes reach its stage: one bulk copy of the
+16-byte-aligned body, element loads for the unaligned head and tail.
 """
 
 from __future__ import annotations
@@ -16,12 +23,63 @@ import torch
 
 from .build import DTYPE_CODES, bind
 
-__all__ = ["two_hot", "two_hot_log_prob", "two_hot_log_prob_plain"]
+__all__ = ["launch_plan", "staging", "two_hot", "two_hot_log_prob", "two_hot_log_prob_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# two_hot_log_prob_forward(dtype, x, logits, bins, out, N, K, stream)
-_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _P]
-MAX_BINS = 1024
+# two_hot_log_prob_forward(dtype, x, logits, bins, out, N, K, rows_per_run,
+#                          chunk_cols, stage_bytes, blocks, stream)
+_ARGTYPES = [_I, _P, _P, _P, _P, *[_I] * 6, _P]
+# csrc/two_hot.cu's launch: threads a block, bytes a run of short rows aims
+# at, the most rows a run holds (eight warps of four), the most one stage
+# holds (a whole row, or a chunk of one with its bins), the header before
+# the ring (two mbarriers and eight warps' parts of four rows), the shared
+# memory a block may have, an H100's SMs, and the blocks an SM is given at
+# most (the kernel's launch bounds)
+_THREADS, _RUN_BYTES, _MAX_RUN_ROWS, _MAX_STAGE, _HEADER = 256, 32768, 32, 49152, 640
+_SMEM_LIMIT, _SMS, _BLOCKS_PER_SM = 232448, 132, 3
+
+
+def staging(address: int, nbytes: int) -> tuple[int, int, int]:
+    """How `nbytes` bytes at global `address` reach shared memory: (head,
+    body, tail) byte counts. The body, 16-byte aligned at both ends, goes by
+    one bulk copy; the head and the tail (each under 16 bytes) by element
+    loads. The image keeps the bytes' alignment within 16, so it needs
+    `_image_bytes(nbytes)` bytes of shared memory at most."""
+    end = address + nbytes
+    head_end = min(-(-address // 16) * 16, end)
+    tail_start = max(end // 16 * 16, head_end)
+    return head_end - address, tail_start - head_end, end - tail_start
+
+
+def _image_bytes(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16 + 16
+
+
+def launch_plan(n: int, k: int, itemsize: int) -> dict:
+    """The launch of csrc/two_hot.cu for logits [n, k] of `itemsize` bytes.
+
+    A row whose image fits a stage is taken whole: a unit is a run of
+    `rows_per_run` consecutive rows (at most 32, about 32 KB), its bins
+    staged once a block. A longer row
+    is cut into `chunks` chunks of `chunk_cols` columns, each staged with
+    its slice of the bins. `stage_bytes` is one stage of the two-stage ring,
+    `smem` the block's dynamic shared memory, `blocks` the persistent grid
+    (at most three blocks an SM, every block walking as many runs)."""
+    row = k * itemsize
+    if _image_bytes(row) <= _MAX_STAGE:
+        rows = max(1, min(_MAX_RUN_ROWS, _RUN_BYTES // row))
+        cols, stage, bins = k, _image_bytes(rows * row), -(-4 * k // 16) * 16
+    else:
+        rows = 1
+        cols = (_MAX_STAGE - 32) // (itemsize + 4) // 64 * 64
+        stage, bins = _image_bytes(cols * itemsize) + _image_bytes(4 * cols), 0
+    runs = -(-n // rows)
+    smem = _HEADER + 2 * stage + bins
+    per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_LIMIT // (smem + 1024)))
+    blocks = min(runs, _SMS * per_sm)
+    blocks = -(-runs // -(-runs // blocks))
+    return dict(rows_per_run=rows, chunk_cols=cols, chunks=-(-k // cols), runs=runs, stage_bytes=stage,
+                ring_bytes=2 * stage, bins_bytes=bins, smem=smem, blocks=blocks)
 
 
 def _bracket(x: torch.Tensor, bins: torch.Tensor):
@@ -85,14 +143,14 @@ def _forward(x, logits, bins):
     if x.device.type == "cpu":
         return two_hot_log_prob_plain(x, logits, bins)
     n, k = logits.shape
-    if k > MAX_BINS:
-        raise ValueError(f"{k} bins exceed the kernel's {MAX_BINS}")
+    plan = launch_plan(n, k, logits.element_size())
     forward = bind("two_hot", "two_hot_log_prob_forward", _ARGTYPES)
     out = torch.empty((n, 1), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = forward(
             DTYPE_CODES[logits.dtype], x.data_ptr(), logits.data_ptr(), bins.data_ptr(),
-            out.data_ptr(), n, k, torch.cuda.current_stream(x.device).cuda_stream,
+            out.data_ptr(), n, k, plan["rows_per_run"], plan["chunk_cols"], plan["stage_bytes"],
+            plan["blocks"], torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"two_hot_log_prob_forward launch failed: CUDA error {err}")

@@ -398,6 +398,8 @@ def _int8_trunk(gen, dims, batch):
     ((17, 1024, 1024, 6), 8), ((17, 1024, 1024, 6), 1024),     # HalfCheetah's widths
     ((5, 300, 18, 2), 33),                                      # odd widths, ragged blocks
     ((3, 12288, 64, 1), 20),                                    # hidden images in device memory
+    ((3, 20000, 64, 1), 20),                                    # wider, in device memory too
+    ((3, 3224, 3224, 1), 8), ((3, 3224, 3224, 1), 40),          # the widest trunk the 10 MiB guard admits
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_int8_trunk_kernel_is_bit_exact(cuda_device, dims, batch):
     gen = torch.Generator().manual_seed(batch + sum(dims))
@@ -416,6 +418,58 @@ def test_int8_trunk_kernel_is_bit_exact(cuda_device, dims, batch):
     assert torch.equal(got.cpu(), int8_trunk.int8_trunk_reference(x.cpu(), *[t.cpu() for t in tensors]))
 
 
+# (N, K): the misaligned N = 1,023, K = 257 (a 1,028-byte f32 row), the
+# critic loss's N = 15,360 at the default 255 bins, K past the 1,024 the
+# first kernel took (1,025, 2,048, 4,096: fault 3 of ROADMAP Queue C) at odd
+# N, one bin, and rows too long for a stage (chunked, the bins staged with
+# each chunk); `offset` starts the logits 4 bytes past an aligned address
+TWO_HOT_SHAPES = [(1023, 257), (15360, 255), (33, 1025), (1001, 2048), (17, 4096), (9, 1), (7, 20001), (3, 40000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("shape", TWO_HOT_SHAPES, ids=lambda s: "N{}_K{}".format(*s))
+def test_two_hot_kernel_matches_plain_at_any_bins(cuda_device, shape, offset, dtype):
+    n, k = shape
+    gen = torch.Generator().manual_seed(n + k)
+    bins = torch.linspace(-20.0, 20.0, k)[None].to(cuda_device)
+    x = 6.0 * torch.randn(n, 1, generator=gen)
+    x[::7] = 25.0 * torch.sign(x[::7])  # beyond the edge bins
+    x[3::11] = bins[0, k // 2].cpu()    # on a bin
+    x[5::13] = float("nan")             # lands where the reference puts it
+    x = x.to(cuda_device)
+    flat = torch.empty(n * k + offset, dtype=dtype, device=cuda_device)
+    logits = flat[offset:].view(n, k)
+    logits.copy_(_rand(gen, n, k, scale=2.0))
+    before = two_hot.two_hot_log_prob.launches
+    got = two_hot.two_hot_log_prob(x, logits, bins)
+    torch.cuda.synchronize()
+    assert two_hot.two_hot_log_prob.launches == before + 1
+    want = two_hot.two_hot_log_prob_plain(x, logits, bins)
+    assert got.shape == (n, 1) and got.dtype == torch.float32
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_two_hot_distribution_log_prob_at_2048_bins_on_cuda(cuda_device):
+    """`--bins 2048` on the card: the reward head's log_prob goes through
+    the kernel and agrees with the same distribution on the CPU."""
+    from sheeprl_tpu_torch.ops.distributions import TwoHotEncodingDistribution
+
+    gen = torch.Generator().manual_seed(2048)
+    logits = _rand(gen, 16, 64, 2048, scale=2.0)
+    target = 50.0 * _rand(gen, 16, 64, 1)
+    want = TwoHotEncodingDistribution(logits, dims=1).log_prob(target)
+    before = two_hot.two_hot_log_prob.launches
+    got = TwoHotEncodingDistribution(logits.to(cuda_device), dims=1).log_prob(target.to(cuda_device))
+    torch.cuda.synchronize()
+    assert two_hot.two_hot_log_prob.launches == before + 1
+    assert got.shape == want.shape == (16, 64)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_int8_trunk_raises_instead_of_falling_back(cuda_device):
     gen = torch.Generator().manual_seed(0)
@@ -427,6 +481,37 @@ def test_int8_trunk_raises_instead_of_falling_back(cuda_device):
         int8_trunk.fused_int8_trunk(x, *mixed)
     with pytest.raises(ValueError, match="contiguous"):
         int8_trunk.fused_int8_trunk(x.t().contiguous().t(), *tensors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 20])
+def test_int8_trunk_wraps_like_int32_on_cuda(cuda_device, batch):
+    """Layer 0 at K = 140,000 with every x_q and w_q at 127: the int32 sum
+    127^2 * 140,000 wraps, in the reference's accumulator and in the plain
+    version. The kernel cuts K into product chains of at most 131,072 and
+    adds their partials with wrapping adds: it must land on the same
+    wrapped value, bit for bit, through the layers after it."""
+    k, hidden = 140_000, 64
+    gen = torch.Generator().manual_seed(k)
+    _, rest = _int8_trunk(gen, (hidden, hidden, hidden, 1), batch)
+    layer0 = [torch.ones(k), torch.full((hidden, k), 127, dtype=torch.int8),
+              torch.full((hidden,), -1e-9), torch.zeros(hidden)]
+    tensors = [t.to(cuda_device) for t in layer0 + rest[4:]]
+    assert int8_trunk.fused_int8_trunk_supported(*tensors)
+    plan = int8_trunk.launch_plan(batch, k, hidden, hidden, 1)
+    assert plan["layers"][0]["splits"] > 1 and plan["layers"][0]["k_blocks_per_split"] * 64 <= 131_072
+    x = torch.full((batch, k), 127.0, device=cuda_device)
+    before = int8_trunk.fused_int8_trunk.launches
+    got = int8_trunk.fused_int8_trunk(x, *tensors)
+    torch.cuda.synchronize()
+    assert int8_trunk.fused_int8_trunk.launches == before + 1
+    want = int8_trunk.int8_trunk_reference(x, *tensors)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    # what reaches layer 1 is the wrapped sum: times -1e-9 it is positive and
+    # passes the ReLU, where the unwrapped 2.26e9 would give -2.26 and 0
+    from sheeprl_tpu_torch.ops.quant import int8_linear
+
+    assert bool((int8_linear(x, *tensors[:4]) > 2.0).all())
 
 
 @pytest.mark.cuda
