@@ -28,8 +28,10 @@ the final line:
      2,048 and 8,192 in bf16 and E 1,024 in f32 take its wide form), in
      float32 and bfloat16, two_hot also at N = 15,360, K = 2,048, at the
      misaligned N = 1,023, K = 257 and at N = 512, K = 20,000 (rows cut into
-     chunks), with CUDA-event times for the kernel, the plain
-     version and a library yardstick the port never calls, and the bound
+     chunks), with CUDA-event times for the kernel (`ms`: the median of an
+     event pair around each launch; `run_ms`: one event pair around a run
+     of launches, over their count, which leaves out the launch floor), the
+     plain version and a library yardstick the port never calls, and the bound
      from bytes (3.35 TB/s) and operations (f32 at the 3xTF32 rate, 495 / 3
      = 165 TFLOP/s, with the CUDA cores' 67 TFLOP/s bound logged beside it;
      989 TFLOP/s bf16; the fused RSSM step's yardstick, the unfused module
@@ -70,17 +72,38 @@ the final line:
      one per int8 dispatch), every served answer equal to the direct call of
      its rung's precision (the fused step with the plain trunk at an int8
      rung, `get_greedy_actions` at an f32 rung), and a profile of rung-8 f32
-     and int8 steps.
+     and int8 steps;
+  9. ckpt: phase 6's run checkpoints at step 68 and at its last with its
+     buffer; `dreamer_v3 --checkpoint_path .../ckpt_68` resumes it through
+     the CLI (the restored state equal to the file bit for bit, the start
+     at step 69, phase 6's launches per step); `serve --ckpt .../ckpt_68`
+     answers as direct `PlayerDV3.step`s of the loaded params, a RELOAD to
+     the resumed run's ckpt_72 moves it to version 2 and the answers with
+     it, a RELOAD of an uncommitted checkpoint answers ok false and keeps
+     version 2; `serve --algo sac --quant int8 --ckpt` of a checkpoint the
+     port wrote from a fresh actor, RELOADed to a perturbed one: the scales
+     re-derived (`Serve/quant_rederives` 1) and persisted, kernel 6 on the
+     new weights, every answer equal to its rung's direct call bit for bit;
+     the save and load times and sizes.
 
 Phase 3 also holds kernel 6 (`fused_int8_trunk`) bit-exact against its plain
 version at B = 1, 2, 4, 8, 64, 1,024 at Pendulum's 3 -> 256 -> 256 -> 1,
 HalfCheetah's 17 -> 1,024 -> 1,024 -> 6, the widest trunk the 10 MiB guard
 admits (3 -> 3,224 -> 3,224 -> 1) and a trunk on the device-memory scratch
 path, and kernel 8 (symlog/symexp, no caller) forward and backward at f32
-rtol/atol 1e-6 and one bf16 step, on [1024, 255] and [4096]. The critic
-loss's two_hot launch (N = 15,360, K = 255) is timed again with the L2
-flushed before each launch, and an empty kernel launch (`torch.cuda._sleep(0)`)
-is timed by the same `device_ms`: the least any row's time can be.
+rtol/atol 1e-6 and one bf16 step, on [1024, 255], [4096], [65536, 1024]
+(512 MB of f32 traffic: the bytes, not the launch, set its time) and
+[4096, 1024] (its bytes stay in L2 through `run_ms`'s launches), from 0,
+-0, NaN, 1e-6 and +-inf on, each beside `Tensor.copy_` of the same bytes;
+phase 2 counts its SASS instructions. The critic loss's two_hot launch
+(N = 15,360, K = 255) is timed again with the L2 flushed before each
+launch, and an empty kernel launch (`torch.cuda._sleep(0)`) is timed by
+both timings: by `device_ms` it is the least any row's `ms` can be.
+
+Every garbage collection of the run is timed (`[gc]` lines: each phase's
+collections, the tracked objects before each timed serve, and any
+collection that overlaps one of its slow requests); each profiler window
+frees its own events, which hold each other in reference cycles.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 `{"ok": true, "device": {...}}` as the last line. Detailed results (report.json,
@@ -91,6 +114,7 @@ directory given with `--out DIR`.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -135,6 +159,58 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+class GcPauses:
+    """Every garbage collection of the run, from `gc.callbacks`: each
+    phase's count and pause by generation, and the collections of
+    generation 1 or 2 or longer than 0.5 ms with their phase, objects freed
+    and pause on the host's clock (start, ms). A timed serve reads the
+    pauses inside its window; each phase ends with a line of its own."""
+
+    def __init__(self):
+        self.phase, self.rows, self.totals, self._start = "setup", [], {}, 0.0
+
+    def __call__(self, event: str, info: dict) -> None:
+        now = time.perf_counter()
+        if event == "start":
+            self._start = now
+            return
+        ms, gen = (now - self._start) * 1e3, info["generation"]
+        total = self.totals.setdefault((self.phase, gen), [0, 0.0])
+        total[0] += 1
+        total[1] += ms
+        if gen > 0 or ms > 0.5:
+            self.rows.append(dict(phase=self.phase, generation=gen, collected=info["collected"],
+                                  start=self._start, ms=ms))
+
+    def next_phase(self, phase: str) -> None:
+        counts = [self.totals.get((self.phase, g), [0, 0.0]) for g in range(3)]
+        if any(n for n, _ in counts):
+            top = max((r for r in self.rows if r["phase"] == self.phase), key=lambda r: r["ms"], default=None)
+            log(f"[gc] {self.phase}: collections of generations 0/1/2: "
+                + "/".join(str(n) for n, _ in counts) + f", {sum(ms for _, ms in counts):.1f} ms in all"
+                + ("" if top is None else f"; longest {top['ms']:.2f} ms (generation {top['generation']}, "
+                   f"{top['collected']} freed)"))
+        self.phase = phase
+
+    def between(self, t0: float, t1: float) -> list[dict]:
+        return [r for r in self.rows if r["start"] < t1 and r["start"] + r["ms"] / 1e3 > t0]
+
+
+GC = GcPauses()
+
+
+def gc_census(tag: str, top: int = 8) -> dict:
+    """The objects the collector tracks, by generation, and the most
+    numerous types among them, logged under `tag`."""
+    from collections import Counter
+
+    per_gen = [len(gc.get_objects(generation=g)) for g in range(3)]
+    types = Counter(f"{type(o).__module__}.{type(o).__qualname__}" for o in gc.get_objects())
+    log(f"[gc] {tag}: tracked objects by generation {per_gen}; most numerous "
+        + ", ".join(f"{k} {n}" for k, n in types.most_common(top)))
+    return dict(per_generation=per_gen, types=types.most_common(top))
+
+
 # ---------------------------------------------------------------------------
 # measurement helpers
 # ---------------------------------------------------------------------------
@@ -157,6 +233,25 @@ def device_ms(torch, fn) -> float:
     torch.cuda.synchronize()
     times = sorted(events[i].elapsed_time(events[i + 1]) for i in range(TIMED_LAUNCHES))
     return times[len(times) // 2]
+
+
+def device_ms_run(torch, fn) -> float:
+    """Device time of one call of `fn` in a run of many: one event pair
+    around TIMED_LAUNCHES back-to-back calls, the elapsed time over the
+    count. The same sleep kernel first hides the host's enqueue, so the
+    launches follow each other on the device and no launch's gap to its own
+    events is counted (the floor `device_ms` reads for an empty launch)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(TIMED_LAUNCHES):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TIMED_LAUNCHES
 
 
 L2_FLUSH_BYTES = 256 * 1024 * 1024  # five times the H100's 50 MB L2
@@ -227,13 +322,41 @@ TENSOR_CORE_LIBS = {"ln_gru": "HMMA", "fused_rssm": "HMMA", "conv_ln_silu": "HMM
                     "int8_trunk": "IMMA"}
 
 
+def _cuobjdump() -> str | None:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    return tool if os.path.exists(tool) else shutil.which("cuobjdump")
+
+
+def sass_instruction_counts(build, name: str) -> dict | None:
+    """{kernel function: (instructions, MUFU instructions)} in the SASS of
+    library `name` (padding NOPs left out), from the toolkit's cuobjdump;
+    None where the toolkit has none."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()}")
+    counts: dict[str, list] = {}
+    current = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+            counts[current] = [0, 0]
+        elif current is not None and line.strip().startswith("/*") and ";" in line:
+            op = line.split("*/", 1)[1].split(";")[0].split()
+            if op and op[0].lstrip("@!P0123456789T") != "NOP" and "NOP" not in op[:2]:
+                counts[current][0] += 1
+                counts[current][1] += any(tok.startswith("MUFU") for tok in op[:3])
+    return {k: tuple(v) for k, v in counts.items()}
+
+
 def tensor_core_counts(build) -> dict | None:
     """{library: (opcode, count)}: the tensor-core MMA instructions in the
     SASS of each library of TENSOR_CORE_LIBS, from the toolkit's cuobjdump;
     None where the toolkit has none."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    tool = os.path.join(home, "bin", "cuobjdump")
-    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    tool = _cuobjdump()
     if tool is None:
         return None
     counts = {}
@@ -278,6 +401,7 @@ def check_gru(torch, F, gru, batch, dtype, gen):
         return (upd * torch.tanh(torch.sigmoid(r) * c) + (1.0 - upd) * h.float()).to(dtype)
 
     ms = device_ms(torch, lambda: gru.layernorm_gru_cell(x, h, w, scale, offset, eps))
+    run_ms = device_ms_run(torch, lambda: gru.layernorm_gru_cell(x, h, w, scale, offset, eps))
     plain_ms = device_ms(torch, lambda: gru.layernorm_gru_cell_plain(x, h, w, scale, offset, eps))
     library_ms = device_ms(torch, library)
     item = x.element_size()
@@ -286,7 +410,7 @@ def check_gru(torch, F, gru, batch, dtype, gen):
     bound_ms, bound_by = bound(nbytes, flops, name)
     return dict(kernel="layernorm_gru_cell", shape=f"B={batch} x[{batch},{dx}] h[{batch},{hidden}] w[{n},{k}]",
                 dtype=name, max_abs_err=max_abs, max_rel_err=max_rel, within_tol=ok, tol=TOL[name],
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                ms=ms, run_ms=run_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, name), bytes=nbytes,
                 flops=flops)
 
@@ -317,6 +441,7 @@ def check_conv(torch, F, cnn, n, stage, dtype, gen):
     max_abs, max_rel, ok = errors(torch, got, want, name)
     library = conv_library(torch, F, x, w, scale, offset, eps)
     ms = device_ms(torch, lambda: cnn.conv_ln_silu(x, w, scale, offset, eps))
+    run_ms = device_ms_run(torch, lambda: cnn.conv_ln_silu(x, w, scale, offset, eps))
     plain_ms = device_ms(torch, lambda: cnn.conv_ln_silu_plain(x, w, scale, offset, eps))
     library_ms = device_ms(torch, library)
     item = x.element_size()
@@ -325,7 +450,7 @@ def check_conv(torch, F, cnn, n, stage, dtype, gen):
     flops = 2.0 * pixels * cout * 16 * cin
     bound_ms, bound_by = bound(nbytes, flops, name)
     return dict(kernel="conv_ln_silu", shape=f"N={n} {cin}->{cout} @{size}x{size}", dtype=name,
-                max_abs_err=max_abs, max_rel_err=max_rel, within_tol=ok, tol=TOL[name], ms=ms,
+                max_abs_err=max_abs, max_rel_err=max_rel, within_tol=ok, tol=TOL[name], ms=ms, run_ms=run_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, name), bytes=nbytes, flops=flops)
 
@@ -433,12 +558,13 @@ def check_case(torch, kernel, shape, dtype_name, run, plain, counter, nbytes, fl
     errs = [errors(torch, g, w, dtype_name if g.dtype != torch.float32 or rounded_inside else "float32")
             for g, w in zip(got, want)]
     ms = device_ms(torch, run)
+    run_ms = device_ms_run(torch, run)
     plain_ms = device_ms(torch, plain)
     library_ms = device_ms(torch, library) if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops, dtype_name)
     return dict(kernel=kernel, shape=shape, dtype=dtype_name, max_abs_err=max(e[0] for e in errs),
                 max_rel_err=max(e[1] for e in errs), within_tol=all(e[2] for e in errs), tol=TOL[dtype_name],
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                ms=ms, run_ms=run_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bound_ms_cuda_cores=cuda_core_bound(nbytes, flops, dtype_name), bytes=nbytes, flops=flops)
 
 
@@ -816,6 +942,7 @@ def int8_trunk_checks(torch, F, gen, log_row):
                 max_abs_err=max_abs, max_rel_err=max_abs, tol=0.0,
                 within_tol=bool(torch.equal(got, want)) and bool(torch.isfinite(got).all()),
                 ms=device_ms(torch, lambda x=x, t=t: int8_trunk.fused_int8_trunk(x, *t)),
+                run_ms=device_ms_run(torch, lambda x=x, t=t: int8_trunk.fused_int8_trunk(x, *t)),
                 plain_ms=device_ms(torch, lambda x=x, t=t: int8_trunk.int8_trunk_reference(x, *t)),
                 library_ms=device_ms(torch, library), bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, flops=ops, plan=int8_trunk.launch_plan(batch, *dims)))
@@ -823,7 +950,13 @@ def int8_trunk_checks(torch, F, gen, log_row):
     return rows
 
 
-SYMLOG_SHAPES = ((1024, 255), (4096,))  # two-hot logits' shape, and a flat vector
+# the two-hot logits' shape, a flat vector, a size at which the bytes (512
+# MB in f32) and not the launch set the time, and one whose bytes (32 MB in
+# f32, 16 in bf16) stay in the 50 MB L2 through a run of launches, where
+# HBM's rate does not bound it
+SYMLOG_SHAPES = ((1024, 255), (4096,), (65536, 1024), (4096, 1024))
+# the special values every symlog input starts with
+SYMLOG_SPECIALS = (0.0, -0.0, float("nan"), 1e-6, float("inf"), float("-inf"))
 
 
 def _ulps_bf16(torch, got, want) -> int:
@@ -842,12 +975,16 @@ def _ulps_bf16(torch, got, want) -> int:
 def symlog_checks(torch, gen, log_row):
     """symlog/symexp (kernel 8, no caller on any path) against their plain
     versions, forward and backward: f32 within rtol/atol 1e-6, bf16 within
-    one bf16 step (its max_rel_err column holds that step count). ->
-    (forward rows, backward rows)."""
+    one bf16 step (its max_rel_err column holds that step count). Each
+    forward row also times `Tensor.copy_` of the same bytes (`copy_ms`,
+    `copy_run_ms`): a pure read-write pass, the yardstick of a kernel whose
+    bytes set its time, but not the same function. -> (forward rows,
+    backward rows)."""
     from sheeprl_tpu_torch.ops.kernels import symlog
 
     dev = torch.device("cuda")
     rows, back = [], []
+    specials = torch.tensor(SYMLOG_SPECIALS)
 
     def compare(got, want, name):
         diff = (got.float() - want.float()).abs()
@@ -865,27 +1002,36 @@ def symlog_checks(torch, gen, log_row):
             for fn_name, scale in (("symlog", 20.0), ("symexp", 4.0)):
                 fn, plain = getattr(symlog, fn_name), getattr(symlog, f"{fn_name}_plain")
                 xf = scale * torch.randn(*shape, generator=gen)
-                xf.view(-1)[:4] = torch.tensor([0.0, -0.0, float("nan"), 1e-6])
+                xf.view(-1)[:len(specials)] = specials
                 x = xf.to(dev, dtype)
+                del xf
                 before = fn.launches
                 got = fn(x)
                 torch.cuda.synchronize()
                 if fn.launches != before + 1:
                     raise RuntimeError(f"{fn_name} did not count its launch")
                 max_abs, rel, ok, tol = compare(got, plain(x), name)
+                del got
                 nbytes = 2 * x.numel() * item
                 bound_ms, bound_by = bound(nbytes, 3.0 * x.numel(), name)
                 label = f"[{', '.join(map(str, shape))}]"
+                sink = torch.empty_like(x)
                 rows.append(dict(kernel=fn_name, shape=label, dtype=name, max_abs_err=max_abs, max_rel_err=rel,
                                  within_tol=ok, tol=tol, ms=device_ms(torch, lambda x=x, fn=fn: fn(x)),
+                                 run_ms=device_ms_run(torch, lambda x=x, fn=fn: fn(x)),
                                  plain_ms=device_ms(torch, lambda x=x, plain=plain: plain(x)), library_ms=None,
-                                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=3.0 * x.numel()))
+                                 copy_ms=device_ms(torch, lambda x=x, sink=sink: sink.copy_(x)),
+                                 copy_run_ms=device_ms_run(torch, lambda x=x, sink=sink: sink.copy_(x)),
+                                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=3.0 * x.numel(),
+                                 plan=symlog.plan(x.numel(), x.data_ptr() % 16, dtype, 0,
+                                                  symlog._card_max_blocks(fn_name, dtype))))
+                del sink
                 log_row(rows[-1])
                 # the analytic backward against autograd through the plain
-                # version, away from 0 and NaN (where sign(x) * f(|x|) has
-                # no useful autograd)
-                xg = x.clone()
-                xg.view(-1)[:4] = 1.0
+                # version, away from 0, NaN and inf (where sign(x) * f(|x|)
+                # has no useful autograd: at an exact 0 it gives 0, the
+                # analytic formula g; 67 M normal draws hold a few exact 0s)
+                xg = torch.where((x == 0) | ~torch.isfinite(x), torch.ones_like(x), x)
                 g = torch.randn(*shape, generator=gen).to(dev, dtype)
                 grads = []
                 for f in (fn, plain):
@@ -894,6 +1040,7 @@ def symlog_checks(torch, gen, log_row):
                 max_abs, rel, ok, tol = compare(grads[0], grads[1], name)
                 back.append(dict(kernel=fn_name + " backward", shape=label, dtype=name, max_abs_err=max_abs,
                                  max_rel_err=rel, within_tol=ok and bool(torch.isfinite(grads[0]).all()), tol=tol))
+                del xg, g, grads, x
                 log_row(back[-1])
     return rows, back
 
@@ -906,12 +1053,14 @@ def fmt(r: dict) -> str:
     return (
         f"  {r['kernel']:<28} {r['shape']:<42} {r['dtype']:<8} max_abs={r['max_abs_err']:.3e} "
         f"max_rel={r['max_rel_err']:.3e} tol={r['tol']:g} ok={r['within_tol']} "
-        f"ms={r['ms']:.5f}" + (f" (L2 flushed {r['cold_ms']:.5f})" if "cold_ms" in r else "")
+        f"ms={r['ms']:.5f} run_ms={r['run_ms']:.5f}" + (f" (L2 flushed {r['cold_ms']:.5f})" if "cold_ms" in r else "")
         + f" plain_ms={r['plain_ms']:.5f} library_ms={library} "
         f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
         + ("" if old is None else f" [CUDA-core f32 bound {old:.5f}]") + (" wide form" if r.get("wide") else "")
         + (f" cluster {r['plan']['cluster']}" + (" scratch" if r["plan"]["scratch_bytes"] else "")
            if r["kernel"] == "fused_int8_trunk" else "")
+        + (f" copy_ms={r['copy_ms']:.5f} copy_run_ms={r['copy_run_ms']:.5f} blocks {r['plan']['blocks']}"
+           if "copy_ms" in r else "")
     )
 
 
@@ -926,10 +1075,12 @@ def drive_serve(np, run, ServeClient, root_dir: str, argv, plans, warm):
     key of `plans` ({client: [(obs tree, request kwargs), ...]}). Each client
     first sends its untimed warm-up request (`warm[client]`), then all
     start together. Returns each client's (result, response meta) pairs,
-    the timed latencies, the timed wall time and the warm-up latencies."""
+    the timed latencies, the timed wall time, the warm-up latencies and the
+    garbage collections seen around the timed window."""
     total = sum(len(v) + 1 for v in plans.values())
     argv = ["serve", *argv, "--root_dir", root_dir, "--run_name", "serve", "--serve_requests", str(total)]
     failures: list[BaseException] = []
+    census = gc_census(f"before the timed serve ({os.path.basename(root_dir)})")
 
     def _serve():
         try:
@@ -948,6 +1099,7 @@ def drive_serve(np, run, ServeClient, root_dir: str, argv, plans, warm):
     address = open(addr_file).read().strip()
     answers: dict[str, list] = {}
     latencies: list[float] = []
+    spans: list[tuple[float, float]] = []
     warmups: list[float] = []
     lock = threading.Lock()
     started: list[float] = []
@@ -965,9 +1117,10 @@ def drive_serve(np, run, ServeClient, root_dir: str, argv, plans, warm):
                 for obs, kwargs in plans[sid]:
                     t0 = time.perf_counter()
                     res, meta = client.request(obs, **kwargs)
-                    dt = (time.perf_counter() - t0) * 1e3
+                    t1 = time.perf_counter()
                     with lock:
-                        latencies.append(dt)
+                        latencies.append((t1 - t0) * 1e3)
+                        spans.append((t0, t1))
                     out.append((res, meta))
                 answers[sid] = out
         except BaseException as err:  # reported by the caller
@@ -985,7 +1138,19 @@ def drive_serve(np, run, ServeClient, root_dir: str, argv, plans, warm):
         raise RuntimeError(f"serve phase failed: {failures!r}")
     if server.is_alive() or any(t.is_alive() for t in clients):
         raise RuntimeError("serve or client threads did not finish")
-    return answers, latencies, wall, warmups
+    # the collections inside the timed window, and those that overlap a
+    # request slower than ten times the median
+    median = sorted(latencies)[len(latencies) // 2]
+    slow = [(t0, t1) for (t0, t1), ms in zip(spans, latencies) if ms > 10 * median]
+    inside = GC.between(started[0], started[0] + wall) if started else []
+    hit = [r for r in inside if any(r["start"] < t1 and r["start"] + r["ms"] / 1e3 > t0 for t0, t1 in slow)]
+    log(f"[gc] timed serve: {len(inside)} collections of generation 1 or 2 or over 0.5 ms in its window (generations "
+        f"{[sum(r['generation'] == g for r in inside) for g in range(3)]}, longest "
+        f"{max((r['ms'] for r in inside), default=0.0):.2f} ms); {len(slow)} requests over 10x the median "
+        f"{median:.3f} ms (longest {max(latencies):.1f} ms), overlapped by " + (", ".join(
+            f"generation {r['generation']} {r['ms']:.2f} ms ({r['collected']} freed)" for r in hit) or "no collection"))
+    gc_info = dict(census=census, in_window=inside, slow_requests=len(slow), slow_overlapped=hit)
+    return answers, latencies, wall, warmups, gc_info
 
 
 def dv3_serve_plans(np):
@@ -1041,13 +1206,40 @@ def plain_step_check(torch, np, plans, answers, device):
     return rec_err, sto_err, acts_equal
 
 
+def _tally_kernels(torch, events) -> dict[str, list]:
+    kernels: dict[str, list] = {}
+    for e in events:  # device-side events only: the kernels (an annotation range overlaps its kernels)
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            row = kernels.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return kernels
+
+
+def profile_kernels(torch, fn, trace: str) -> list[tuple[str, float, int]]:
+    """A torch.profiler window over `fn()`, which ends synchronized: its
+    chrome trace written to OUT_DIR/`trace`, and the kernels it ran as
+    (name, device ms, launches), the most time first. The profiler's events
+    hold each other in reference cycles, up to two million objects for a
+    window over training steps; a full collection frees them here, so that
+    it does not land in a later timed window (PERF.md §6: a 2.3 s one
+    inside phase 8's serve)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    prof.export_chrome_trace(os.path.join(OUT_DIR, trace))
+    kernels = _tally_kernels(torch, prof.events())
+    del prof
+    gc.collect()
+    return sorted(((k, ms, c) for k, (ms, c) in kernels.items()), key=lambda r: -r[1])
+
+
 def profile_steps(torch, np, device, steps: int = 20):
     """Where a served step's time goes: host wall time of direct player steps
     at rungs 1 and 8 (synchronized, no profiler), and a torch.profiler window
     over rung-8 steps for the kernels' device time. The busy share is the
     kernels' device time over the unprofiled rung-8 wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sheeprl_tpu_torch.serve.args import ServeArgs
     from sheeprl_tpu_torch.serve.policies import build_policy
 
@@ -1067,22 +1259,18 @@ def profile_steps(torch, np, device, steps: int = 20):
                 policy.step(player, state, obs)
             torch.cuda.synchronize()
             out[f"step_ms_rung{rung}"] = (time.perf_counter() - t0) / steps * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        walls = []
+
+        def window():
             t0 = time.perf_counter()
             for _ in range(steps):
                 policy.step(player, state, obs)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "trace_rung8.json"))
-    kernels: dict[str, list] = {}
-    for e in prof.events():  # device-side events only: the kernels themselves
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            row = kernels.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e3
-            row[1] += 1
-    rows = sorted(((k, ms, c) for k, (ms, c) in kernels.items()), key=lambda r: -r[1])
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        rows = profile_kernels(torch, window, "trace_rung8.json")
     device_ms = sum(r[1] for r in rows) / steps
-    out.update(profiled_wall_ms_per_step=wall_ms / steps, device_ms_per_step=device_ms,
+    out.update(profiled_wall_ms_per_step=walls[0] / steps, device_ms_per_step=device_ms,
                launches_per_step=sum(r[2] for r in rows) / steps,
                device_busy_share=device_ms / out["step_ms_rung8"],
                top=[dict(name=k, ms_per_step=ms / steps, calls_per_step=c / steps) for k, ms, c in rows[:12]])
@@ -1097,9 +1285,13 @@ def profile_steps(torch, np, device, steps: int = 20):
 # discrete_dummy pixels: 64 random-action steps fill one env's ring, then
 # each of 8 player steps is followed by a gradient step (2 at the first)
 TRAIN_STEPS, TRAIN_STARTS, PRETRAIN = 72, 64, 2
+# the run checkpoints at step 68 and at its last (72), with its buffer:
+# phase 9 resumes it from step 68 and serves its checkpoints
+CKPT_EVERY = RESUME_STEP = 68
 TRAIN_ARGV = ["dreamer_v3", "--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--num_envs", "1",
               "--buffer_size", "256", "--learning_starts", str(TRAIN_STARTS), "--train_every", "1",
-              "--pretrain_steps", str(PRETRAIN), "--total_steps", str(TRAIN_STEPS)]
+              "--pretrain_steps", str(PRETRAIN), "--total_steps", str(TRAIN_STEPS),
+              "--checkpoint_every", str(CKPT_EVERY), "--checkpoint_buffer"]
 # launches per gradient step (T = 64 scan steps + H = 15 imagination steps;
 # 4 encoder stages; 3 decoder stages; the reward loss and the critic's two)
 PER_GRADIENT_STEP = {"layernorm_gru_cell_residuals": 79, "conv_ln_silu_residuals": 4,
@@ -1134,7 +1326,8 @@ def train_counters():
 def drive_train(run, root_dir: str, argv=tuple(TRAIN_ARGV), run_name: str = "train") -> tuple[dict, list, dict]:
     """`python -m sheeprl_tpu_torch dreamer_v3` through the CLI entry point,
     in this process, with every launch count set to 0 just before. ->
-    (launches, per-training records, the final record)."""
+    (launches, per-training records, the final record) of this run (a
+    resumed run appends to its checkpoint's metrics.jsonl)."""
     counters = train_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -1142,7 +1335,9 @@ def drive_train(run, root_dir: str, argv=tuple(TRAIN_ARGV), run_name: str = "tra
     launches = {name: fn.launches for name, fn in counters.items()}
     with open(os.path.join(root_dir, run_name, "metrics.jsonl")) as fh:
         records = [json.loads(line) for line in fh if line.strip()]
-    return launches, records[:-1], records[-1]
+    ends = [i for i, r in enumerate(records) if r.get("event") == "done"]
+    start = ends[-2] + 1 if len(ends) > 1 else 0
+    return launches, records[start:ends[-1]], records[ends[-1]]
 
 
 def _train_setup(torch, np, device, cartpole: bool = False):
@@ -1231,8 +1426,6 @@ def profile_train(torch, np, device, steps: int = 2, cartpole: bool = False,
     """Where a gradient step's time goes: host wall of `steps` synchronized
     gradient steps, then a torch.profiler window over as many more; the
     busy share is the kernels' device time over the unprofiled wall."""
-    from torch.profiler import ProfilerActivity, profile
-
     _, state, data, noise, step = _train_setup(torch, np, device, cartpole)
     step(state, data, 1.0, noise)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -1241,18 +1434,12 @@ def profile_train(torch, np, device, steps: int = 2, cartpole: bool = False,
         step(state, data, 0.02, noise)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def window():
         for _ in range(steps):
             step(state, data, 0.02, noise)
         torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(OUT_DIR, trace))
-    kernels: dict[str, list] = {}
-    for e in prof.events():  # kernels only: an optimizer's annotation range overlaps its kernels
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            row = kernels.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e3
-            row[1] += 1
-    rows = sorted(((k, ms, c) for k, (ms, c) in kernels.items()), key=lambda r: -r[1])
+
+    rows = profile_kernels(torch, window, trace)
     device_ms = sum(r[1] for r in rows) / steps
     return dict(step_ms=wall_ms, device_ms_per_step=device_ms, device_busy_share=device_ms / wall_ms,
                 launches_per_step=sum(r[2] for r in rows) / steps,
@@ -1376,8 +1563,6 @@ def profile_sac(torch, np, policy, actor, qactor, device, steps: int = 200):
     of `steps` synchronized direct steps, then a torch.profiler window over
     as many for the kernels' device time; the busy share is the device time
     over the unprofiled wall."""
-    from torch.profiler import ProfilerActivity, profile
-
     import sheeprl_tpu_torch.serve.quant as quant_mod
 
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((8, SAC_OBS_DIM)).astype(np.float32)).to(device)
@@ -1393,18 +1578,12 @@ def profile_sac(torch, np, policy, actor, qactor, device, steps: int = 200):
                 step(params, x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / steps * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            def window(step=step, params=params):
                 for _ in range(steps):
                     step(params, x)
                 torch.cuda.synchronize()
-            prof.export_chrome_trace(os.path.join(OUT_DIR, f"trace_sac_{label}.json.gz"))
-            kernels: dict[str, list] = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-                    row = kernels.setdefault(e.name, [0.0, 0])
-                    row[0] += e.time_range.elapsed_us() / 1e3
-                    row[1] += 1
-            rows = sorted(((k, ms, c) for k, (ms, c) in kernels.items()), key=lambda r: -r[1])
+
+            rows = profile_kernels(torch, window, f"trace_sac_{label}.json.gz")
             dev_ms = sum(r[1] for r in rows) / steps
             out[label] = dict(step_ms=wall_ms, device_ms_per_step=dev_ms, device_busy_share=dev_ms / wall_ms,
                               launches_per_step=sum(r[2] for r in rows) / steps,
@@ -1434,7 +1613,7 @@ def sac_serve(torch, np, run, ServeClient, device, argv, tag) -> dict:
                        for _ in range(SERVE_PER_SESSION)] for c in range(SERVE_SESSIONS)}
     warm = {sid: ({"obs": np.zeros((1, SAC_OBS_DIM), np.float32)}, {}) for sid in plans}
     int8_trunk.fused_int8_trunk.launches = 0
-    answers, latencies, wall, warmups = drive_serve(np, run, ServeClient, root, argv, plans, warm)
+    answers, latencies, wall, warmups, gc_info = drive_serve(np, run, ServeClient, root, argv, plans, warm)
     launches = int8_trunk.fused_int8_trunk.launches
     run_dir = os.path.join(root, "serve")
     with open(os.path.join(run_dir, "telemetry.jsonl")) as fh:
@@ -1487,7 +1666,7 @@ def sac_serve(torch, np, run, ServeClient, device, argv, tag) -> dict:
     return dict(argv=argv, launches=launches, expected=expected, dispatches=dispatches,
                 int8_rungs=sorted(int8_rungs), decisions=decisions, quant_gauges=quant, direct=direct,
                 p50_ms=p50, p99_ms=p99, qps=qps, wall_s=wall, warmup_ms=warmups, latencies_ms=latencies,
-                server_gauges=gauges, _models=(policy, actor, qactor))
+                server_gauges=gauges, gc=gc_info, _models=(policy, actor, qactor))
 
 
 def sac_phase(torch, np, run, ServeClient, device) -> dict:
@@ -1513,6 +1692,304 @@ def sac_phase(torch, np, run, ServeClient, device) -> dict:
             log(f"[sac-profile]   {row['ms_per_step']:.5f} ms x{row['calls_per_step']:.0f}  {row['name'][:90]}")
     report["profile"] = prof
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 9: checkpoint, resume and serve --ckpt
+# ---------------------------------------------------------------------------
+
+# one client's DreamerV3 requests per params version (each alone in its
+# dispatch, so at rung 1), and SAC requests of 1 ... 8 rows (every rung)
+CKPT_SERVE_REQUESTS = 16
+SAC_CKPT_ROWS = (1, 2, 3, 4, 5, 6, 7, 8)
+
+
+def _tree_equal(torch, a, b, where: str = "") -> list[str]:
+    """The paths where two checkpoint trees differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.cpu(), b.cpu())
+        return [] if same else [where]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [where + " keys"]
+        return [p for k in a for p in _tree_equal(torch, a[k], b[k], f"{where}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [where + " length"]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _tree_equal(torch, x, y, f"{where}[{i}]")]
+    return [] if a == b else [where]
+
+
+def resume_check(torch, np, run, train_root: str, device) -> dict:
+    """Resume phase 6's run from its step-68 checkpoint through the CLI
+    (`--checkpoint_path`), with every launch count set to 0 just before:
+    the checkpoint restored into a fresh state equals the file bit for bit
+    (parameters, Adam state, moments, counters), the run starts at
+    global_step + 1 with its buffer and without the learning_starts shift,
+    and its launches per gradient and player step are phase 6's. Raises on
+    any failure. -> the check's report."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, to_host
+
+    ckpt_dir = os.path.join(train_root, "train", "checkpoints")
+    ckpt = os.path.join(ckpt_dir, f"ckpt_{RESUME_STEP}")
+    t0 = time.perf_counter()
+    saved = load_checkpoint(ckpt, device)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    args, state, _, _, _ = _train_setup(torch, np, device)  # phase 6's config, fresh weights
+    dv3.restore_state(state, saved)
+    restored = to_host(dv3.checkpoint_state(state, saved["expl_decay_steps"], saved["global_step"],
+                                            saved["batch_size"]))
+    diffs = _tree_equal(torch, to_host(saved), restored)
+    counters = (saved["global_step"], saved["batch_size"])
+    del state, restored
+    if diffs or counters != (RESUME_STEP, args.per_rank_batch_size):
+        raise RuntimeError(f"the restored state differs from the checkpoint at {diffs[:8]} (counters {counters})")
+    launches, records, done = drive_train(run, train_root, ("dreamer_v3", "--checkpoint_path", ckpt))
+    grad_steps, player_steps = done["gradient_steps"], done["player_steps"]
+    expected = {k: n * grad_steps for k, n in PER_GRADIENT_STEP.items()}
+    expected.update({k: n * player_steps for k, n in PER_PLAYER_STEP.items()})
+    resumed = done["resumed"]
+    finite = all(math.isfinite(r[k]) for r in records for k in r if k.startswith(("Loss/", "Grads/")))
+    log(f"[resume] dreamer_v3 --checkpoint_path .../ckpt_{RESUME_STEP}: restored state equal to the file bit for "
+        f"bit ({len(saved['world_model'])} world-model tensors, 3 Adam states, moments, counters); "
+        f"started at step {resumed['start_step']} with learning_starts {resumed['learning_starts']} and the "
+        f"buffer {os.path.basename(resumed.get('buffer', 'none'))}; {grad_steps} gradient steps, "
+        f"{player_steps} player steps; losses finite: {finite}; launches {launches}")
+    if resumed["start_step"] != RESUME_STEP + 1 or resumed["learning_starts"] != TRAIN_STARTS or "buffer" not in resumed:
+        raise RuntimeError(f"the resume did not start where its checkpoint ends: {resumed}")
+    if grad_steps != TRAIN_STEPS - RESUME_STEP or not finite:
+        raise RuntimeError(f"the resumed run took {grad_steps} gradient steps or lost finiteness")
+    if launches != expected:
+        raise RuntimeError(f"resumed launch counts {launches} != {expected}")
+    return dict(checkpoint=ckpt, load_ms=load_ms, main_load_ms=resumed["load_ms"], resumed=resumed,
+                launches=launches, expected=expected, done=done, records=records,
+                latest=os.path.join(ckpt_dir, f"ckpt_{TRAIN_STEPS}"))
+
+
+def serve_in_thread(run, argv, root: str, name: str):
+    """`serve` through the CLI entry point (`argv` after the task name, run
+    directory `root`/serve) in a thread of this process. -> (address, the
+    thread, the list its failure lands in)."""
+    failures: list[BaseException] = []
+
+    def _serve():
+        try:
+            run(["serve", *argv, "--root_dir", root, "--run_name", "serve"])
+        except BaseException as err:  # reported by the caller
+            failures.append(err)
+
+    server = threading.Thread(target=_serve, name=name, daemon=True)
+    server.start()
+    addr_file = os.path.join(root, "serve", "serve_address")
+    deadline = time.monotonic() + 300
+    while not os.path.exists(addr_file):
+        if failures or time.monotonic() > deadline:
+            raise RuntimeError(f"{name}: the server did not come up: {failures}")
+        time.sleep(0.05)
+    return open(addr_file).read().strip(), server, failures
+
+
+def dv3_ckpt_serve(torch, np, run, ServeClient, device, first: str, second: str) -> dict:
+    """`serve --algo dreamer_v3 --ckpt <first>` through the CLI, with kernel 1
+    and 3's counts set to 0 just before: one client's requests answered at
+    version 1, a RELOAD to `second` (version 2) and as many requests on a
+    new session, a RELOAD to a directory without its commit marker (ok
+    false, version kept, one failure counted) and one request more. Every
+    answer must equal a direct `PlayerDV3.step` of the loaded params with
+    the server's noise. Raises on any failure. -> the check's report."""
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    root = os.path.join(OUT_DIR, "ckpt_serve_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    broken = os.path.join(root, "broken", "ckpt_999")  # a write that never committed
+    os.makedirs(broken)
+    shutil.copy(second + ".args.json", broken + ".args.json")
+    rng = np.random.default_rng(9)
+    obs = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(2 * CKPT_SERVE_REQUESTS + 1)]
+    n = len(obs)
+    gru.layernorm_gru_cell.launches = cnn.conv_ln_silu.launches = 0
+    address, server, failures = serve_in_thread(
+        run, ["--algo", "dreamer_v3", "--ckpt", first, "--max_batch", "8", "--deadline_ms", "0", "--serve_requests",
+              str(n)], root, "chip-smoke-ckpt-serve")
+    versions = []
+    with ServeClient(address) as client:
+        answers = []
+        for o in obs[:CKPT_SERVE_REQUESTS]:
+            res, meta = client.request({"rgb": o}, session="a")
+            answers.append(res["actions"])
+            versions.append(meta["version"])
+        good = client.reload(second)
+        for o in obs[CKPT_SERVE_REQUESTS:2 * CKPT_SERVE_REQUESTS]:
+            res, meta = client.request({"rgb": o}, session="b")
+            answers.append(res["actions"])
+            versions.append(meta["version"])
+        bad = client.reload(broken)
+        res, meta = client.request({"rgb": obs[-1]}, session="b")
+        answers.append(res["actions"])
+        versions.append(meta["version"])
+    server.join(timeout=120)
+    if failures or server.is_alive():
+        raise RuntimeError(f"the --ckpt serve failed: {failures!r}")
+    launches = {"layernorm_gru_cell": gru.layernorm_gru_cell.launches, "conv_ln_silu": cnn.conv_ln_silu.launches}
+    with open(os.path.join(root, "serve", "telemetry.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    gauges = [r for r in records if r.get("event") == "interval"][-1]["metrics"]
+    dispatches = int(gauges["Serve/dispatches"])
+    # the same checkpoints loaded directly, stepped one row at a time
+    policy, player1, loader = build_policy(ServeArgs(algo="dreamer_v3", ckpt=first, device=str(device)), device)
+    player2 = loader(second)
+    equal = []
+    for version, player, rows in ((1, player1, range(CKPT_SERVE_REQUESTS)), (2, player2, range(CKPT_SERVE_REQUESTS, n))):
+        init = policy.init_row(-version, player)
+        state = {k: v[None] for k, v in init.items()}
+        for i in rows:
+            with torch.inference_mode():
+                state, acts = policy.step(player, state, {"rgb": torch.from_numpy(obs[i]).to(device)})
+            equal.append(bool(np.array_equal(answers[i], acts.float().cpu().numpy())))
+    want_versions = [1] * CKPT_SERVE_REQUESTS + [2] * (CKPT_SERVE_REQUESTS + 1)
+    log(f"[ckpt-serve] serve --ckpt .../{os.path.basename(first)}: {n} answers in {dispatches} dispatches, "
+        f"versions {sorted(set(versions))}; RELOAD .../{os.path.basename(second)}: ok {good['ok']} version "
+        f"{good['version']} in {good['seconds'] * 1e3:.1f} ms; RELOAD of an uncommitted checkpoint: ok {bad['ok']} "
+        f"version {bad['version']} ({bad['error']}); gauges version {gauges['Serve/params_version']:.0f} reloads "
+        f"{gauges['Serve/reloads']:.0f} failures {gauges['Serve/reload_failures']:.0f}; answers equal to direct "
+        f"PlayerDV3 steps of the loaded params: {sum(equal)}/{len(equal)}; launches {launches}")
+    if not good["ok"] or good["version"] != 2 or bad["ok"] or bad["version"] != 2 or versions != want_versions:
+        raise RuntimeError(f"the reloads did not move the server as they should: {good} {bad} {versions}")
+    if gauges["Serve/reload_failures"] != 1.0 or gauges["Serve/reloads"] != 1.0:
+        raise RuntimeError(f"reload gauges {gauges['Serve/reloads']} / {gauges['Serve/reload_failures']}")
+    if not all(equal):
+        raise RuntimeError("served DreamerV3 answers differ from direct steps of the loaded params")
+    if launches != {"layernorm_gru_cell": dispatches, "conv_ln_silu": 4 * dispatches} or dispatches == 0:
+        raise RuntimeError(f"--ckpt serve launch counts {launches} != 1x / 4x the {dispatches} dispatches")
+    return dict(first=first, second=second, reload=good, bad_reload=bad, launches=launches, dispatches=dispatches,
+                answers_equal=sum(equal), gauges=gauges)
+
+
+def sac_ckpt_serve(torch, np, run, ServeClient, device) -> dict:
+    """`serve --algo sac --quant int8 --ckpt` at SAC's default width through
+    the CLI, kernel 6's count set to 0 just before: a checkpoint written by
+    the port's `save_checkpoint` under the reference's key contract from a
+    fresh-init actor, requests of 1 ... 8 rows (every rung), a RELOAD to a
+    perturbed actor, the same requests again. Version 1 calibrates and
+    persists its scales; the reload re-derives them in the reload hook
+    (`Serve/quant_rederives` 1) and persists them; kernel 6 launches once per
+    int8 dispatch on the new weights; every answer equals its rung's direct
+    call bit for bit (the fused step with the plain trunk at an int8 rung).
+    Raises on any failure. -> the check's report."""
+    import types
+
+    import sheeprl_tpu_torch.serve.quant as quant_mod
+    from sheeprl_tpu_torch.algos.sac.args import SACArgs
+    from sheeprl_tpu_torch.ops import quant as q
+    from sheeprl_tpu_torch.ops.kernels import int8_trunk
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+    from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = os.path.join(OUT_DIR, "sac_ckpt_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    policy, actor, _ = build_policy(ServeArgs(algo="sac", device=str(device)), device)
+    gen = torch.Generator().manual_seed(5)
+    moved = {k: v + 0.05 * v.abs().mean() * torch.randn(v.shape, generator=gen).to(device)
+             if k.endswith(("weight", "bias")) else v for k, v in actor.state_dict().items()}
+    sac_args = SACArgs(device=str(device))
+    paths, save_ms, sizes = [], [], []
+    for step, weights in ((1, actor.state_dict()), (2, moved)):
+        path = os.path.join(root, "checkpoints", f"ckpt_{step}")
+        t0 = time.perf_counter()
+        sizes.append(save_checkpoint(path, {"agent": {"actor": weights}, "qf_optimizer": {}, "actor_optimizer": {},
+                                            "alpha_optimizer": {}, "global_step": step}, sac_args))
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        paths.append(path)
+    rng = np.random.default_rng(4)
+    obs = [rng.standard_normal((r, SAC_OBS_DIM)).astype(np.float32) for r in SAC_CKPT_ROWS]
+    n = 2 * len(obs)
+    int8_trunk.fused_int8_trunk.launches = 0
+    address, server, failures = serve_in_thread(
+        run, [*SAC_SERVE_ARGV, "--ckpt", paths[0], "--serve_requests", str(n)], root, "chip-smoke-sac-ckpt")
+    answers = []
+    with ServeClient(address) as client:
+        answers += [client.request({"obs": o}) for o in obs]
+        before_reload = int8_trunk.fused_int8_trunk.launches
+        reply = client.reload(paths[1])
+        answers += [client.request({"obs": o}) for o in obs]
+    server.join(timeout=120)
+    if failures or server.is_alive():
+        raise RuntimeError(f"the SAC --ckpt serve failed: {failures!r}")
+    launches = int8_trunk.fused_int8_trunk.launches
+    with open(os.path.join(root, "serve", "telemetry.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    start = next(r for r in records if r.get("event") == "serve.start")
+    rungs, int8_rungs = start["rungs"], set(start["int8_rungs"])
+    gauges = [r for r in records if r.get("event") == "interval"][-1]["metrics"]
+    sources = [(r["source"], r["version"]) for r in records if r.get("event") == "serve.quant_scales"]
+    # the direct calls: each version's actor, quantized from the same seeded
+    # calibration, through the fused step with the plain trunk
+    _, actor1, loader = build_policy(ServeArgs(algo="sac", ckpt=paths[0], device=str(device)), device)
+    actor2 = loader(paths[1])
+    derive = types.SimpleNamespace(quant_bound=0.05, seed=ServeArgs().seed, ckpt=None)
+    scales = {v: quant_mod.QuantState(policy, derive, os.path.join(root, f"direct{v}"))._calibrate(v, a)
+              for v, a in ((1, actor1), (2, actor2))}
+    twins = {v: q.quantize_linears(a, scales[v]) for v, a in ((1, actor1), (2, actor2))}
+    fused = quant_mod._make_fused_sac_step()
+    saved_trunk, quant_mod.fused_int8_trunk = quant_mod.fused_int8_trunk, int8_trunk.int8_trunk_reference
+    equal, int8_after = [], 0
+    try:
+        with torch.inference_mode():
+            for o, (res, meta) in zip(obs + obs, answers):
+                rung, version = meta["rung"], meta["version"]
+                x = np.zeros((rung, SAC_OBS_DIM), np.float32)
+                x[:len(o)] = o
+                xt = torch.from_numpy(x).to(device)
+                a = actor1 if version == 1 else actor2
+                want = fused(twins[version], xt) if rung in int8_rungs else a.get_greedy_actions(xt)
+                equal.append(bool(np.array_equal(res["actions"], want.cpu().numpy()[:len(o)])))
+                int8_after += version == 2 and rung in int8_rungs
+    finally:
+        quant_mod.fused_int8_trunk = saved_trunk
+    int8_dispatches = sum(int(gauges[f"Serve/dispatches_b{r}"]) for r in rungs if r in int8_rungs)
+    expected = 4 * len(rungs) + int8_dispatches
+    persisted = q.load_scales(q.scales_path(paths[0]))
+    rederived_persisted = bool(persisted) and all(np.array_equal(persisted[k], scales[2][k]) for k in scales[2])
+    log(f"[sac-ckpt] serve --algo sac --quant int8 --ckpt .../ckpt_1: int8 rungs {sorted(int8_rungs)}; scales "
+        f"{sources}; RELOAD .../ckpt_2: ok {reply['ok']} version {reply['version']} in "
+        f"{reply['seconds'] * 1e3:.1f} ms; Serve/quant_rederives {gauges['Serve/quant_rederives']:.0f}; re-derived "
+        f"scales persisted: {rederived_persisted}; fused_int8_trunk launches {launches} (expected 4 x "
+        f"{len(rungs)} + {int8_dispatches} int8 dispatches = {expected}; {launches - before_reload} after the "
+        f"reload, {int8_after} int8 answers at version 2); answers equal to direct calls bit for bit: "
+        f"{sum(equal)}/{len(equal)}")
+    if not reply["ok"] or reply["version"] != 2 or gauges["Serve/quant_rederives"] != 1.0:
+        raise RuntimeError(f"the SAC reload did not re-derive the quantized params: {reply} {gauges}")
+    if sources != [("calibrated", 1), ("calibrated", 2)] or not rederived_persisted:
+        raise RuntimeError(f"scale derivations {sources}, re-derived scales persisted {rederived_persisted}")
+    if not all(equal):
+        raise RuntimeError("served SAC answers differ from their rung's direct call")
+    if launches != expected or int8_after == 0 or launches - before_reload != int8_after:
+        raise RuntimeError(f"fused_int8_trunk launches {launches} != {expected}, or none on the new weights")
+    return dict(paths=paths, save_ms=save_ms, bytes=sizes, reload=reply, sources=sources, launches=launches,
+                expected=expected, int8_rungs=sorted(int8_rungs), answers_equal=sum(equal), gauges=gauges)
+
+
+def ckpt_phase(torch, np, run, ServeClient, train_root: str, train_done: dict, device, smi: str) -> dict:
+    """Phase 9: resume phase 6's run from a checkpoint, serve DreamerV3 and
+    SAC int8 from checkpoints with hot reloads, and the save and load
+    times and sizes. Raises on any failure. -> the phase's report."""
+    resume = resume_check(torch, np, run, train_root, device)
+    dv3 = dv3_ckpt_serve(torch, np, run, ServeClient, device, resume["checkpoint"], resume["latest"])
+    sac = sac_ckpt_serve(torch, np, run, ServeClient, device)
+    saves = train_done["checkpoints"]
+    log(f"[ckpt] {smi}: DreamerV3 pixel checkpoints (full width, f32, with 3 Adam states) "
+        + ", ".join(f"step {c['step']} {c['bytes'] / 1e6:.1f} MB saved in {c['save_ms']:.1f} ms" for c in saves)
+        + f"; load to the card {resume['load_ms']:.1f} ms (in main {resume['main_load_ms']:.1f} ms), serve RELOAD "
+        f"{dv3['reload']['seconds'] * 1e3:.1f} ms; SAC checkpoints "
+        + ", ".join(f"{b / 1e6:.3f} MB saved in {ms:.1f} ms" for b, ms in zip(sac["bytes"], sac["save_ms"]))
+        + f", SAC RELOAD with re-derivation {sac['reload']['seconds'] * 1e3:.1f} ms")
+    return dict(resume=resume, dv3_serve=dv3, sac_serve=sac, saves=saves)
 
 
 def main() -> int:
@@ -1542,8 +2019,10 @@ def main() -> int:
         return 2
     os.makedirs(OUT_DIR, exist_ok=True)
     report: dict = {}
+    gc.callbacks.append(GC)
 
     # -- phase 1: device --------------------------------------------------------
+    GC.next_phase("1 device")
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1553,6 +2032,7 @@ def main() -> int:
     report["device"] = {"name": name, "smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # -- phase 2: build ---------------------------------------------------------
+    GC.next_phase("2 build")
     t0 = time.perf_counter()
     build.build_all()
     build_s = time.perf_counter() - t0
@@ -1569,8 +2049,18 @@ def main() -> int:
     if mma is not None and min(n for _, n in mma.values()) == 0:
         raise RuntimeError(f"a tensor-core library has no tensor-core instruction: {mma}")
     report["tensor_core_instructions"] = mma
+    # kernel 8's SASS: its instructions per instantiation, and an upper
+    # estimate an element (a thread's loop body holds 4 vectors of 4 f32 or
+    # 8 bf16 elements; the head and tail paths each inline one more)
+    sass = sass_instruction_counts(build, "symlog")
+    report["symlog_sass"] = sass
+    for fn_name, (total, mufu) in (sass or {}).items():
+        per = 4 * (8 if "nv_bfloat16" in fn_name else 4) + 2
+        log(f"[build] symlog SASS {fn_name}: {total} instructions ({mufu} MUFU), at most ~{total / per:.1f} "
+            f"an element")
 
     # -- phase 3: kernels against their plain versions --------------------------
+    GC.next_phase("3 kernels")
     gen = torch.Generator().manual_seed(0)
     results = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1591,11 +2081,14 @@ def main() -> int:
     symlog_rows, symlog_backward = symlog_checks(torch, gen, lambda r: log("[kernels]" + fmt(r)))
     results += symlog_rows
     backward_rows += symlog_backward
-    # the least a launch costs as device_ms times it: an empty kernel (the
-    # rows whose bound lies below it are read against it)
+    # the least a launch costs by either timing: an empty kernel. By
+    # device_ms it is the floor of every `ms` (each launch's gap to its own
+    # events); in a run of launches (run_ms) what is left of it
     report["empty_launch_ms"] = device_ms(torch, lambda: torch.cuda._sleep(0))
-    log(f"[kernels] an empty kernel launch (torch.cuda._sleep(0)) by the same timing: "
-        f"{report['empty_launch_ms']:.5f} ms")
+    report["empty_launch_run_ms"] = device_ms_run(torch, lambda: torch.cuda._sleep(0))
+    log(f"[kernels] an empty kernel launch (torch.cuda._sleep(0)): {report['empty_launch_ms']:.5f} ms by "
+        f"device_ms (one event pair a launch), {report['empty_launch_run_ms']:.5f} ms by device_ms_run "
+        f"(one event pair around {TIMED_LAUNCHES})")
     report["kernel_checks"] = results
     report["backward_checks"] = backward_rows
     bad = [r for r in results + backward_rows if not r["within_tol"]]
@@ -1610,22 +2103,23 @@ def main() -> int:
         steps = [(r, w) for w, batch in ((64, 16), (15, TRAIN_N)) for r in results
                  if r["kernel"] == "layernorm_gru_cell_residuals" and r["dtype"] == dtype_name
                  and r["shape"].startswith(f"B={batch} ")]
-        row = {key: sum(w * r[key] for r, w in steps) for key in ("ms", "plain_ms", "library_ms")}
+        row = {key: sum(w * r[key] for r, w in steps) for key in ("ms", "run_ms", "plain_ms", "library_ms")}
         row["bound_ms"] = max(sum(w * r["bytes"] for r, w in steps) / HBM_BYTES_PER_S,  # as the kernels line
                               sum(w * r["flops"] for r, w in steps) / PEAK_FLOPS[dtype_name]) * 1e3
         row.update({f"B={r['shape'].split()[0][2:]}": r["ms"] for r, _ in steps})
         report["kernel2_per_step"][dtype_name] = row
         log(f"[kernels] kernel 2 per gradient step, {dtype_name}: 64 x {steps[0][0]['ms']:.5f} (B=16) + 15 x "
-            f"{steps[1][0]['ms']:.5f} (B={TRAIN_N}) = {row['ms']:.4f} ms; bound {row['bound_ms']:.4f} ms, "
+            f"{steps[1][0]['ms']:.5f} (B={TRAIN_N}) = {row['ms']:.4f} ms (in runs {row['run_ms']:.4f}); bound {row['bound_ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
 
     # -- phase 4: the served slice ---------------------------------------------
+    GC.next_phase("4 slice")
     root_dir = os.path.join(OUT_DIR, "serve_logs")
     shutil.rmtree(root_dir, ignore_errors=True)  # a stale serve_address would be dialled
     for fn in train_counters().values():
         fn.launches = 0
     plans, warm = dv3_serve_plans(np)
-    answers, latencies, wall, warmups = drive_serve(
+    answers, latencies, wall, warmups, gc_info = drive_serve(
         np, run, ServeClient, root_dir,
         ["--algo", "dreamer_v3", "--model_argv", SERVE_MODEL, "--max_batch", "8", "--ladder", "auto",
          "--deadline_ms", "0"], plans, warm)
@@ -1666,10 +2160,11 @@ def main() -> int:
         f"occupancy={gauges['Serve/batch_occupancy']:.3f}")
     report["slice"] = dict(answers=n_answers, dispatches=dispatches, launches=launches,
                            p50_ms=p50, p99_ms=p99, qps=qps, wall_s=wall, warmup_ms=warmups,
-                           latencies_ms=latencies, server_gauges=gauges,
+                           latencies_ms=latencies, server_gauges=gauges, gc=gc_info,
                            plain_check=dict(recurrent_max_abs=rec_err, stochastic_max_abs=sto_err))
 
     # -- phase 5: where a served step's time goes ------------------------------
+    GC.next_phase("5 profile")
     prof = profile_steps(torch, np, torch.device("cuda"))
     log(f"[profile] host wall per step: rung 1 {prof['step_ms_rung1']:.3f} ms, rung 8 "
         f"{prof['step_ms_rung8']:.3f} ms; rung 8 kernels: {prof['launches_per_step']:.0f} launches, "
@@ -1680,6 +2175,7 @@ def main() -> int:
     report["profile"] = prof
 
     # -- phase 6: the training slice ---------------------------------------------
+    GC.next_phase("6 train")
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
 
     train_root = os.path.join(OUT_DIR, "train_logs")
@@ -1727,11 +2223,20 @@ def main() -> int:
                            profile=prof_t)
 
     # -- phase 7: the CartPole bf16 training slice (kernel 5) -------------------
+    GC.next_phase("7 cartpole")
     report["cartpole"] = cartpole_phase(torch, np, run, METRICS, torch.device("cuda"))
     cartpole_launches = report["cartpole"]["launches"]
 
     # -- phase 8: SAC int8 serving (kernel 6) -----------------------------------
+    GC.next_phase("8 sac")
     report["sac"] = sac_phase(torch, np, run, ServeClient, torch.device("cuda"))
+
+    # -- phase 9: checkpoint, resume and serve --ckpt ----------------------------
+    GC.next_phase("9 ckpt")
+    report["ckpt"] = ckpt_phase(torch, np, run, ServeClient, train_root, done, torch.device("cuda"), smi)
+
+    GC.next_phase("end")
+    report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])
 
     # -- the kernels line: each kernel's work in one step of its path ------------
     def rows_of(kernel, shapes, dtype="float32"):
@@ -1786,7 +2291,8 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": f"sheeprl_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": path_launches[kernel],
             "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
-            "ms": sum(w * r["ms"] for r, w in rows), "plain_ms": sum(w * r["plain_ms"] for r, w in rows),
+            "ms": sum(w * r["ms"] for r, w in rows), "run_ms": sum(w * r["run_ms"] for r, w in rows),
+            "plain_ms": sum(w * r["plain_ms"] for r, w in rows),
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if None in library else sum(w * r["library_ms"] for r, w in rows),
         })

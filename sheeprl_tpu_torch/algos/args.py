@@ -1,6 +1,6 @@
 """Base config dataclass shared by every task (the port of
 sheeprl_tpu/algos/args.py, keeping the fields that serving and DreamerV3
-training read). `--device` takes the place of the reference's `--platform`.
+training read, checkpointing's among them). `--device` takes the place of the reference's `--platform`.
 Setting `log_dir` dumps `args.json` into the run directory."""
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ class StandardArgs:
     num_envs: int = Arg(default=4, help="number of parallel environments")
     root_dir: Optional[str] = Arg(default=None, help="root folder for logs of this experiment")
     run_name: Optional[str] = Arg(default=None, help="folder name of this run")
+    checkpoint_every: int = Arg(default=100, help="checkpoint period in policy steps; -1 disables")
+    checkpoint_path: Optional[str] = Arg(default=None, help="checkpoint to resume from")
     screen_size: int = Arg(default=64, help="side of pixel observations")
     frame_stack: int = Arg(default=-1, help="frames to stack for pixel observations")
     device: str = Arg(

@@ -24,6 +24,8 @@ class DreamerV2Args(StandardArgs):
     pretrain_steps: int = Arg(default=100, help="the number of pretrain steps")
     gradient_steps: int = Arg(default=1, help="the number of gradient steps per each environment interaction")
     train_every: int = Arg(default=5, help="the number of steps between one training and another")
+    # the reference's DreamerV1Args field, which its v2 and v3 inherit
+    checkpoint_buffer: bool = Arg(default=False, help="whether or not to save the buffer during the checkpoint")
 
     # Agent settings
     world_lr: float = Arg(default=3e-4, help="world model learning rate")

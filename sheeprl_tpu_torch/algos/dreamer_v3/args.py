@@ -21,6 +21,7 @@ class DreamerV3Args(DreamerV2Args):
     learning_starts: int = Arg(default=1024, help="timestep to start learning")
     pretrain_steps: int = Arg(default=1, help="the number of pretrain steps")
     train_every: int = Arg(default=5, help="the number of steps between one training and another")
+    checkpoint_every: int = Arg(default=-1, help="checkpoint period; -1 disables")
 
     # Agent settings
     world_lr: float = Arg(default=1e-4, help="world model learning rate")

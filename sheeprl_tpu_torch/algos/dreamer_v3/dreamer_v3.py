@@ -13,8 +13,21 @@ written to optax's rule. Every sample draws injected Gumbel noise (the
 parity tests feed the reference's own draws) or noise from a
 `torch.Generator`. `--precision bfloat16` follows the mixed-precision
 policy of `ops/precision.py`: the forwards and backwards run in bf16, the
-parameters, Adam moments, heads' logits and losses in f32. Continuous
-actions, checkpoints, evaluation and the gymnasium env backends are not
+parameters, Adam moments, heads' logits and losses in f32.
+
+Checkpoints (`utils/checkpoint.py`): `--checkpoint_every N` writes
+`<run_dir>/checkpoints/ckpt_<step>` every N policy steps, and always at
+`--dry_run` and at the last step, under the reference's key contract
+(`checkpoint_state`); `--checkpoint_buffer` adds the replay buffer as
+`ckpt_<step>_buffer.npz`. `--checkpoint_path` resumes: the config comes
+from the checkpoint's sidecar (the path kept), the run directory is the
+checkpoint's, the state is restored (`restore_state`), the loop starts at
+`global_step + 1`, `learning_starts` moves past it when no buffer was
+saved, the exploration decay is recomputed, and a saved buffer is loaded.
+As in the reference, the gradient-step counter restarts at 0, so the first
+gradient step after a resume copies the critic into the target (tau 1).
+
+Continuous actions, evaluation and the gymnasium env backends are not
 ported.
 """
 
@@ -43,6 +56,7 @@ from ...ops.distributions import (
 from ...ops.math import lambda_values_dv3, polynomial_decay
 from ...ops.moments import Moments
 from ...ops.precision import compute_dtype, to_compute, to_float32
+from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
 from ...utils.device import resolve_device
 from ...utils.env import make_dict_env
 from ...utils.parser import DataclassArgumentParser
@@ -54,8 +68,8 @@ from .loss import reconstruction_loss
 from .utils import make_device_preprocess
 
 __all__ = [
-    "DV3TrainState", "clip_by_global_norm", "draw_noise", "global_norm", "main", "make_optimizers",
-    "make_train_step",
+    "DV3TrainState", "checkpoint_state", "clip_by_global_norm", "draw_noise", "global_norm", "main",
+    "make_optimizers", "make_train_step", "restore_state",
 ]
 
 METRICS = (
@@ -78,6 +92,29 @@ class DV3TrainState:
     actor_opt: torch.optim.Optimizer
     critic_opt: torch.optim.Optimizer
     moments: Moments
+
+
+def checkpoint_state(state: DV3TrainState, expl_decay_steps: int, global_step: int, batch_size: int) -> dict:
+    """What a checkpoint holds, under the reference's key contract
+    (`dreamer_v3.py:1301-1313`); `save_checkpoint` copies it to the host."""
+    return {
+        "world_model": state.world_model.state_dict(), "actor": state.actor.state_dict(),
+        "critic": state.critic.state_dict(), "target_critic": state.target_critic.state_dict(),
+        "world_optimizer": state.world_opt.state_dict(), "actor_optimizer": state.actor_opt.state_dict(),
+        "critic_optimizer": state.critic_opt.state_dict(), "moments": state.moments.state_dict(),
+        "expl_decay_steps": int(expl_decay_steps), "global_step": int(global_step), "batch_size": int(batch_size),
+    }
+
+
+def restore_state(state: DV3TrainState, ckpt: dict) -> None:
+    """Load a checkpoint's models, optimizers and moments into `state`."""
+    for key, module in (("world_model", state.world_model), ("actor", state.actor), ("critic", state.critic),
+                        ("target_critic", state.target_critic)):
+        module.load_state_dict(ckpt[key])
+    for key, opt in (("world_optimizer", state.world_opt), ("actor_optimizer", state.actor_opt),
+                     ("critic_optimizer", state.critic_opt)):
+        opt.load_state_dict(ckpt[key])
+    state.moments.load_state_dict(ckpt["moments"])
 
 
 def make_optimizers(args: DreamerV3Args, world_model, actor, critic):
@@ -305,6 +342,14 @@ def _params_delta(start: dict[str, list[torch.Tensor]], state: DV3TrainState) ->
 def main(argv: Sequence[str] | None = None) -> None:
     parser = DataclassArgumentParser(DreamerV3Args)
     (args,) = parser.parse_args_into_dataclasses(argv)
+    if args.checkpoint_path:
+        if not os.path.isdir(args.checkpoint_path):
+            raise FileNotFoundError(f"no checkpoint at {args.checkpoint_path}")
+        # the checkpoint's own config, the path kept (reference :509-513)
+        saved = load_checkpoint_args(args.checkpoint_path)
+        if saved:
+            saved.update(checkpoint_path=args.checkpoint_path)
+            (args,) = parser.parse_dict(saved)
     # fixed by the 4-stage 64x64 conv trunk
     args.screen_size = 64
     args.frame_stack = -1
@@ -327,8 +372,12 @@ def main(argv: Sequence[str] | None = None) -> None:
     if is_continuous:
         raise NotImplementedError("continuous-action training is not ported yet")
 
-    run_dir = os.path.join(args.root_dir or os.path.join("logs", "dreamer_v3"),
-                           args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S"))
+    if args.checkpoint_path:  # a resumed run writes on in the checkpoint's run directory
+        run_dir = os.path.dirname(os.path.dirname(os.path.abspath(args.checkpoint_path)))
+        args.root_dir, args.run_name = os.path.dirname(run_dir), os.path.basename(run_dir)
+    else:
+        run_dir = os.path.join(args.root_dir or os.path.join("logs", "dreamer_v3"),
+                               args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S"))
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "args.json"), "w") as fh:
         json.dump(args.as_dict(), fh)
@@ -350,6 +399,16 @@ def main(argv: Sequence[str] | None = None) -> None:
         Moments(args.moments_decay, args.moment_max, args.moments_percentile_low,
                 args.moments_percentile_high),
     )
+    expl_decay_steps, start_step, resumed = 0, 1, None
+    if args.checkpoint_path:
+        t0 = time.perf_counter()
+        ckpt = load_checkpoint(args.checkpoint_path, device)
+        restore_state(state, ckpt)
+        expl_decay_steps = int(ckpt["expl_decay_steps"])
+        start_step = int(ckpt["global_step"]) + 1
+        resumed = {"checkpoint": os.path.abspath(args.checkpoint_path), "start_step": start_step,
+                   "load_ms": (time.perf_counter() - t0) * 1e3}
+        del ckpt
     start_params = {
         "world_model": [p.detach().clone() for p in world_model.parameters()],
         "actor": [p.detach().clone() for p in actor.parameters()],
@@ -371,11 +430,22 @@ def main(argv: Sequence[str] | None = None) -> None:
         args.per_rank_sequence_length = min(args.per_rank_sequence_length, max(args.train_every // n_envs, 1))
     buffer_size = args.buffer_size // n_envs if not args.dry_run else 2
     rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed)
+    buffer_ckpt = os.path.abspath(args.checkpoint_path) + "_buffer.npz" if args.checkpoint_path else None
+    if buffer_ckpt and args.checkpoint_buffer and os.path.exists(buffer_ckpt):
+        rb.load(buffer_ckpt)
+        resumed["buffer"] = buffer_ckpt
     step_before_training = args.train_every // n_envs
     num_updates = args.total_steps // n_envs if not args.dry_run else 1
     learning_starts = args.learning_starts // n_envs if not args.dry_run else 0
+    if args.checkpoint_path and not args.checkpoint_buffer:
+        learning_starts += start_step
     max_step_expl_decay = args.max_step_expl_decay // args.gradient_steps
-    expl_amount, expl_decay_steps = args.expl_amount, 0
+    expl_amount = args.expl_amount
+    if args.checkpoint_path and max_step_expl_decay > 0:
+        expl_amount = polynomial_decay(expl_decay_steps, initial=args.expl_amount, final=args.expl_min,
+                                       max_decay_steps=max_step_expl_decay)
+    if resumed is not None:
+        resumed.update(learning_starts=learning_starts, expl_amount=expl_amount)
 
     obs = [env.reset(seed=args.seed + i)[0] for i, env in enumerate(envs)]
     step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
@@ -386,10 +456,12 @@ def main(argv: Sequence[str] | None = None) -> None:
         player_state = player.init_states(n_envs)
     ep_return, ep_len = np.zeros(n_envs), np.zeros(n_envs, dtype=np.int64)
     episodes: list[tuple[float, int]] = []
+    # restarts at 0 on a resume, as in the reference (:1027): the first
+    # gradient step after it takes tau 1
     gradient_steps = player_steps = env_steps = 0
-    policy_collect_s, step_ms = 0.0, []
+    policy_collect_s, step_ms, checkpoints = 0.0, [], []
     start = time.perf_counter()
-    for global_step in range(1, num_updates + 1):
+    for global_step in range(start_step, num_updates + 1):
         t0 = time.perf_counter()
         if global_step <= learning_starts:
             actions = _random_actions(rng, actions_dim, n_envs)
@@ -470,7 +542,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                 )
             rec = {k: float(np.mean([r[k] for r in rows])) for k in METRICS}
             rec.update(step=global_step, gradient_steps=gradient_steps,
-                       sps=global_step * n_envs / (time.perf_counter() - start),
+                       sps=(global_step - start_step + 1) * n_envs / (time.perf_counter() - start),
                        **{"Params/exploration_amount": expl_amount})
             if episodes:
                 rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in episodes]))
@@ -481,12 +553,25 @@ def main(argv: Sequence[str] | None = None) -> None:
                   f"rec_loss {rec['Loss/reconstruction_loss']:.4f} policy_loss {rec['Loss/policy_loss']:.4f} "
                   f"value_loss {rec['Loss/value_loss']:.4f}", flush=True)
 
+        if (args.checkpoint_every > 0 and global_step % args.checkpoint_every == 0) or args.dry_run \
+                or global_step == num_updates:
+            ckpt_path = os.path.join(run_dir, "checkpoints", f"ckpt_{global_step}")
+            t_save = time.perf_counter()
+            nbytes = save_checkpoint(
+                ckpt_path, checkpoint_state(state, expl_decay_steps, global_step, args.per_rank_batch_size), args
+            )
+            if args.checkpoint_buffer:
+                rb.save(ckpt_path + "_buffer.npz")
+            checkpoints.append({"path": ckpt_path, "step": global_step, "bytes": nbytes,
+                                "save_ms": (time.perf_counter() - t_save) * 1e3})
+
     summary = {
         "event": "done", "env_steps": env_steps, "policy_steps": num_updates, "player_steps": player_steps,
         "gradient_steps": gradient_steps, "train_step_ms": step_ms,
         # env steps a second while the player acts (the random phase excluded)
         "policy_env_steps_per_s": player_steps * n_envs / policy_collect_s if policy_collect_s > 0 else None,
-        "device": str(device), **_params_delta(start_params, state),
+        "device": str(device), "checkpoints": checkpoints, "resumed": resumed,
+        **_params_delta(start_params, state),
     }
     record(summary)
     for env in envs:

@@ -6,6 +6,13 @@ windows `[n_samples, T, B, *item]`, each from one env.
 
 Draws come from a `torch.Generator`; the sampled (env, start) pairs can be
 injected instead, so a test can replay the reference's own sample.
+
+`save` / `load` keep the reference's `.npz` layout (`n_envs`,
+`buffer_size`, and per env `b{i}_pos`, `b{i}_full`, `b{i}_buf_{key}` of
+shape [buffer_size, 1, *item]), so a buffer sidecar the reference wrote
+loads here with the same rows. The sampler's state is the port's
+generator's, under `torch_sampler_state`; the reference's `sampler_state`
+(its JAX key) is not read, because the two draw different numbers anyway.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["AsyncReplayBuffer"]
+
+SAMPLER_KEY = "torch_sampler_state"
 
 
 class AsyncReplayBuffer:
@@ -110,3 +119,37 @@ class AsyncReplayBuffer:
             s = s.reshape(n_samples, batch_size, sequence_length, *s.shape[2:])
             out[k] = np.ascontiguousarray(np.swapaxes(s, 1, 2))
         return out
+
+    def save(self, path: str) -> None:
+        """Write every env's ring, write head and fullness, and the
+        sampler's generator state into one `.npz` at `path`."""
+        flat: dict[str, np.ndarray] = {"n_envs": np.int64(self.n_envs), "buffer_size": np.int64(self.buffer_size)}
+        for i in range(self.n_envs):
+            flat[f"b{i}_pos"] = np.int64(self._pos[i])
+            flat[f"b{i}_full"] = np.bool_(self._full[i])
+            for k, v in (self._buf or {}).items():
+                flat[f"b{i}_buf_{k}"] = v[:, i:i + 1]
+        flat[SAMPLER_KEY] = self._gen.get_state().numpy()
+        with open(path, "wb") as fh:  # a file object: np.savez appends no suffix
+            np.savez(fh, **flat)
+
+    def load(self, path: str) -> None:
+        """Restore what `save` wrote, or the reference's buffer sidecar (its
+        sampler state is skipped: the generators differ)."""
+        with np.load(path) as data:
+            if int(data["n_envs"]) != self.n_envs:
+                raise ValueError(f"checkpointed buffer has {int(data['n_envs'])} envs, this one {self.n_envs}")
+            if int(data["buffer_size"]) != self.buffer_size:
+                raise ValueError(
+                    f"checkpointed buffer holds {int(data['buffer_size'])} rows an env, this one {self.buffer_size}"
+                )
+            prefix = "b0_buf_"
+            keys = [k[len(prefix):] for k in data.files if k.startswith(prefix)]
+            self._buf = {
+                k: np.ascontiguousarray(np.concatenate([data[f"b{i}_buf_{k}"] for i in range(self.n_envs)], axis=1))
+                for k in keys
+            } or None
+            self._pos = np.array([int(data[f"b{i}_pos"]) for i in range(self.n_envs)], dtype=np.int64)
+            self._full = np.array([bool(data[f"b{i}_full"]) for i in range(self.n_envs)], dtype=bool)
+            if SAMPLER_KEY in data.files:
+                self._gen.set_state(torch.from_numpy(data[SAMPLER_KEY].copy()))

@@ -12,6 +12,20 @@ critic and the target critic; the SAC actor (with its `action_scale` and
 [out, in]. Conv and transposed-conv kernels stay HWIO (the port keeps
 NHWC/HWIO at its convolutions). The port never imports jax: the caller
 flattens the JAX pytree.
+
+A whole reference checkpoint comes across too. The caller restores it with
+the reference's `load_checkpoint` (a tree of dicts, lists and numpy
+arrays, `None` where a module has no parameter) and hands the tree over:
+
+  - `dreamer_v3_checkpoint_from_jax` returns the port's DreamerV3
+    checkpoint (the key contract of `algos/dreamer_v3/dreamer_v3.py:
+    checkpoint_state`): the parameters through `state_dict_from_jax`, each
+    optax Adam state (`ScaleByAdamState`, behind the clip transform's empty
+    state) as `torch.optim.Adam`'s state_dict (`adam_state_from_jax`), the
+    moments and the counters;
+  - `sac_checkpoint_from_jax` maps `agent.actor` onto the port's
+    `SACActor` and carries the critics, `log_alpha` and the three optimizer
+    states as raw tensors by path, for SAC training to take later.
 """
 
 from __future__ import annotations
@@ -25,19 +39,45 @@ import torch.nn as tnn
 from .nn.layers import Linear
 from .ops.quant import QuantLinear
 
-__all__ = ["flatten_params", "load_jax_params", "state_dict_from_jax"]
+__all__ = [
+    "adam_state_from_jax", "dreamer_v3_checkpoint_from_jax", "flatten_params", "load_jax_params",
+    "sac_checkpoint_from_jax", "state_dict_from_jax",
+]
 
 
-def flatten_params(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
-    """Nested dicts of arrays -> {dotted path: array}."""
+def flatten_params(params, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts and lists of arrays -> {dotted path: array}; a list's
+    items are keyed by index (`layers.0.weight`), `None` leaves (a module's
+    absent bias or norm) are dropped."""
     flat: dict[str, np.ndarray] = {}
-    for key, value in params.items():
+    items = params.items() if isinstance(params, Mapping) else enumerate(params)
+    for key, value in items:
         path = f"{prefix}{key}"
-        if isinstance(value, Mapping):
+        if value is None:
+            continue
+        if isinstance(value, (Mapping, list, tuple)):
             flat.update(flatten_params(value, path + "."))
         else:
             flat[path] = np.asarray(value)
     return flat
+
+
+def _transposed(module: tnn.Module) -> set[str]:
+    """The paths whose layout the port transposes: `Linear.weight` and
+    `QuantLinear.w_q` ([in, out] in the reference, [out, in] here)."""
+    def path(name: str, leaf: str) -> str:
+        return f"{name}.{leaf}" if name else leaf
+
+    out = {path(name, "weight") for name, m in module.named_modules() if isinstance(m, Linear)}
+    return out | {path(name, "w_q") for name, m in module.named_modules() if isinstance(m, QuantLinear)}
+
+
+def _port_tensor(name: str, value: np.ndarray, ref: torch.Tensor, transposed: set[str]) -> torch.Tensor:
+    value = value.T if name in transposed else value
+    if tuple(value.shape) != tuple(ref.shape):
+        raise ValueError(f"{name}: reference shape {tuple(np.shape(value))} does not map onto the port's "
+                         f"{tuple(ref.shape)}")
+    return torch.from_numpy(np.array(value)).to(dtype=ref.dtype, device=ref.device)
 
 
 def state_dict_from_jax(module: tnn.Module, params: Mapping) -> dict[str, torch.Tensor]:
@@ -53,24 +93,90 @@ def state_dict_from_jax(module: tnn.Module, params: Mapping) -> dict[str, torch.
     unset = sorted(set(own) - set(flat))
     if unset:
         raise KeyError(f"port parameters the reference leaves unset: {unset}")
-    def path(name: str, leaf: str) -> str:
-        return f"{name}.{leaf}" if name else leaf
-
-    transposed = {path(name, "weight") for name, m in module.named_modules() if isinstance(m, Linear)}
-    transposed |= {path(name, "w_q") for name, m in module.named_modules() if isinstance(m, QuantLinear)}
-    out = {}
-    for name, ref in own.items():
-        value = flat[name].T if name in transposed else flat[name]
-        if tuple(value.shape) != tuple(ref.shape):
-            raise ValueError(
-                f"{name}: reference shape {tuple(flat[name].shape)} does not map onto the "
-                f"port's {tuple(ref.shape)}"
-            )
-        out[name] = torch.from_numpy(np.array(value)).to(dtype=ref.dtype, device=ref.device)
-    return out
+    transposed = _transposed(module)
+    return {name: _port_tensor(name, flat[name], ref, transposed) for name, ref in own.items()}
 
 
 def load_jax_params(module: tnn.Module, params: Mapping) -> tnn.Module:
     """Load the reference's `params` into `module` in place; returns it."""
     module.load_state_dict(state_dict_from_jax(module, params))
     return module
+
+
+def _adam_of(opt_state) -> Mapping:
+    """The one `ScaleByAdamState` (a dict with `count`, `mu`, `nu`) in an
+    optax state tree."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, Mapping) and {"count", "mu", "nu"} <= set(node):
+            found.append(node)
+        elif isinstance(node, (Mapping, list, tuple)):
+            for item in (node.values() if isinstance(node, Mapping) else node):
+                walk(item)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state (count, mu, nu) in the optimizer state, found {len(found)}")
+    return found[0]
+
+
+def adam_state_from_jax(module: tnn.Module, optimizer: torch.optim.Optimizer, opt_state) -> dict:
+    """`optimizer`'s state_dict (a `torch.optim.Adam` over
+    `module.parameters()`) filled from the reference's optax state of the
+    same module: `mu` -> `exp_avg`, `nu` -> `exp_avg_sq`, each laid out as
+    its parameter (the weight's transposition), and `count` -> every
+    parameter's `step`. Both sides count the updates taken, so the bias
+    corrections 1 - beta**step are the same."""
+    adam = _adam_of(opt_state)
+    mu, nu = flatten_params(adam["mu"]), flatten_params(adam["nu"])
+    params = dict(module.named_parameters())
+    for side, flat in (("mu", mu), ("nu", nu)):
+        if set(flat) != set(params):
+            raise KeyError(f"the Adam {side} paths differ from the module's parameters: "
+                           f"{sorted(set(flat) ^ set(params))}")
+    names = {id(p): name for name, p in params.items()}
+    order = [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
+    transposed = _transposed(module)
+    step = float(np.asarray(adam["count"]))
+    state = {
+        i: {"step": torch.tensor(step), "exp_avg": _port_tensor(name, mu[name], params[name].detach(), transposed),
+            "exp_avg_sq": _port_tensor(name, nu[name], params[name].detach(), transposed)}
+        for i, name in enumerate(order)
+    }
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def dreamer_v3_checkpoint_from_jax(tree: Mapping, state) -> dict:
+    """A reference DreamerV3 checkpoint (the restored tree) -> the port's
+    checkpoint dict, laid out for `state` (a `DV3TrainState` built with the
+    same config: its modules and optimizers give the paths and the order)."""
+    modules = {"world_model": state.world_model, "actor": state.actor, "critic": state.critic,
+               "target_critic": state.target_critic}
+    out: dict = {key: state_dict_from_jax(module, tree[key]) for key, module in modules.items()}
+    for key, module, opt in (("world_optimizer", state.world_model, state.world_opt),
+                             ("actor_optimizer", state.actor, state.actor_opt),
+                             ("critic_optimizer", state.critic, state.critic_opt)):
+        out[key] = adam_state_from_jax(module, opt, tree[key])
+    out["moments"] = {k: torch.tensor(np.asarray(tree["moments"][k], np.float32)) for k in ("low", "high")}
+    for key in ("expl_decay_steps", "global_step", "batch_size"):
+        out[key] = int(np.asarray(tree[key]))
+    return out
+
+
+def sac_checkpoint_from_jax(tree: Mapping, actor: tnn.Module) -> dict:
+    """A reference SAC checkpoint (the restored tree, key contract
+    `sheeprl_tpu/algos/sac/sac.py:452-458`) -> the port's: `agent.actor` as
+    `actor`'s state_dict; the critics, target critics, `log_alpha` and the
+    three optimizer states as {dotted path: tensor}, unconverted."""
+    def raw(node) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.array(v)) for k, v in flatten_params(node).items()}
+
+    agent = tree["agent"]
+    return {
+        "agent": {"actor": state_dict_from_jax(actor, agent["actor"]),
+                  **{k: raw(agent[k]) for k in ("critics", "target_critics")},
+                  "log_alpha": torch.from_numpy(np.array(agent["log_alpha"]))},
+        **{k: raw(tree[k]) for k in ("qf_optimizer", "actor_optimizer", "alpha_optimizer")},
+        "global_step": int(np.asarray(tree["global_step"])),
+    }

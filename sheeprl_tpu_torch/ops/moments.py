@@ -32,3 +32,12 @@ class Moments:
         self.high = self.decay * high + (1.0 - self.decay) * q[1]
         invscale = torch.clamp(self.high - self.low, min=1.0 / self.maximum)
         return self.low, invscale
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The EMA state, as the reference's checkpoint holds it: `low`,
+        `high` (the decay and percentiles come from the config)."""
+        return {"low": self.low, "high": self.high}
+
+    def load_state_dict(self, state: dict[str, torch.Tensor]) -> None:
+        self.low = torch.as_tensor(state["low"], dtype=torch.float32).clone()
+        self.high = torch.as_tensor(state["high"], dtype=torch.float32).clone()

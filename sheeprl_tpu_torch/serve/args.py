@@ -1,6 +1,6 @@
-"""Serving-tier config (the port of sheeprl_tpu/serve/args.py). `--ckpt`,
-and `--quant int8` for dreamer_v3, are accepted by the parser and raise
-"not yet ported" at startup."""
+"""Serving-tier config (the port of sheeprl_tpu/serve/args.py). `--quant
+int8` for dreamer_v3 is accepted by the parser and raises "not yet ported"
+at startup."""
 
 from __future__ import annotations
 
@@ -24,9 +24,11 @@ class ServeArgs(StandardArgs):
     )
     ckpt: Optional[str] = Arg(
         default=None,
-        help="checkpoint to serve (not yet ported: reading the reference's "
-        "orbax checkpoints needs orbax). Omitted: a fresh model is "
-        "initialized from --model_argv and --seed",
+        help="checkpoint directory to serve (the port's format: a training "
+        "run's <run_dir>/checkpoints/ckpt_<step>); the model's config comes "
+        "from its args.json sidecar and --model_argv is ignored. A client "
+        "RELOAD moves the server to another checkpoint. Omitted: a fresh "
+        "model is initialized from --model_argv and --seed",
     )
     bind: str = Arg(
         default="unix:auto",

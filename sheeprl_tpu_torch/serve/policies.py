@@ -1,6 +1,12 @@
 """Per-algo serving adapters (the port of sheeprl_tpu/serve/policies.py):
-build the served params from a fresh `--model_argv` init, expose the
-policy step, and map batched rows to per-request results.
+build the served params from a checkpoint (`--ckpt`, the port's format of
+`utils/checkpoint.py`) or a fresh `--model_argv` init, expose the policy
+step, and map batched rows to per-request results.
+
+With `--ckpt` the model's config comes from the checkpoint's args.json
+sidecar and replaces `--model_argv`; the loader that builds the params
+from a checkpoint is also the ParamsStore's reload callback, so a client
+RELOAD moves the server to another checkpoint of the same config.
 
   - `sac` (`SACServePolicy`, `_build_sac`): the stateless greedy actor, obs
     [B, obs_dim] -> actions [B, act_dim] through
@@ -23,6 +29,7 @@ answer depends only on (params, session state, obs) and equals a direct
 
 from __future__ import annotations
 
+import copy
 from typing import Callable
 
 import numpy as np
@@ -35,12 +42,8 @@ __all__ = ["DV3ServePolicy", "SACServePolicy", "build_policy"]
 
 def build_policy(args, device: torch.device):
     """-> (policy, params, loader). `loader(path)` re-extracts the served
-    params from a checkpoint — the ParamsStore reload callback."""
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt is not yet ported (reading the reference's orbax checkpoints "
-            "needs orbax); serve a fresh init from --model_argv"
-        )
+    params from a checkpoint — the ParamsStore reload callback. A
+    checkpoint that does not load raises here, before the server listens."""
     if args.algo == "sac":
         return _build_sac(args, device)
     if args.algo == "dreamer_v3":
@@ -48,15 +51,24 @@ def build_policy(args, device: torch.device):
     raise ServeError(f"unservable algo {args.algo!r}")
 
 
-def _parse_model_argv(args, args_cls):
+def _training_args(args, args_cls):
+    """The training config the model is rebuilt from: the checkpoint's
+    args.json when serving a checkpoint (the widths and keys must match the
+    saved weights), else `--model_argv` (reference policies.py:46-60)."""
+    from ..utils.checkpoint import load_checkpoint_args
     from ..utils.parser import DataclassArgumentParser
 
-    (targs,) = DataclassArgumentParser(args_cls).parse_args_into_dataclasses((args.model_argv or "").split())
+    parser = DataclassArgumentParser(args_cls)
+    if args.ckpt:
+        saved = load_checkpoint_args(args.ckpt)
+        if not saved:
+            raise ServeError(f"checkpoint {args.ckpt} has no args.json sidecar: cannot rebuild the model it holds")
+        # never a training resume, never a run directory of the training run
+        saved = dict(saved, checkpoint_path=None, root_dir=None, run_name=None)
+        (targs,) = parser.parse_dict(saved)
+    else:
+        (targs,) = parser.parse_args_into_dataclasses((args.model_argv or "").split())
     return targs
-
-
-def _no_reload(path: str):
-    raise NotImplementedError(f"cannot reload {path}: checkpoint reading is not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +103,9 @@ def _build_sac(args, device: torch.device):
     from ..envs import spaces
     from ..utils.env import make_env
 
-    targs = _parse_model_argv(args, SACArgs)
+    from ..utils.checkpoint import load_checkpoint
+
+    targs = _training_args(args, SACArgs)
     # one probe env to read the spaces, then close; serving never steps an env
     env = make_env(targs.env_id, targs.seed)()
     try:
@@ -107,7 +121,16 @@ def _build_sac(args, device: torch.device):
         action_high=action_high, precision=targs.precision,
         generator=torch.Generator().manual_seed(targs.seed),
     ).to(device).eval()
-    return SACServePolicy(obs_dim, act_dim, device), actor, _no_reload
+
+    def loader(path: str):
+        """A new actor holding the checkpoint's `agent.actor` (reference
+        policies.py:142-143)."""
+        fresh = copy.deepcopy(actor)
+        fresh.load_state_dict(load_checkpoint(path, device)["agent"]["actor"])
+        return fresh.eval()
+
+    params = loader(args.ckpt) if args.ckpt else actor
+    return SACServePolicy(obs_dim, act_dim, device), params, loader
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +222,10 @@ def _build_dv3(args, device: torch.device):
     from ..algos.dreamer_v3.args import DreamerV3Args
     from ..algos.ppo.ppo import actions_dim_of, validate_obs_keys
     from ..ops.distributions import gumbel_noise
+    from ..utils.checkpoint import load_checkpoint
     from ..utils.env import make_dict_env
 
-    targs = _parse_model_argv(args, DreamerV3Args)
+    targs = _training_args(args, DreamerV3Args)
     # one probe env to read the spaces, then close; serving never steps an env
     probe = make_dict_env(targs.env_id, targs.seed, rank=0, args=targs)()
     observation_space = probe.observation_space
@@ -222,5 +246,18 @@ def _build_dv3(args, device: torch.device):
     ).to(device).eval()
     gumbel = gumbel_noise((targs.stochastic_size, targs.discrete_size), generator).to(device)
 
+    def loader(path: str) -> PlayerDV3:
+        """A new player from the checkpoint's `world_model` (its encoder and
+        RSSM) and `actor` (reference policies.py:325-327)."""
+        ckpt = load_checkpoint(path, device)
+        fresh = copy.deepcopy(player)
+        for part in ("encoder", "rssm"):
+            prefix = part + "."
+            getattr(fresh, part).load_state_dict(
+                {k[len(prefix):]: v for k, v in ckpt["world_model"].items() if k.startswith(prefix)})
+        fresh.actor.load_state_dict(ckpt["actor"])
+        return fresh.eval()
+
+    params = loader(args.ckpt) if args.ckpt else player
     policy = DV3ServePolicy(observation_space.spaces, cnn_keys, mlp_keys, device, gumbel)
-    return policy, player, _no_reload
+    return policy, params, loader

@@ -3,16 +3,19 @@ port of sheeprl_tpu/serve/serve.py).
 
 Wiring, in dependency order:
 
-  1. build the policy from a fresh `--model_argv` init on `--device`
-     (policies.py; the CUDA device unless `--device cpu`, and raising when
-     CUDA is missing);
+  1. build the policy from `--ckpt` (a checkpoint of the port's training,
+     its config from the args.json sidecar) or a fresh `--model_argv` init
+     on `--device` (policies.py; the CUDA device unless `--device cpu`, and
+     raising when CUDA is missing);
   2. the batch ladder: `--ladder` rungs (ladder.py);
   3. `--quant int8` (sac): calibrate and quantize, then accept each rung as
      int8 or f32 by timing under the divergence receipt (quant.py); int8
      rungs dispatch the quantized twin through the fused trunk kernel, and
      a hot reload re-derives the twin in the reload thread;
-  4. hot-reloadable params (params.py), micro-batcher (batcher.py), FLK1
-     socket front (server.py);
+  4. hot-reloadable params (params.py: a client RELOAD loads another
+     checkpoint off the dispatch path and flips to it; a reload that fails
+     keeps the version and counts `Serve/reload_failures`), micro-batcher
+     (batcher.py), FLK1 socket front (server.py);
   5. the serve loop: `Serve/*` telemetry intervals and graceful drain on
      SIGTERM/SIGINT — queued requests are served, NEW requests are shed
      with reason="draining", and the process exits rc 75.

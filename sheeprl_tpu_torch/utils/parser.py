@@ -106,3 +106,13 @@ class DataclassArgumentParser(argparse.ArgumentParser):
             keys = {f.name for f in dataclasses.fields(dtype) if f.init}
             outputs.append(dtype(**{k: v for k, v in vars(namespace).items() if k in keys}))
         return tuple(outputs)
+
+    def parse_dict(self, args: dict[str, Any]) -> tuple:
+        """Dataclasses from a dict of field values (a checkpoint's args.json
+        sidecar). Keys no dataclass has are dropped: a sidecar written by
+        the reference carries its TPU-side fields."""
+        outputs = []
+        for dtype in self.dataclass_types:
+            keys = {f.name for f in dataclasses.fields(dtype) if f.init}
+            outputs.append(dtype(**{k: v for k, v in args.items() if k in keys}))
+        return tuple(outputs)

@@ -579,3 +579,128 @@ def test_symlog_kernels_match_plain(cuda_device, name, shape, dtype):
     leaf = xg.clone().requires_grad_(True)
     (want_grad,) = torch.autograd.grad(plain(leaf), leaf, g)
     _close_bf16_or_f32(got_grad, want_grad)
+
+
+SYMLOG_LENGTHS = [1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 255, 1023, 4097, 100_003]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["symlog", "symexp"])
+def test_symlog_kernels_at_odd_lengths_and_offset_views(cuda_device, name, dtype):
+    """Kernel 8's head, body and tail at lengths that leave every remainder,
+    on `x[k:]` views of one buffer at every element offset within 16 bytes
+    (so x and the fresh output differ in alignment mod 16): each against its
+    plain version, each launch counted once."""
+    fn, plain = getattr(symlog, name), getattr(symlog, f"{name}_plain")
+    gen = torch.Generator().manual_seed(11)
+    scale = 20.0 if name == "symlog" else 4.0
+    buf = (scale * torch.randn(max(SYMLOG_LENGTHS) + 16, generator=gen)).to(cuda_device, dtype)
+    item = buf.element_size()
+    for n in SYMLOG_LENGTHS:
+        for k in range(16 // item):
+            x = buf[k:k + n]
+            assert x.is_contiguous() and x.data_ptr() % 16 == (k * item) % 16
+            before = fn.launches
+            got = fn(x)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1 and got.shape == x.shape
+            _close_bf16_or_f32(got, plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["symlog", "symexp"])
+def test_symlog_kernels_at_the_timed_size_and_special_values(cuda_device, name, dtype):
+    """[65,536, 1,024], the size phase 3 of chip_smoke.py times, with 0, -0,
+    NaN, +-inf and 1e-6 in it; the special values also alone, against their
+    exact results (sign(+-0) = 0 and sign(NaN) = 0 as torch.sign has them)."""
+    fn, plain = getattr(symlog, name), getattr(symlog, f"{name}_plain")
+    gen = torch.Generator().manual_seed(12)
+    x = (20.0 if name == "symlog" else 4.0) * torch.randn(65536, 1024, generator=gen)
+    specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), float("-inf"), 1e-6])
+    x.view(-1)[1000:1000 + len(specials)] = specials
+    x = x.to(cuda_device, dtype)
+    _close_bf16_or_f32(fn(x), plain(x))
+    s = specials.to(cuda_device, dtype)
+    got = fn(s)
+    _close_bf16_or_f32(got, plain(s))  # 1e-6 too: exp(x) - 1 cancels alike in both
+    inf = float("inf")
+    want = torch.tensor([0.0, 0.0, float("nan"), inf, -inf])
+    head = got[:5].float().cpu()
+    assert torch.equal(torch.isnan(head), torch.isnan(want))
+    assert torch.equal(head[~torch.isnan(want)], want[~torch.isnan(want)])
+    assert float(got[5]) > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_onto_the_card(cuda_device, tmp_path):
+    """A port DreamerV3 checkpoint written on the CPU loads onto the card
+    (`map_location`) bit for bit, into a state on the card that trains on
+    from it, and `main --checkpoint_path` resumes on the card."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, to_host
+
+    root = str(tmp_path)
+    tiny = ["--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--num_envs", "1", "--cnn_channels_multiplier", "2",
+            "--dense_units", "16", "--hidden_size", "16", "--recurrent_state_size", "16", "--stochastic_size", "4",
+            "--discrete_size", "4", "--per_rank_batch_size", "2", "--per_rank_sequence_length", "4", "--horizon",
+            "3", "--learning_starts", "16", "--total_steps", "24", "--train_every", "2", "--buffer_size", "64",
+            "--bins", "15", "--checkpoint_every", "4", "--checkpoint_buffer", "--root_dir", root, "--run_name", "r"]
+    dv3.main(["--device", "cpu", *tiny])
+    ckpt = str(tmp_path / "r" / "checkpoints" / "ckpt_20")
+    on_cpu, on_card = load_checkpoint(ckpt), load_checkpoint(ckpt, cuda_device)
+    assert on_card["world_model"]["rssm.recurrent_model.rnn.proj.weight"].device.type == "cuda"
+    flat_cpu, flat_card = to_host(on_cpu), to_host(on_card)
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    assert same(flat_cpu, flat_card)
+    # the sidecar says cpu; on the card the resumed run is told so by its own sidecar
+    import json
+
+    sidecar = ckpt + ".args.json"
+    cfg = json.load(open(sidecar))
+    cfg["device"] = "cuda"
+    json.dump(cfg, open(sidecar, "w"))
+    dv3.main(["--checkpoint_path", ckpt])
+    with open(tmp_path / "r" / "metrics.jsonl") as fh:
+        done = [json.loads(line) for line in fh if '"event": "done"' in line][-1]
+    assert done["device"].startswith("cuda") and done["resumed"]["start_step"] == 21
+    assert done["gradient_steps"] == 2 and done["Params/world_model_delta"] > 0
+
+
+@pytest.mark.cuda
+def test_serve_ckpt_loader_on_the_card(cuda_device, tmp_path):
+    """`build_policy` with `--ckpt` loads a CPU-written checkpoint onto the
+    card; its player's step there gives the actions the CPU player gives."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    dv3.main(["--device", "cpu", "--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--num_envs", "1",
+              "--cnn_channels_multiplier", "2", "--dense_units", "16", "--hidden_size", "16",
+              "--recurrent_state_size", "16", "--stochastic_size", "4", "--discrete_size", "4",
+              "--per_rank_batch_size", "2", "--per_rank_sequence_length", "4", "--horizon", "3",
+              "--learning_starts", "16", "--total_steps", "20", "--train_every", "2", "--buffer_size", "64",
+              "--bins", "15", "--root_dir", str(tmp_path), "--run_name", "r"])
+    ckpt = str(tmp_path / "r" / "checkpoints" / "ckpt_20")
+    gen = torch.Generator().manual_seed(3)
+    obs = torch.randint(0, 256, (1, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    actions = []
+    for device in (torch.device("cpu"), cuda_device):
+        policy, player, _ = build_policy(ServeArgs(device=str(device), ckpt=ckpt), device)
+        init = policy.init_row(1, player)
+        state = {k: v[None] for k, v in init.items()}
+        with torch.inference_mode():
+            for _ in range(3):
+                state, acts = policy.step(player, state, {"rgb": obs.to(device)})
+        actions.append(acts.float().cpu())
+    assert torch.equal(actions[0], actions[1])

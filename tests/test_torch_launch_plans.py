@@ -1,6 +1,7 @@
-"""The launch plans of the two-hot kernel (kernel 7, `csrc/two_hot.cu`) and
-of the fused int8 trunk (kernel 6, `csrc/int8_trunk.cu`), and the int8
-trunk's tensor-core products emulated lane by lane, on the CPU.
+"""The launch plans of the two-hot kernel (kernel 7, `csrc/two_hot.cu`), of
+the fused int8 trunk (kernel 6, `csrc/int8_trunk.cu`) and of symlog/symexp
+(kernel 8, `csrc/symlog.cu`), and the int8 trunk's tensor-core products
+emulated lane by lane, on the CPU.
 
 Kernel 7 walks runs of whole rows (or chunks of one long row) through a
 two-stage shared-memory ring, each unit staged as one bulk copy of its
@@ -12,8 +13,11 @@ a device-memory scratch: the plan must hold every width the reference's
 10 MiB guard admits. Its products are `mma.sync.m16n8k32.s32.s8.s8.s32` on
 a permutation of K that A and B share; `int8_trunk.mma_emulate` follows
 the fragments lane by lane and must give `x_q @ w_q.T` as int32 exactly,
-the int32 wrap included. The kernels themselves run on the card:
-tests/test_torch_cuda.py.
+the int32 wrap included. Kernel 8 reads a scalar head to 16-byte
+alignment, a body of 16-byte vectors dealt to a persistent grid and a
+scalar tail: the plan must give every element to exactly one of them at
+every length and every alignment, with every vector access aligned. The
+kernels themselves run on the card: tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 from sheeprl_tpu_torch.ops import quant
-from sheeprl_tpu_torch.ops.kernels import int8_trunk, two_hot
+from sheeprl_tpu_torch.ops.kernels import int8_trunk, symlog, two_hot
 
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have on Hopper
 GUARD = 10 * 1024 * 1024  # the reference's int8 trunk guard (pallas_kernels.py:630)
@@ -225,3 +229,71 @@ def test_int8_trunk_cluster_plan_covers_every_guarded_width():
     # the serving path: Pendulum at rung 8 on one cluster, images in shared memory
     pendulum = int8_trunk.launch_plan(8, 3, 256, 256, 1)
     assert pendulum["cluster"] == 8 and pendulum["grid"] == 8 and pendulum["scratch_bytes"] == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: symlog / symexp
+# ---------------------------------------------------------------------------
+
+
+def _symlog_cover(n, dtype, x_off, out_off, max_blocks):
+    """Walk the kernel's loops as `symlog.plan` lays them out and count how
+    often each element is written; check every vector access's alignment."""
+    p = symlog.plan(n, x_off, dtype, out_off, max_blocks)
+    item, vec, head, tail = p["item"], p["vec_elems"], p["head"], p["tail"]
+    assert p["item"] == torch.empty((), dtype=dtype).element_size() and vec * item == 16
+    assert head < vec and tail < vec and head + p["vectors"] * vec + tail == n
+    assert 1 <= p["blocks"] <= max_blocks and p["blocks"] * p["threads"] >= max(head, tail)
+    hits = np.zeros(n, np.int64)
+    hits[:head] += 1  # threads 0..head-1 take the head
+    hits[n - tail:] += 1 if tail else 0  # threads 0..tail-1 the tail
+    assert 1 <= p["unroll"] <= symlog.UNROLL
+    per_block = p["threads"] * p["unroll"]
+    # every (block, iteration, unroll slot, thread) of the grid-stride loop
+    b, k, u, t = np.meshgrid(np.arange(p["blocks"]), np.arange(p["iterations"]), np.arange(p["unroll"]),
+                             np.arange(p["threads"]), indexing="ij")
+    j = ((b + k * p["blocks"]) * per_block + u * p["threads"] + t).ravel()
+    j = j[j < p["vectors"]]
+    assert np.unique(j).size == j.size == p["vectors"]
+    if p["vectors"]:
+        starts = head + j * vec
+        np.add.at(hits, (starts[:, None] + np.arange(vec)[None, :]).ravel(), 1)
+        assert np.all((x_off + starts * item) % 16 == 0)  # 16-byte loads
+        out_at = out_off + starts * item
+        assert np.all(out_at % p["store_bytes"] == 0)  # stores at their width
+        assert p["store_bytes"] == 16 or (out_off + head * item) % (2 * p["store_bytes"]) != 0  # the widest
+    assert np.all(hits == 1), (n, dtype, x_off, out_off, np.flatnonzero(hits != 1)[:8])
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_symlog_plan_covers_every_element_once_at_every_alignment(dtype):
+    """n = 1..300 and a few large n (up to [65,536, 1,024]), every start of
+    `x` within 16 bytes that the dtype admits (an `x[k:]` view), `out` fresh
+    (aligned) or not; a small grid limit too, so blocks walk many strides."""
+    item = torch.empty((), dtype=dtype).element_size()
+    sizes = list(range(1, 301)) + [1023, 4096, 1024 * 255 + 7, 2 * 256 * 132 * 8 * 16 // item + 5, 65536 * 1024]
+    for n in sizes:
+        for x_off in (range(0, 16, item) if n < 10**6 else (0, 16 - item)):
+            outs = (0,) if n > 10**6 else range(0, 16, item)
+            for out_off in outs:
+                for max_blocks in ((symlog.DEFAULT_MAX_BLOCKS,) if n > 10**6 else (symlog.DEFAULT_MAX_BLOCKS, 3)):
+                    _symlog_cover(n, dtype, x_off, out_off, max_blocks)
+
+
+def test_symlog_plan_fills_the_card_at_large_sizes():
+    """At [65,536, 1,024] the persistent grid is the occupancy limit, each
+    block walking many strides; at the two-hot logits' shape the grid gives
+    each thread one vector, so the call spreads over the SMs."""
+    p = symlog.plan(65536 * 1024, 0, torch.float32)
+    assert p["blocks"] == symlog.DEFAULT_MAX_BLOCKS and p["unroll"] == 4 and p["iterations"] == 16
+    assert p["store_bytes"] == 16
+    p = symlog.plan(1024 * 255, 0, torch.bfloat16)  # one vector a thread, over 128 blocks
+    assert p["head"] == 0 and p["vectors"] == 32640 and p["unroll"] == 1 and p["blocks"] == 128
+    assert p["iterations"] == 1
+    p = symlog.plan(3 * symlog.DEFAULT_MAX_BLOCKS * 256 * 4, 0, torch.float32)  # three vectors a thread
+    assert p["unroll"] == 3 and p["blocks"] == symlog.DEFAULT_MAX_BLOCKS and p["iterations"] == 1
+    with pytest.raises(ValueError):
+        symlog.plan(0, 0, torch.float32)
+    with pytest.raises(ValueError):
+        symlog.plan(8, 2, torch.float32)  # not a whole element past the boundary

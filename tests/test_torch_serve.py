@@ -128,9 +128,15 @@ def test_serve_without_cuda_raises_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--quant", "int8"], ["--ckpt", "some/ckpt"]])
 def test_unported_serve_options_raise(tmp_path, flag):
+    """`--quant int8` for dreamer_v3 is not ported and raises; `--ckpt` is
+    ported, and a path that holds no checkpoint raises at start-up, before
+    the server listens (tests/test_torch_checkpoint.py serves real ones)."""
     from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.serve.errors import ServeError
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    error, match = (ServeError, "no args.json sidecar") if flag[0] == "--ckpt" else (NotImplementedError,
+                                                                                      "not yet ported")
+    with pytest.raises(error, match=match):
         run(["serve", "--device", "cpu", "--model_argv", TINY_MODEL, "--root_dir", str(tmp_path),
              "--dry_run", *flag])
 
