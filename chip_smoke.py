@@ -84,7 +84,25 @@ the final line:
      port wrote from a fresh actor, RELOADed to a perturbed one: the scales
      re-derived (`Serve/quant_rederives` 1) and persisted, kernel 6 on the
      new weights, every answer equal to its rung's direct call bit for bit;
-     the save and load times and sizes.
+     the save and load times and sizes;
+ 10. ppo: `sheeprl_tpu_torch ppo` on CartPole-v1 with the reference's
+     learning recipe (tests/test_algos/test_learning.py:25-41: seed 5, 4
+     envs, 65,536 steps, rollout 128, batch 128, 6 epochs), losses finite,
+     then `ppo --eval_only --test_episodes 10 --seed 1000` over its final
+     checkpoint: a mean greedy return below 400 (the reference's bar) fails;
+     one update from that checkpoint on the card against the same update on
+     the CPU (losses rtol 1e-3, every parameter to 1e-4 of its largest
+     magnitude); the host wall per update (rollout and train), env steps/s,
+     a profile of one update; `ppo` on `discrete_dummy` pixels at default
+     widths for 2 updates, its update held against the CPU the same way;
+     `dreamer_v3 --eval_only --test_episodes 2` over phase 6's last
+     checkpoint: exactly 1 GRU and 4 conv launches a test player step. PPO
+     reaches no kernel of the port (its NatureCNN is three VALID convs with
+     ReLU, outside the fused stage's guard).
+
+Every DreamerV3 run of phases 6, 7 and 9 ends with its test episode (the
+actor's samples, in a fresh env); its player steps are counted apart and
+added to the run's player-step launches (1 GRU, 4 conv on pixels each).
 
 Phase 3 also holds kernel 6 (`fused_int8_trunk`) bit-exact against its plain
 version at B = 1, 2, 4, 8, 64, 1,024 at Pendulum's 3 -> 256 -> 256 -> 1,
@@ -119,6 +137,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -1327,7 +1346,8 @@ def drive_train(run, root_dir: str, argv=tuple(TRAIN_ARGV), run_name: str = "tra
     """`python -m sheeprl_tpu_torch dreamer_v3` through the CLI entry point,
     in this process, with every launch count set to 0 just before. ->
     (launches, per-training records, the final record) of this run (a
-    resumed run appends to its checkpoint's metrics.jsonl)."""
+    resumed run appends to its checkpoint's metrics.jsonl; the records of
+    its test episodes are left out)."""
     counters = train_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -1337,7 +1357,24 @@ def drive_train(run, root_dir: str, argv=tuple(TRAIN_ARGV), run_name: str = "tra
         records = [json.loads(line) for line in fh if line.strip()]
     ends = [i for i, r in enumerate(records) if r.get("event") == "done"]
     start = ends[-2] + 1 if len(ends) > 1 else 0
-    return launches, records[start:ends[-1]], records[ends[-1]]
+    return launches, [r for r in records[start:ends[-1]] if "gradient_steps" in r], records[ends[-1]]
+
+
+def expected_launches(launches: dict, per_gradient: dict, per_player: dict, done: dict) -> dict:
+    """The launches a DreamerV3 run must have made: `per_gradient` a
+    gradient step, `per_player` a player step, its test episodes' player
+    steps (`test_player_steps`, counted apart from the training's) as
+    player steps; 0 of every other counted kernel."""
+    expected = {k: 0 for k in launches}
+    expected.update({k: n * done["gradient_steps"] for k, n in per_gradient.items()})
+    steps = done["player_steps"] + sum(done["test_player_steps"])
+    expected.update({k: n * steps for k, n in per_player.items()})
+    return expected
+
+
+def fmt_tests(done: dict) -> str:
+    return (f"test episodes: returns {done['test_returns']}, {sum(done['test_player_steps'])} player steps "
+            f"({done['test_player_steps']}) in {done['test_ms']:.1f} ms")
 
 
 def _train_setup(torch, np, device, cartpole: bool = False):
@@ -1460,9 +1497,7 @@ def cartpole_phase(torch, np, run, metrics, device) -> dict:
     grad_steps, player_steps = done["gradient_steps"], done["player_steps"]
     finite = all(math.isfinite(r[k]) for r in records for k in metrics)
     moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
-    expected = {k: 0 for k in launches}
-    expected.update({k: n * grad_steps for k, n in CARTPOLE_PER_GRADIENT_STEP.items()})
-    expected.update({k: n * player_steps for k, n in CARTPOLE_PER_PLAYER_STEP.items()})
+    expected = expected_launches(launches, CARTPOLE_PER_GRADIENT_STEP, CARTPOLE_PER_PLAYER_STEP, done)
     step_ms = sorted(done["train_step_ms"][1:])
     step_ms_median = step_ms[len(step_ms) // 2]
     returns = [r["Rewards/rew_avg"] for r in records if "Rewards/rew_avg" in r]
@@ -1473,6 +1508,7 @@ def cartpole_phase(torch, np, run, metrics, device) -> dict:
         f"(first {done['train_step_ms'][0]:.1f} ms); env steps/s while the player acts: "
         f"{done['policy_env_steps_per_s']:.1f}; mean returns of the episodes ended per record {returns}; "
         "last losses " + ", ".join(f"{k.split('/')[1]}={records[-1][k]:.4g}" for k in metrics if k.startswith("Loss/")))
+    log(f"[cartpole] {fmt_tests(done)}")
     if grad_steps < 8 or not finite or min(moved.values()) <= 0:
         raise RuntimeError("the CartPole run took fewer than 8 gradient steps, lost finiteness or moved nothing")
     if launches != expected:
@@ -1749,15 +1785,14 @@ def resume_check(torch, np, run, train_root: str, device) -> dict:
         raise RuntimeError(f"the restored state differs from the checkpoint at {diffs[:8]} (counters {counters})")
     launches, records, done = drive_train(run, train_root, ("dreamer_v3", "--checkpoint_path", ckpt))
     grad_steps, player_steps = done["gradient_steps"], done["player_steps"]
-    expected = {k: n * grad_steps for k, n in PER_GRADIENT_STEP.items()}
-    expected.update({k: n * player_steps for k, n in PER_PLAYER_STEP.items()})
+    expected = expected_launches(launches, PER_GRADIENT_STEP, PER_PLAYER_STEP, done)
     resumed = done["resumed"]
     finite = all(math.isfinite(r[k]) for r in records for k in r if k.startswith(("Loss/", "Grads/")))
     log(f"[resume] dreamer_v3 --checkpoint_path .../ckpt_{RESUME_STEP}: restored state equal to the file bit for "
         f"bit ({len(saved['world_model'])} world-model tensors, 3 Adam states, moments, counters); "
         f"started at step {resumed['start_step']} with learning_starts {resumed['learning_starts']} and the "
         f"buffer {os.path.basename(resumed.get('buffer', 'none'))}; {grad_steps} gradient steps, "
-        f"{player_steps} player steps; losses finite: {finite}; launches {launches}")
+        f"{player_steps} player steps; losses finite: {finite}; launches {launches}; {fmt_tests(done)}")
     if resumed["start_step"] != RESUME_STEP + 1 or resumed["learning_starts"] != TRAIN_STARTS or "buffer" not in resumed:
         raise RuntimeError(f"the resume did not start where its checkpoint ends: {resumed}")
     if grad_steps != TRAIN_STEPS - RESUME_STEP or not finite:
@@ -1992,6 +2027,214 @@ def ckpt_phase(torch, np, run, ServeClient, train_root: str, train_done: dict, d
     return dict(resume=resume, dv3_serve=dv3, sac_serve=sac, saves=saves)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: coupled PPO and evaluation
+# ---------------------------------------------------------------------------
+
+# the reference's learning test (tests/test_algos/test_learning.py:25-41, its
+# --num_devices and --sync_env aside): 128 updates of 128 steps x 4 envs,
+# only the final checkpoint
+PPO_LEARN_ARGV = ["--env_id", "CartPole-v1", "--seed", "5", "--num_envs", "4", "--total_steps", "65536",
+                  "--rollout_steps", "128", "--per_rank_batch_size", "128", "--update_epochs", "6",
+                  "--ent_coef", "0.01", "--anneal_lr", "--normalize_advantages", "--max_grad_norm", "0.5",
+                  "--checkpoint_every", "1000000"]
+PPO_LEARN_UPDATES = 65536 // (128 * 4)
+# then its greedy evaluation (:46-75): 10 episodes at seeds 1000-1009, a
+# mean return of at least 400
+PPO_EVAL_SEED, PPO_EVAL_EPISODES, PPO_RETURN_BAR = 1000, 10, 400.0
+# PPO on pixels at the default widths (NatureCNN 32/64/64, 512 features,
+# dense 64): 2 updates of 128 steps x 4 envs, 10 epochs of 8 minibatches
+PPO_PIXEL_ARGV = ["--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--total_steps", str(2 * 128 * 4)]
+# one update on the card against the same update on the CPU: f32 sums in
+# other orders through 24 (CartPole) or 80 (pixels) Adam steps
+PPO_LOSS_RTOL, PPO_PARAM_TOL = 1e-3, 1e-4
+DV3_EVAL_EPISODES = 2
+
+
+def drive_ppo(run, root: str, argv, run_name: str) -> tuple[list, dict]:
+    """`python -m sheeprl_tpu_torch ppo` through the CLI entry point, in this
+    process. -> (its update records, its final record)."""
+    run(["ppo", *argv, "--root_dir", root, "--run_name", run_name])
+    with open(os.path.join(root, run_name, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    return [r for r in records if "update" in r], records[-1]
+
+
+def _ppo_state(torch, ckpt: str, device):
+    """A PPO checkpoint's config, agent and Adam on `device`, its envs and
+    keys. -> (args, agent, optimizer, envs, obs_keys)."""
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.algos.ppo.args import PPOArgs
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_args
+    from sheeprl_tpu_torch.utils.env import make_dict_env
+    from sheeprl_tpu_torch.utils.parser import DataclassArgumentParser
+
+    (args,) = DataclassArgumentParser(PPOArgs).parse_dict(load_checkpoint_args(ckpt))
+    envs = [make_dict_env(args.env_id, 77 + i, rank=0, args=args)() for i in range(args.num_envs)]
+    space = envs[0].observation_space
+    cnn_keys, mlp_keys = ppo.validate_obs_keys(space, args)
+    actions_dim, cont = ppo.actions_dim_of(envs[0].action_space)
+    saved = load_checkpoint(ckpt, device)
+    agent = ppo.build_agent(args, actions_dim, cont, space.spaces, cnn_keys, mlp_keys, torch.Generator()).to(device)
+    agent.load_state_dict(saved["agent"])
+    optimizer = ppo.make_optimizer(args, agent)
+    optimizer.load_state_dict(saved["optimizer"])
+    return args, agent, optimizer, envs, [*cnn_keys, *mlp_keys]
+
+
+def ppo_update_check(torch, ckpt: str, device) -> dict:
+    """One PPO update from checkpoint `ckpt` (its parameters, Adam state and
+    config, lr at its initial value) on the card and on the CPU: the same
+    rollout (collected on the CPU by the loaded agent from seeded envs) and
+    the same permutations. -> the losses of each side, their largest
+    relative difference, and the largest parameter difference over that
+    parameter's largest magnitude."""
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+
+    cpu = torch.device("cpu")
+    args, cpu_agent, cpu_opt, envs, keys = _ppo_state(torch, ckpt, cpu)
+    _, card_agent, card_opt, _, _ = _ppo_state(torch, ckpt, device)
+    rb = ReplayBuffer(args.rollout_steps, args.num_envs, device=cpu, obs_keys=keys)
+    rollout = ppo.Rollout(envs, 77)
+    rollout.collect(cpu_agent, rb, keys, torch.Generator().manual_seed(0))
+    batch = ppo.rollout_batch(cpu_agent, rb, rollout, keys, args)
+    n = batch["logprobs"].shape[0]
+    gen = torch.Generator().manual_seed(1)
+    perms = torch.stack([torch.randperm(n, generator=gen) for _ in range(args.update_epochs)])
+    step = ppo.make_train_step(args, max(n // args.per_rank_batch_size, 1))
+    card = step(card_agent, card_opt, {k: v.to(device) for k, v in batch.items()}, args.lr, args.clip_coef,
+                args.ent_coef, perms=perms)
+    host = step(cpu_agent, cpu_opt, batch, args.lr, args.clip_coef, args.ent_coef, perms=perms)
+    want = cpu_agent.state_dict()
+    param_err = max(float((p.cpu() - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-12))
+                    for k, p in card_agent.state_dict().items())
+    loss_rel = max(abs(card[k] - host[k]) / max(abs(host[k]), 1e-12) for k in host)
+    return dict(card=card, cpu=host, loss_rel=loss_rel, param_err=param_err, rows=n,
+                adam_steps=args.update_epochs * max(n // args.per_rank_batch_size, 1))
+
+
+def profile_ppo(torch, ckpt: str, device) -> dict:
+    """Where a PPO update's time goes on the card, from checkpoint `ckpt`:
+    the host wall of a synchronized update (rollout, then GAE and the
+    minibatch steps), then a torch.profiler window over another; the busy
+    share is the kernels' device time over the unprofiled wall."""
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+
+    args, agent, optimizer, envs, keys = _ppo_state(torch, ckpt, device)
+    rb = ReplayBuffer(args.rollout_steps, args.num_envs, device=device, obs_keys=keys)
+    rollout = ppo.Rollout(envs, 77)
+    n = args.rollout_steps * args.num_envs
+    step = ppo.make_train_step(args, max(n // args.per_rank_batch_size, 1))
+    gen = torch.Generator().manual_seed(2)
+    walls = {}
+
+    def update():
+        t0 = time.perf_counter()
+        rollout.collect(agent, rb, keys, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(agent, optimizer, ppo.rollout_batch(agent, rb, rollout, keys, args), args.lr, args.clip_coef,
+             args.ent_coef, generator=gen)
+        torch.cuda.synchronize()
+        walls.update(rollout_ms=(t1 - t0) * 1e3, train_ms=(time.perf_counter() - t1) * 1e3)
+
+    update()  # warm-up: cuDNN and cuBLAS plans, the allocator
+    update()
+    wall = dict(walls)
+    rows = profile_kernels(torch, update, "trace_ppo.json.gz")
+    device_ms = sum(r[1] for r in rows)
+    total = wall["rollout_ms"] + wall["train_ms"]
+    return dict(**wall, update_ms=total, device_ms=device_ms, launches=sum(r[2] for r in rows),
+                device_busy_share=device_ms / total,
+                top=[dict(name=k, ms=ms, calls=c) for k, ms, c in rows[:12]])
+
+
+def ppo_phase(torch, np, run, device, train_root: str, smi: str) -> dict:
+    """Phase 10: PPO learns CartPole-v1 through the CLI with the reference's
+    recipe, then `--eval_only` over its final checkpoint plays the
+    reference's 10 greedy episodes (a mean return below 400 fails); one
+    update on the card against the same update on the CPU; the update's
+    timings and a profile; PPO on pixels at default widths for 2 updates,
+    held against the CPU the same way; `dreamer_v3 --eval_only` over phase
+    6's last checkpoint with exactly 1 GRU and 4 conv launches a test
+    player step. No PPO module reaches a kernel of the port. Raises on any
+    failure. -> the phase's report."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import LOSSES
+
+    root = os.path.join(OUT_DIR, "ppo_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    updates, done = drive_ppo(run, root, PPO_LEARN_ARGV, "learn")
+    learn_s = time.perf_counter() - t0
+    finite = all(math.isfinite(r[k]) for r in updates for k in LOSSES)
+    rollout_ms, train_ms = statistics.median(done["rollout_ms"][1:]), statistics.median(done["train_ms"][1:])
+    returns = [r["Rewards/rew_avg"] for r in updates if "Rewards/rew_avg" in r]
+    log(f"[ppo] {smi}: ppo {' '.join(PPO_LEARN_ARGV)}: {done['updates']} updates, {done['env_steps']} env steps in "
+        f"{learn_s:.1f} s; losses finite: {finite}; host wall per update: median rollout {rollout_ms:.2f} ms + "
+        f"train {train_ms:.2f} ms (first {done['rollout_ms'][0]:.1f} + {done['train_ms'][0]:.1f}); "
+        f"{done['env_steps_per_s']:.1f} env steps/s; training episodes' mean return per 16 updates "
+        f"{[round(x, 1) for x in returns[::16]]}; last {returns[-1] if returns else None}")
+    if done["updates"] != PPO_LEARN_UPDATES or not finite:
+        raise RuntimeError(f"the PPO run took {done['updates']} updates or lost finiteness")
+    final = os.path.join(root, "learn", "checkpoints", f"ckpt_{PPO_LEARN_UPDATES}")
+    _, ev = drive_ppo(run, root, ["--eval_only", "--checkpoint_path", final, "--test_episodes",
+                                  str(PPO_EVAL_EPISODES), "--seed", str(PPO_EVAL_SEED)], "eval")
+    mean_return = float(np.mean(ev["test_returns"]))
+    log(f"[ppo] --eval_only --checkpoint_path .../ckpt_{PPO_LEARN_UPDATES} --test_episodes {PPO_EVAL_EPISODES} "
+        f"--seed {PPO_EVAL_SEED}: returns {ev['test_returns']}, mean {mean_return:.1f} (the reference's bar "
+        f"{PPO_RETURN_BAR:.0f}) in {ev['test_ms']:.1f} ms; updates {ev['updates']}")
+    if ev["updates"] != 0 or len(ev["test_returns"]) != PPO_EVAL_EPISODES or not mean_return >= PPO_RETURN_BAR:
+        raise RuntimeError(f"PPO did not learn CartPole-v1: greedy returns {ev['test_returns']}")
+
+    checks = {"cartpole": ppo_update_check(torch, final, device)}
+    prof = profile_ppo(torch, final, device)
+    log(f"[ppo-profile] one CartPole update from the final checkpoint: host wall {prof['update_ms']:.2f} ms "
+        f"(rollout {prof['rollout_ms']:.2f} + train {prof['train_ms']:.2f}), device time {prof['device_ms']:.2f} ms in "
+        f"{prof['launches']} launches, busy share {prof['device_busy_share']:.3f}")
+    for row in prof["top"]:
+        log(f"[ppo-profile]   {row['ms']:.4f} ms x{row['calls']}  {row['name'][:90]}")
+    t0 = time.perf_counter()
+    pix_updates, pix = drive_ppo(run, root, PPO_PIXEL_ARGV, "pixels")
+    pix_s = time.perf_counter() - t0
+    pix_finite = all(math.isfinite(r[k]) for r in pix_updates for k in LOSSES)
+    log(f"[ppo-pixels] ppo {' '.join(PPO_PIXEL_ARGV)}: {pix['updates']} updates in {pix_s:.1f} s, rollout "
+        f"{[round(x, 2) for x in pix['rollout_ms']]} ms, train {[round(x, 2) for x in pix['train_ms']]} ms; losses "
+        f"finite: {pix_finite}; last losses "
+        + ", ".join(f"{k.split('/')[1]}={pix_updates[-1][k]:.4g}" for k in LOSSES))
+    if pix["updates"] != 2 or not pix_finite:
+        raise RuntimeError(f"the pixel PPO run took {pix['updates']} updates or lost finiteness")
+    checks["pixels"] = ppo_update_check(torch, os.path.join(root, "pixels", "checkpoints", "ckpt_2"), device)
+    for name, c in checks.items():
+        log(f"[ppo] {name}: one update ({c['rows']} rows, {c['adam_steps']} Adam steps) on the card vs the CPU: "
+            + ", ".join(f"{k.split('/')[1]} {c['card'][k]:.6g}/{c['cpu'][k]:.6g}" for k in LOSSES)
+            + f"; largest relative loss difference {c['loss_rel']:.3e} (tol {PPO_LOSS_RTOL:g}); largest parameter "
+            f"difference over the parameter's largest magnitude {c['param_err']:.3e} (tol {PPO_PARAM_TOL:g})")
+        if not c["loss_rel"] <= PPO_LOSS_RTOL or not c["param_err"] <= PPO_PARAM_TOL:
+            raise RuntimeError(f"the {name} PPO update on the card disagrees with the CPU's: {c}")
+
+    # DreamerV3's evaluation over phase 6's last checkpoint: kernels 1 and 3
+    ckpt = os.path.join(train_root, "train", "checkpoints", f"ckpt_{TRAIN_STEPS}")
+    launches, _, dv3 = drive_train(run, os.path.join(OUT_DIR, "eval_logs"),
+                                   ("dreamer_v3", "--eval_only", "--checkpoint_path", ckpt, "--test_episodes",
+                                    str(DV3_EVAL_EPISODES)), "dv3")
+    expected = expected_launches(launches, {}, PER_PLAYER_STEP, dv3)
+    steps = sum(dv3["test_player_steps"])
+    log(f"[dv3-eval] dreamer_v3 --eval_only --checkpoint_path .../ckpt_{TRAIN_STEPS} --test_episodes "
+        f"{DV3_EVAL_EPISODES}: {fmt_tests(dv3)} ({dv3['test_ms'] / max(steps, 1):.2f} ms a player step, the "
+        f"episode's env and host work included); gradient steps {dv3['gradient_steps']}; launches {launches}")
+    if launches != expected or dv3["gradient_steps"] != 0 or len(dv3["test_returns"]) != DV3_EVAL_EPISODES \
+            or steps == 0:
+        raise RuntimeError(f"DreamerV3 evaluation launches {launches} != {expected} (1 GRU and 4 conv a test "
+                           f"player step) or it trained: {dv3}")
+    return dict(learn=dict(argv=PPO_LEARN_ARGV, seconds=learn_s, done=done, updates=updates,
+                           rollout_ms_median=rollout_ms, train_ms_median=train_ms),
+                eval=dict(returns=ev["test_returns"], mean=mean_return, test_ms=ev["test_ms"]),
+                update_checks=checks, profile=prof, pixels=dict(done=pix, seconds=pix_s),
+                dv3_eval=dict(launches=launches, expected=expected, done=dv3))
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one card")
@@ -2186,8 +2429,7 @@ def main() -> int:
     grad_steps, player_steps = done["gradient_steps"], done["player_steps"]
     finite = all(math.isfinite(r[k]) for r in records for k in METRICS)
     moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
-    expected = {k: n * grad_steps for k, n in PER_GRADIENT_STEP.items()}
-    expected.update({k: n * player_steps for k, n in PER_PLAYER_STEP.items()})
+    expected = expected_launches(train_launches, PER_GRADIENT_STEP, PER_PLAYER_STEP, done)
     step_ms = sorted(done["train_step_ms"][1:])  # the first step pays for cuDNN's plans
     step_ms_median = step_ms[len(step_ms) // 2]
     log(f"[train] {' '.join(TRAIN_ARGV)}: {grad_steps} gradient steps, {player_steps} player steps, "
@@ -2197,6 +2439,7 @@ def main() -> int:
         f"(first {done['train_step_ms'][0]:.1f} ms); env steps/s while the player acts: "
         f"{done['policy_env_steps_per_s']:.1f}; last losses " + ", ".join(
             f"{k.split('/')[1]}={records[-1][k]:.4g}" for k in METRICS if k.startswith("Loss/")))
+    log(f"[train] {fmt_tests(done)}")
     if grad_steps < 8 or not finite or min(moved.values()) <= 0:
         raise RuntimeError("the training run took fewer than 8 gradient steps, lost finiteness or moved nothing")
     if train_launches != expected:
@@ -2234,6 +2477,10 @@ def main() -> int:
     # -- phase 9: checkpoint, resume and serve --ckpt ----------------------------
     GC.next_phase("9 ckpt")
     report["ckpt"] = ckpt_phase(torch, np, run, ServeClient, train_root, done, torch.device("cuda"), smi)
+
+    # -- phase 10: coupled PPO and evaluation --------------------------------------
+    GC.next_phase("10 ppo")
+    report["ppo"] = ppo_phase(torch, np, run, torch.device("cuda"), train_root, smi)
 
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])

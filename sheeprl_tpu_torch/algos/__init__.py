@@ -2,3 +2,4 @@
 
 from ..serve import serve  # noqa: F401 -- registers the `serve` task
 from .dreamer_v3 import dreamer_v3 as _dreamer_v3  # noqa: F401 -- registers the `dreamer_v3` task
+from .ppo import ppo as _ppo  # noqa: F401 -- registers the `ppo` task

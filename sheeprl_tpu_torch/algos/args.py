@@ -1,7 +1,8 @@
 """Base config dataclass shared by every task (the port of
-sheeprl_tpu/algos/args.py, keeping the fields that serving and DreamerV3
-training read, checkpointing's among them). `--device` takes the place of the reference's `--platform`.
-Setting `log_dir` dumps `args.json` into the run directory."""
+sheeprl_tpu/algos/args.py, keeping the fields that serving, training,
+checkpointing and evaluation read). `--device` takes the place of the
+reference's `--platform`. Setting `log_dir` dumps `args.json` into the run
+directory (`eval_args.json` under `--eval_only`)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,12 @@ class StandardArgs:
     run_name: Optional[str] = Arg(default=None, help="folder name of this run")
     checkpoint_every: int = Arg(default=100, help="checkpoint period in policy steps; -1 disables")
     checkpoint_path: Optional[str] = Arg(default=None, help="checkpoint to resume from")
+    eval_only: bool = Arg(
+        default=False,
+        help="skip training: load --checkpoint_path and run --test_episodes "
+        "greedy evaluation episodes",
+    )
+    test_episodes: int = Arg(default=1, help="evaluation episodes for --eval_only")
     screen_size: int = Arg(default=64, help="side of pixel observations")
     frame_stack: int = Arg(default=-1, help="frames to stack for pixel observations")
     device: str = Arg(
@@ -43,7 +50,10 @@ class StandardArgs:
         super().__setattr__(name, value)
         if name == "log_dir" and value:
             os.makedirs(value, exist_ok=True)
-            with open(os.path.join(value, "args.json"), "w") as fh:
+            # an evaluation logging into a training run's directory must not
+            # overwrite the run's config record
+            fname = "eval_args.json" if getattr(self, "eval_only", False) else "args.json"
+            with open(os.path.join(value, fname), "w") as fh:
                 json.dump(self.as_dict(), fh)
 
     def as_dict(self) -> dict[str, Any]:

@@ -24,17 +24,23 @@ from the checkpoint's sidecar (the path kept), the run directory is the
 checkpoint's, the state is restored (`restore_state`), the loop starts at
 `global_step + 1`, `learning_starts` moves past it when no buffer was
 saved, the exploration decay is recomputed, and a saved buffer is loaded.
-As in the reference, the gradient-step counter restarts at 0, so the first
-gradient step after a resume copies the critic into the target (tau 1).
+Flags given on the command line override the sidecar
+(`utils/evaluation.py:apply_eval_overrides`): `--total_steps 2N` trains on
+to the new budget. As in the reference, the gradient-step counter restarts
+at 0, so the first gradient step after a resume copies the critic into the
+target (tau 1).
 
-Continuous actions, evaluation and the gymnasium env backends are not
-ported.
+Evaluation: every run ends with `--test_episodes` episodes in fresh envs
+(`utils.py:test`, the actor's samples, seeds `seed + i`);
+`--eval_only --checkpoint_path P` loads P (not its buffer) and runs only
+those, logging where its own `--root_dir` says or in P's run directory.
+
+Continuous actions and the gymnasium env backends are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import time
 from typing import Sequence
@@ -55,17 +61,20 @@ from ...ops.distributions import (
 )
 from ...ops.math import lambda_values_dv3, polynomial_decay
 from ...ops.moments import Moments
+from ...ops.optim import apply_gradients, clip_by_global_norm, global_norm
 from ...ops.precision import compute_dtype, to_compute, to_float32
 from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
 from ...utils.device import resolve_device
 from ...utils.env import make_dict_env
+from ...utils.evaluation import apply_eval_overrides, run_test_episodes, validate_eval_args
+from ...utils.logger import create_logger
 from ...utils.parser import DataclassArgumentParser
 from ...utils.registry import register_algorithm
 from ..ppo.ppo import actions_dim_of, validate_obs_keys
 from .agent import Actor, PlayerDV3, WorldModel, build_models
 from .args import DreamerV3Args
 from .loss import reconstruction_loss
-from .utils import make_device_preprocess
+from .utils import make_device_preprocess, test
 
 __all__ = [
     "DV3TrainState", "checkpoint_state", "clip_by_global_norm", "draw_noise", "global_norm", "main",
@@ -125,33 +134,6 @@ def make_optimizers(args: DreamerV3Args, world_model, actor, critic):
         torch.optim.Adam(actor.parameters(), lr=args.actor_lr, eps=1e-5),
         torch.optim.Adam(critic.parameters(), lr=args.critic_lr, eps=1e-5),
     )
-
-
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the L2 norm of all the leaves together."""
-    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
-
-
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float | None):
-    """optax.clip_by_global_norm's rule, written by hand: `g / norm *
-    max_norm` when norm >= max_norm, else g (no epsilon, unlike
-    `clip_grad_norm_`). -> (clipped grads, the norm before clipping)."""
-    norm = global_norm(grads)
-    if max_norm is None or max_norm <= 0:
-        return list(grads), norm
-    clipped = norm >= max_norm
-    return [torch.where(clipped, g / norm.to(g.dtype) * max_norm, g) for g in grads], norm
-
-
-def _apply(params: list[torch.Tensor], grads: Sequence[torch.Tensor], optimizer, clip: float | None
-           ) -> torch.Tensor:
-    """Clip, then one optimizer step. Returns the norm before clipping."""
-    grads, norm = clip_by_global_norm(grads, clip)
-    for p, g in zip(params, grads):
-        p.grad = g
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
-    return norm
 
 
 def _grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -219,7 +201,7 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
             args.kl_free_nats, args.kl_regularizer, pc, 1.0 - data["dones"], args.continue_scale_factor,
         )
         params = list(wm.parameters())
-        norm = _apply(params, _grads(losses[0], params), state.world_opt, args.world_clip_gradients)
+        norm = apply_gradients(params, _grads(losses[0], params), state.world_opt, args.world_clip_gradients)
         return losses, norm, recurrent_states.detach(), posteriors.detach(), priors_logits.detach(), \
             posteriors_logits.detach()
 
@@ -260,7 +242,7 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         entropy = args.actor_ent_coef * sum(p.entropy() for p in policies)[..., None][:-1]
         policy_loss = -(discount[:-1] * (objective + entropy)).mean()
         params = list(actor.parameters())
-        norm = _apply(params, _grads(policy_loss, params), state.actor_opt, args.actor_clip_gradients)
+        norm = apply_gradients(params, _grads(policy_loss, params), state.actor_opt, args.actor_clip_gradients)
         return policy_loss, norm, trajectories.detach(), lambda_values.detach(), discount
 
     def critic_step(state: DV3TrainState, trajectories, lambda_values, discount):
@@ -271,7 +253,7 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
         value_loss = (value_loss * discount[:-1, :, 0]).mean()
         params = list(state.critic.parameters())
-        norm = _apply(params, _grads(value_loss, params), state.critic_opt, args.critic_clip_gradients)
+        norm = apply_gradients(params, _grads(value_loss, params), state.critic_opt, args.critic_clip_gradients)
         return value_loss, norm
 
     def train_step(state: DV3TrainState, data: dict, tau: float, noise: dict) -> dict[str, float]:
@@ -342,13 +324,16 @@ def _params_delta(start: dict[str, list[torch.Tensor]], state: DV3TrainState) ->
 def main(argv: Sequence[str] | None = None) -> None:
     parser = DataclassArgumentParser(DreamerV3Args)
     (args,) = parser.parse_args_into_dataclasses(argv)
+    validate_eval_args(args)
     if args.checkpoint_path:
         if not os.path.isdir(args.checkpoint_path):
             raise FileNotFoundError(f"no checkpoint at {args.checkpoint_path}")
-        # the checkpoint's own config, the path kept (reference :509-513)
+        # the checkpoint's own config, the path kept and the command line's
+        # explicit flags over it (reference :507-514)
         saved = load_checkpoint_args(args.checkpoint_path)
         if saved:
             saved.update(checkpoint_path=args.checkpoint_path)
+            apply_eval_overrides(saved, args)
             (args,) = parser.parse_dict(saved)
     # fixed by the 4-stage 64x64 conv trunk
     args.screen_size = 64
@@ -372,20 +357,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     if is_continuous:
         raise NotImplementedError("continuous-action training is not ported yet")
 
-    if args.checkpoint_path:  # a resumed run writes on in the checkpoint's run directory
-        run_dir = os.path.dirname(os.path.dirname(os.path.abspath(args.checkpoint_path)))
-        args.root_dir, args.run_name = os.path.dirname(run_dir), os.path.basename(run_dir)
-    else:
-        run_dir = os.path.join(args.root_dir or os.path.join("logs", "dreamer_v3"),
-                               args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S"))
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "args.json"), "w") as fh:
-        json.dump(args.as_dict(), fh)
-    metrics_path = os.path.join(run_dir, "metrics.jsonl")
-
-    def record(rec: dict) -> None:
-        with open(metrics_path, "a") as fh:
-            fh.write(json.dumps(rec) + "\n")
+    logger, run_dir = create_logger(args, "dreamer_v3")
 
     world_model, actor, critic, target_critic = build_models(
         torch.Generator().manual_seed(args.seed), actions_dim, is_continuous, args,
@@ -431,7 +403,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     buffer_size = args.buffer_size // n_envs if not args.dry_run else 2
     rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed)
     buffer_ckpt = os.path.abspath(args.checkpoint_path) + "_buffer.npz" if args.checkpoint_path else None
-    if buffer_ckpt and args.checkpoint_buffer and os.path.exists(buffer_ckpt):
+    if buffer_ckpt and args.checkpoint_buffer and os.path.exists(buffer_ckpt) and not args.eval_only:
         rb.load(buffer_ckpt)
         resumed["buffer"] = buffer_ckpt
     step_before_training = args.train_every // n_envs
@@ -461,6 +433,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     gradient_steps = player_steps = env_steps = 0
     policy_collect_s, step_ms, checkpoints = 0.0, [], []
     start = time.perf_counter()
+    if args.eval_only:
+        num_updates = start_step - 1  # no training: straight to the test episodes
     for global_step in range(start_step, num_updates + 1):
         t0 = time.perf_counter()
         if global_step <= learning_starts:
@@ -548,7 +522,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                 rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in episodes]))
                 rec["Game/ep_len_avg"] = float(np.mean([e[1] for e in episodes]))
                 episodes.clear()
-            record(rec)
+            logger.record(rec)
             print(f"[dreamer_v3] step {global_step} grad_steps {gradient_steps} "
                   f"rec_loss {rec['Loss/reconstruction_loss']:.4f} policy_loss {rec['Loss/policy_loss']:.4f} "
                   f"value_loss {rec['Loss/value_loss']:.4f}", flush=True)
@@ -565,16 +539,27 @@ def main(argv: Sequence[str] | None = None) -> None:
             checkpoints.append({"path": ckpt_path, "step": global_step, "bytes": nbytes,
                                 "save_ms": (time.perf_counter() - t_save) * 1e3})
 
+    for env in envs:
+        env.close()
+    test_steps: list[int] = []
+
+    def episode() -> float:
+        ret, steps = test(player, logger, args, cnn_keys, sample_actions=True)
+        test_steps.append(steps)
+        return ret
+
+    t_test = time.perf_counter()
+    test_returns = run_test_episodes(episode, args, logger)
+    test_ms = (time.perf_counter() - t_test) * 1e3
     summary = {
         "event": "done", "env_steps": env_steps, "policy_steps": num_updates, "player_steps": player_steps,
         "gradient_steps": gradient_steps, "train_step_ms": step_ms,
         # env steps a second while the player acts (the random phase excluded)
         "policy_env_steps_per_s": player_steps * n_envs / policy_collect_s if policy_collect_s > 0 else None,
         "device": str(device), "checkpoints": checkpoints, "resumed": resumed,
+        "test_returns": test_returns, "test_player_steps": test_steps, "test_ms": test_ms,
         **_params_delta(start_params, state),
     }
-    record(summary)
-    for env in envs:
-        env.close()
+    logger.record(summary)
     print(f"[dreamer_v3] done: {gradient_steps} gradient steps, {env_steps} env steps, run dir {run_dir}",
           flush=True)

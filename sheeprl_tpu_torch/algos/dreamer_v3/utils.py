@@ -1,11 +1,16 @@
-"""DreamerV3 helpers (the port of sheeprl_tpu/algos/dreamer_v3/utils.py's
-`make_device_preprocess`)."""
+"""DreamerV3 helpers (the port of sheeprl_tpu/algos/dreamer_v3/utils.py):
+`make_device_preprocess` and `test`, the evaluation episode."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["make_device_preprocess"]
+from ...envs import spaces
+from ...utils.env import make_dict_env
+from ..ppo.agent import one_hot_to_env_actions
+
+__all__ = ["make_device_preprocess", "test"]
 
 
 def make_device_preprocess(cnn_keys):
@@ -22,3 +27,35 @@ def make_device_preprocess(cnn_keys):
         }
 
     return prep
+
+
+def test(player, logger, args, cnn_keys, sample_actions: bool = False) -> tuple[float, int]:
+    """Play one episode in a fresh env reset with `args.seed`, from
+    `player.init_states(1)`, and log `Test/cumulative_reward`. Actions are
+    the actor's samples when `sample_actions` (the reference's final test
+    passes True), drawn from a generator seeded by `args.seed`, else its
+    mode; no exploration noise. A `--dry_run` episode ends after one step.
+    -> (the episode's return, its player steps)."""
+    env = make_dict_env(args.env_id, args.seed, rank=0, args=args, prefix="test")()
+    device = player.device
+    preprocess = make_device_preprocess(cnn_keys)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    obs, _ = env.reset(seed=args.seed)
+    with torch.inference_mode():
+        state = player.init_states(1)
+    done, cumulative_reward, steps = False, 0.0, 0
+    while not done:
+        with torch.inference_mode():
+            dev_obs = preprocess({k: torch.as_tensor(np.asarray(v)[None], device=device) for k, v in obs.items()})
+            state, actions = player.step(state, dev_obs, generator=generator, expl_amount=0.0,
+                                         is_training=sample_actions)
+        act = one_hot_to_env_actions(actions.float(), player.actions_dim, player.is_continuous)[0]
+        if isinstance(env.action_space, spaces.Discrete):
+            act = act.item()
+        obs, reward, terminated, truncated, _ = env.step(act)
+        done = terminated or truncated or args.dry_run
+        cumulative_reward += float(reward)
+        steps += 1
+    logger.log("Test/cumulative_reward", cumulative_reward, 0)
+    env.close()
+    return cumulative_reward, steps

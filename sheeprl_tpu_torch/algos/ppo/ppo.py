@@ -1,11 +1,65 @@
-"""The two helpers of sheeprl_tpu/algos/ppo/ppo.py that the serving tier
-uses: observation-key validation and the action-space width."""
+"""PPO, coupled (the port of sheeprl_tpu/algos/ppo/ppo.py), over the port's
+host envs:
+
+    python -m sheeprl_tpu_torch ppo --env_id CartPole-v1 [--device cpu]
+
+A rollout of `rollout_steps` policy steps over `num_envs` envs (same-step
+autoreset, as a gymnasium vector env does) fills a `ReplayBuffer` on the
+device; each step pulls only the env action indices to the host. GAE runs
+over the rollout, then `update_epochs` passes of `num_minibatches` Adam
+steps over a fresh permutation each. The learning rate, clip and entropy
+coefficients anneal linearly when asked. One CPU generator, seeded by
+`--seed`, draws each rollout's sampling noise (moved to the device in one
+copy) and each epoch's permutation, so the same seed draws the same
+numbers on the CPU and on the card, and its state alone makes a resume
+continue the run's random stream on any device. Checkpoints
+(`ckpt_<update>`, the reference's keys `agent`, `optimizer`,
+`update_step`, plus `generator`, that state) are written at
+`--checkpoint_every` updates, at `--dry_run` and at the last update;
+`--checkpoint_path` resumes at `update_step + 1` (explicit flags override
+the checkpoint's config), and `--eval_only` runs no update.
+Every run ends with `--test_episodes` greedy episodes, each in a fresh env.
+
+Not ported: the JAX env backend (`--env_backend jax`), the flock, the
+non-finite guard, the sanitizer, telemetry spans, the profiler and a mesh
+of more than one device.
+
+Also the two helpers the serving tier and DreamerV3 use:
+`validate_obs_keys` and `actions_dim_of`."""
 
 from __future__ import annotations
 
-import numpy as np
+import os
+import time
+from typing import Sequence
 
+import numpy as np
+import torch
+
+from ...data.buffers import ReplayBuffer
 from ...envs import spaces
+from ...ops.math import gae, normalize, polynomial_decay
+from ...ops.optim import apply_gradients
+from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
+from ...utils.device import resolve_device
+from ...utils.env import make_dict_env
+from ...utils.evaluation import apply_eval_overrides, run_test_episodes, validate_eval_args
+from ...utils.logger import create_logger
+from ...utils.parser import DataclassArgumentParser
+from ...utils.registry import register_algorithm
+from .agent import (
+    PPOAgent, buffer_actions, env_action_indices, indices_to_env_actions, one_hot_to_env_actions,
+)
+from .args import PPOArgs
+from .loss import entropy_loss, policy_loss, value_loss
+
+__all__ = [
+    "Rollout", "actions_dim_of", "build_agent", "compute_gae_returns", "main", "make_optimizer", "make_train_step",
+    "policy_step", "rollout_batch", "test", "validate_obs_keys",
+]
+
+LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
+ROLLOUT_KEYS = ("actions", "logprobs", "values", "rewards", "dones")
 
 
 def validate_obs_keys(observation_space: spaces.Dict, args) -> tuple[list, list]:
@@ -34,3 +88,284 @@ def actions_dim_of(action_space) -> tuple[list[int], bool]:
     if isinstance(action_space, spaces.MultiDiscrete):
         return [int(n) for n in action_space.nvec], False
     raise ValueError(f"unsupported action space {type(action_space)}")
+
+
+def build_agent(args: PPOArgs, actions_dim: Sequence[int], is_continuous: bool, obs_space: dict,
+                cnn_keys: Sequence[str], mlp_keys: Sequence[str], generator: torch.Generator) -> PPOAgent:
+    """The agent the config describes, on the CPU."""
+    return PPOAgent(
+        actions_dim, obs_space, cnn_keys, mlp_keys, cnn_features_dim=args.cnn_features_dim,
+        mlp_features_dim=args.mlp_features_dim, screen_size=args.screen_size, mlp_layers=args.mlp_layers,
+        dense_units=args.dense_units, dense_act=args.dense_act, layer_norm=args.layer_norm,
+        is_continuous=is_continuous, actor_hidden_size=args.actor_hidden_size,
+        critic_hidden_size=args.critic_hidden_size, cnn_channels_multiplier=args.cnn_channels_multiplier,
+        precision=args.precision, generator=generator,
+    )
+
+
+def make_optimizer(args: PPOArgs, agent: PPOAgent) -> torch.optim.Adam:
+    """Adam with the reference's eps (optax `scale_by_adam`); the train step
+    clips by global norm before it when `max_grad_norm` > 0 and sets the lr
+    of each update."""
+    return torch.optim.Adam(agent.parameters(), lr=args.lr, eps=args.eps)
+
+
+@torch.no_grad()
+def policy_step(agent: PPOAgent, obs: dict, noise: torch.Tensor):
+    """One rollout step, its actions sampled with `noise`
+    (`PPOAgent.draw_noise`) -> (actions, logprob, value, env action
+    indices), all on the agent's device: the indices are what the host
+    pulls."""
+    actions, logprob, _, value = agent(obs, noise=noise)
+    return actions, logprob, value, env_action_indices(actions, agent.actions_dim, agent.is_continuous)
+
+
+@torch.no_grad()
+def compute_gae_returns(agent: PPOAgent, data: dict, next_obs: dict, next_done: torch.Tensor, gamma: float,
+                        gae_lambda: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(returns, advantages) of a `[T, N, 1]` rollout, bootstrapped from the
+    value of `next_obs` unless `next_done` ([N, 1])."""
+    next_value = agent.get_value(next_obs)
+    return gae(data["rewards"], data["values"], data["dones"], next_value, next_done, gamma, gae_lambda)
+
+
+def make_train_step(args: PPOArgs, num_minibatches: int):
+    """The PPO update -> `train_step(agent, optimizer, data, lr, clip_coef,
+    ent_coef, generator=None, perms=None) -> metrics`. `data` holds flat
+    `[n, ...]` tensors (the observation keys, `actions`, `logprobs`,
+    `values`, `returns`, `advantages`). Each of `update_epochs` epochs
+    takes `num_minibatches` Adam steps of `n // num_minibatches` rows from
+    its permutation, dropping the remainder: `perms` (`[epochs, n]`, the
+    reference's own in the parity tests) or `torch.randperm` from
+    `generator`. The metrics are the mean of each loss over the steps."""
+    obs_keys = (*args.cnn_keys, *args.mlp_keys)
+
+    def loss_fn(agent: PPOAgent, batch: dict, clip_coef: float, ent_coef: float):
+        _, new_logprob, entropy, new_value = agent({k: batch[k] for k in obs_keys}, actions=batch["actions"])
+        adv = batch["advantages"]
+        if args.normalize_advantages:
+            adv = normalize(adv)
+        pg = policy_loss(new_logprob, batch["logprobs"], adv, clip_coef, args.loss_reduction)
+        vf = value_loss(new_value, batch["values"], batch["returns"], clip_coef, args.clip_vloss,
+                        args.loss_reduction)
+        ent = entropy_loss(entropy, args.loss_reduction)
+        return pg + args.vf_coef * vf + ent_coef * ent, torch.stack([pg, vf, ent]).detach()
+
+    def train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, data: dict, lr: float, clip_coef: float,
+                   ent_coef: float, generator: torch.Generator | None = None,
+                   perms: torch.Tensor | None = None) -> dict[str, float]:
+        n = data["logprobs"].shape[0]
+        mb_size = n // num_minibatches
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        params = [p for p in agent.parameters()]
+        losses = []
+        for epoch in range(args.update_epochs):
+            perm = perms[epoch] if perms is not None else torch.randperm(n, generator=generator)
+            idxes = perm[: num_minibatches * mb_size].reshape(num_minibatches, mb_size).to(data["logprobs"].device)
+            for idx in idxes:
+                loss, parts = loss_fn(agent, {k: v[idx] for k, v in data.items()}, clip_coef, ent_coef)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+                apply_gradients(params, grads, optimizer, args.max_grad_norm)
+                losses.append(parts)
+        return dict(zip(LOSSES, torch.stack(losses).mean(0).cpu().tolist()))
+
+    return train_step
+
+
+class Rollout:
+    """The host side of a run's rollouts: its envs, each env's last
+    observation, the done flags entering the next step (`next_done`), the
+    running return and length of each env's episode, and the (return,
+    length) of the episodes ended since `ended` was last cleared."""
+
+    def __init__(self, envs: list, seed: int):
+        self.envs = envs
+        self.obs = [env.reset(seed=seed + i)[0] for i, env in enumerate(envs)]
+        self.next_done = np.zeros(len(envs), np.float32)
+        self.ep_return, self.ep_len = np.zeros(len(envs)), np.zeros(len(envs), dtype=np.int64)
+        self.ended: list[tuple[float, int]] = []
+
+    def device_obs(self, keys: Sequence[str], device) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.stack([o[k] for o in self.obs])).to(device) for k in keys}
+
+    def collect(self, agent: PPOAgent, rb: ReplayBuffer, obs_keys: Sequence[str],
+                generator: torch.Generator) -> None:
+        """`rb.buffer_size` policy steps into `rb`, their sampling noise
+        drawn at once from `generator` and moved to the agent's device in
+        one copy; each step pulls only the env action indices to the host
+        (with host storage also the log-prob and value; the obs and the
+        one-hot are rebuilt there). An env whose episode ends resets in the
+        same step; a row's `dones` is the done flag entering its step."""
+        device = next(agent.parameters()).device
+        host = rb.prefers_host_adds
+        noise = agent.draw_noise(generator, rb.buffer_size, len(self.envs)).to(device)
+        for t in range(rb.buffer_size):
+            host_obs = {k: np.stack([o[k] for o in self.obs]) for k in obs_keys}
+            obs = {k: torch.from_numpy(v).to(device) for k, v in host_obs.items()}
+            actions, logprob, value, env_idx = policy_step(agent, obs, noise[t])
+            env_idx = env_idx.cpu().numpy()
+            env_actions = indices_to_env_actions(env_idx, agent.actions_dim, agent.is_continuous)
+            rewards, dones = np.zeros(len(self.envs), np.float32), np.zeros(len(self.envs), np.float32)
+            for i, env in enumerate(self.envs):
+                a = env_actions[i]
+                o, r, term, trunc, _ = env.step(a.item() if np.ndim(a) == 0 else a)
+                rewards[i], dones[i] = r, float(term or trunc)
+                self.ep_return[i] += r
+                self.ep_len[i] += 1
+                if dones[i]:
+                    o, _ = env.reset()
+                    self.ended.append((float(self.ep_return[i]), int(self.ep_len[i])))
+                    self.ep_return[i], self.ep_len[i] = 0.0, 0
+                self.obs[i] = o
+            rb.add({**{k: v[None] for k, v in (host_obs if host else obs).items()},
+                    "actions": buffer_actions(env_idx, actions, agent.actions_dim, agent.is_continuous, host)[None],
+                    "logprobs": logprob[None], "values": value[None], "rewards": rewards[None, :, None],
+                    "dones": self.next_done[None, :, None]})
+            self.next_done = dones
+
+
+def rollout_batch(agent: PPOAgent, rb: ReplayBuffer, rollout: Rollout, obs_keys: Sequence[str],
+                  args: PPOArgs) -> dict[str, torch.Tensor]:
+    """The update's flat `[T * N, ...]` batch of the rollout in `rb`, with
+    its GAE returns and advantages bootstrapped from `rollout`'s envs."""
+    device = next(agent.parameters()).device
+    data = {k: rb[k] for k in (*obs_keys, *ROLLOUT_KEYS)}
+    data["returns"], data["advantages"] = compute_gae_returns(
+        agent, data, rollout.device_obs(obs_keys, device), torch.from_numpy(rollout.next_done).to(device)[:, None],
+        args.gamma, args.gae_lambda)
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in data.items() if k not in ("rewards", "dones")}
+
+
+def test(agent: PPOAgent, env, logger, args: PPOArgs) -> float:
+    """One greedy episode in `env` (closed at the end), reset with
+    `args.seed`; logs `Test/cumulative_reward`. -> the episode's return."""
+    device = next(agent.parameters()).device
+    obs, _ = env.reset(seed=args.seed)
+    done, cumulative_reward = False, 0.0
+    while not done:
+        with torch.no_grad():
+            actions = agent.get_greedy_actions({k: torch.as_tensor(np.asarray(v)[None], device=device)
+                                                for k, v in obs.items()})
+        env_actions = one_hot_to_env_actions(actions[0], agent.actions_dim, agent.is_continuous)
+        if isinstance(env.action_space, spaces.Discrete):
+            env_actions = env_actions.item()
+        obs, reward, terminated, truncated, _ = env.step(env_actions)
+        done = terminated or truncated
+        cumulative_reward += float(reward)
+    logger.log("Test/cumulative_reward", cumulative_reward, 0)
+    env.close()
+    return cumulative_reward
+
+
+@register_algorithm()
+def main(argv: Sequence[str] | None = None) -> None:
+    parser = DataclassArgumentParser(PPOArgs)
+    (args,) = parser.parse_args_into_dataclasses(argv)
+    validate_eval_args(args)
+    if args.checkpoint_path:
+        if not os.path.isdir(args.checkpoint_path):
+            raise FileNotFoundError(f"no checkpoint at {args.checkpoint_path}")
+        saved = load_checkpoint_args(args.checkpoint_path)
+        if saved:
+            saved.update(checkpoint_path=args.checkpoint_path)
+            apply_eval_overrides(saved, args)
+            (args,) = parser.parse_dict(saved)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # the reference's float32 products are true float32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    logger, run_dir = create_logger(args, "ppo")
+
+    envs = [make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
+            for i in range(args.num_envs)]
+    observation_space = envs[0].observation_space
+    cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
+    obs_keys = [*cnn_keys, *mlp_keys]
+    actions_dim, is_continuous = actions_dim_of(envs[0].action_space)
+
+    agent = build_agent(args, actions_dim, is_continuous, observation_space.spaces, cnn_keys, mlp_keys,
+                        torch.Generator().manual_seed(args.seed)).to(device)
+    optimizer = make_optimizer(args, agent)
+    gen = torch.Generator().manual_seed(args.seed)
+    start_update, resumed = 1, None
+    if args.checkpoint_path:
+        ckpt = load_checkpoint(args.checkpoint_path, device)
+        agent.load_state_dict(ckpt["agent"])
+        optimizer.load_state_dict(ckpt["optimizer"])
+        gen.set_state(ckpt["generator"].cpu())
+        start_update = int(ckpt["update_step"]) + 1
+        resumed = {"checkpoint": os.path.abspath(args.checkpoint_path), "start_update": start_update}
+        del ckpt
+
+    n_envs = args.num_envs
+    rollout_size = args.rollout_steps * n_envs
+    # a dry run takes exactly one update, also after a resume
+    num_updates = args.total_steps // rollout_size if not args.dry_run else start_update
+    num_minibatches = max(rollout_size // args.per_rank_batch_size, 1)
+    train_step = make_train_step(args, num_minibatches)
+    rb = ReplayBuffer(args.rollout_steps, n_envs, storage="device", device=device, obs_keys=obs_keys,
+                      seed=args.seed)
+
+    rollout = Rollout(envs, args.seed)
+    rollout_ms, train_ms, checkpoints = [], [], []
+    env_steps = 0
+    start = time.perf_counter()
+    if args.eval_only:
+        num_updates = start_update - 1  # no update: straight to the test episodes
+    for update in range(start_update, num_updates + 1):
+        lr, clip_coef, ent_coef = (
+            polynomial_decay(update, initial=value, final=0.0, max_decay_steps=num_updates) if anneal else value
+            for value, anneal in ((args.lr, args.anneal_lr), (args.clip_coef, args.anneal_clip_coef),
+                                  (args.ent_coef, args.anneal_ent_coef))
+        )
+        t0 = time.perf_counter()
+        rollout.collect(agent, rb, obs_keys, gen)
+        env_steps += rollout_size
+        t1 = time.perf_counter()
+        batch = rollout_batch(agent, rb, rollout, obs_keys, args)
+        metrics = train_step(agent, optimizer, batch, lr, clip_coef, ent_coef, generator=gen)
+        t2 = time.perf_counter()
+        rollout_ms.append((t1 - t0) * 1e3)
+        train_ms.append((t2 - t1) * 1e3)
+
+        rec = {"update": update, "step": update * rollout_size, **metrics, "Info/learning_rate": lr,
+               "Time/rollout_ms": rollout_ms[-1], "Time/train_ms": train_ms[-1],
+               "Time/step_per_second": env_steps / (time.perf_counter() - start)}
+        if rollout.ended:
+            rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in rollout.ended]))
+            rec["Game/ep_len_avg"] = float(np.mean([e[1] for e in rollout.ended]))
+            rollout.ended.clear()
+        logger.record(rec)
+        print(f"[ppo] update {update}/{num_updates} " + " ".join(
+            f"{k.split('/')[1]} {rec[k]:.4g}" for k in (*LOSSES, "Rewards/rew_avg") if k in rec), flush=True)
+
+        if (args.checkpoint_every > 0 and update % args.checkpoint_every == 0) or args.dry_run \
+                or update == num_updates:
+            ckpt_path = os.path.join(run_dir, "checkpoints", f"ckpt_{update}")
+            t_save = time.perf_counter()
+            nbytes = save_checkpoint(ckpt_path, {
+                "agent": agent.state_dict(), "optimizer": optimizer.state_dict(), "update_step": update,
+                "generator": gen.get_state(),
+            }, args)
+            checkpoints.append({"path": ckpt_path, "update": update, "bytes": nbytes,
+                                "save_ms": (time.perf_counter() - t_save) * 1e3})
+    for env in envs:
+        env.close()
+
+    t_test = time.perf_counter()
+    test_returns = run_test_episodes(
+        lambda: test(agent, make_dict_env(args.env_id, args.seed, rank=0, args=args, prefix="test")(), logger,
+                     args),
+        args, logger,
+    )
+    logger.record({
+        "event": "done", "updates": len(train_ms), "env_steps": env_steps, "rollout_ms": rollout_ms,
+        "train_ms": train_ms, "env_steps_per_s": env_steps / max(sum(rollout_ms) + sum(train_ms), 1e-9) * 1e3,
+        "device": str(device), "checkpoints": checkpoints, "resumed": resumed, "test_returns": test_returns,
+        "test_ms": (time.perf_counter() - t_test) * 1e3,
+    })
+    print(f"[ppo] done: {len(train_ms)} updates, {env_steps} env steps, test returns {test_returns}, "
+          f"run dir {run_dir}", flush=True)

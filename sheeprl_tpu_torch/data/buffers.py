@@ -1,6 +1,12 @@
-"""Replay storage (the port of the sequential sampling of
-sheeprl_tpu/data/buffers.py's `AsyncReplayBuffer`, which DreamerV3's main
-uses): per-env rings in host numpy, `add(data, indices)` so envs that reset
+"""Replay storage (the port of sheeprl_tpu/data/buffers.py's `ReplayBuffer`,
+PPO's rollout store, and of the sequential sampling of its
+`AsyncReplayBuffer`, which DreamerV3's main uses).
+
+`ReplayBuffer` is one ring `[buffer_size, n_envs, *item]` a key, on a torch
+device (the default: a policy step's outputs go in without a round trip)
+or in host numpy, with uniform sampling.
+
+`AsyncReplayBuffer` keeps per-env rings in host numpy, `add(data, indices)` so envs that reset
 mid-step can append their reset rows alone, and `sample` of contiguous
 windows `[n_samples, T, B, *item]`, each from one env.
 
@@ -22,9 +28,115 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["AsyncReplayBuffer"]
+__all__ = ["AsyncReplayBuffer", "ReplayBuffer"]
 
 SAMPLER_KEY = "torch_sampler_state"
+
+
+class ReplayBuffer:
+    """A circular buffer `[buffer_size, n_envs, *item]` a key, written at one
+    head for all envs; uniform sampling. `storage="device"` keeps torch
+    tensors on `device`, `storage="host"` numpy arrays."""
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, storage: str = "device",
+                 device: torch.device | str = "cuda", obs_keys: Sequence[str] = ("observations",),
+                 seed: int = 0):
+        if buffer_size <= 0:
+            raise ValueError(f"buffer size must be > 0, got {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"n_envs must be > 0, got {n_envs}")
+        if storage not in ("device", "host"):
+            raise ValueError(f"storage must be 'device' or 'host', got {storage!r}")
+        self.buffer_size = buffer_size
+        self.n_envs = n_envs
+        self.storage = storage
+        self.device = torch.device(device)
+        self.obs_keys = tuple(obs_keys)
+        self._buf: dict | None = None
+        self.pos = 0
+        self.full = False
+        self._gen = torch.Generator().manual_seed(seed)
+
+    @property
+    def prefers_host_adds(self) -> bool:
+        """True when `add` wants host numpy values (host storage)."""
+        return self.storage != "device"
+
+    def __len__(self) -> int:
+        return self.buffer_size
+
+    def __getitem__(self, key: str):
+        if self._buf is None:
+            raise RuntimeError("buffer not initialized; add data first")
+        return self._buf[key]
+
+    def _as_stored(self, v):
+        if self.storage == "device":
+            return torch.as_tensor(v, device=self.device)
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    def add(self, data: Mapping) -> None:
+        """Append `[T, n_envs, *item]` rows (tensors or arrays) at the write
+        head, wrapping around."""
+        data = {k: self._as_stored(v) for k, v in data.items()}
+        length, n_envs = next(iter(data.values())).shape[:2]
+        if n_envs != self.n_envs:
+            raise ValueError(f"expected n_envs={self.n_envs}, got {n_envs}")
+        if length == 0:
+            return
+        if length > self.buffer_size:
+            data = {k: v[-self.buffer_size:] for k, v in data.items()}
+            length = self.buffer_size
+        if self._buf is None:
+            shape = (self.buffer_size, self.n_envs)
+            self._buf = {
+                k: torch.zeros(shape + tuple(v.shape[2:]), dtype=v.dtype, device=self.device)
+                if self.storage == "device" else np.zeros(shape + v.shape[2:], dtype=v.dtype)
+                for k, v in data.items()
+            }
+        if length == 1:  # a rollout step: one row, written in place
+            rows = self.pos
+            data = {k: v[0] for k, v in data.items()}
+        else:
+            rows = (self.pos + np.arange(length)) % self.buffer_size
+            if self.storage == "device":
+                rows = torch.from_numpy(rows).to(self.device)
+        for k, v in data.items():
+            self._buf[k][rows] = v
+        self.full = self.full or self.pos + length >= self.buffer_size
+        self.pos = (self.pos + length) % self.buffer_size
+
+    def sample(self, batch_size: int, sample_next_obs: bool = False) -> dict:
+        """`batch_size` rows drawn uniformly over (time, env), the write head
+        excluded; with `sample_next_obs`, `pos - 1` too, and `next_<key>`
+        holds each obs key's following row. -> {key: [batch_size, *item]}."""
+        if batch_size <= 0:
+            raise ValueError("batch_size must be > 0")
+        if self._buf is None or (not self.full and self.pos == 0):
+            raise RuntimeError("no samples in buffer; call add() first")
+        first = self.pos - (1 if sample_next_obs else 0)
+        if self.full:
+            second_end = self.buffer_size if first >= 0 else self.buffer_size + first
+            first = max(first, 0)
+            n_valid = first + second_end - self.pos
+        else:
+            n_valid = first
+        if n_valid <= 0:
+            raise RuntimeError("not enough valid entries to sample; add more data first")
+        r = torch.randint(0, n_valid, (batch_size,), generator=self._gen)
+        idx = torch.where(r < first, r, r - first + self.pos)
+        env = torch.randint(0, self.n_envs, (batch_size,), generator=self._gen)
+        if self.storage == "host":
+            idx, env = idx.numpy(), env.numpy()
+        else:
+            idx, env = idx.to(self.device), env.to(self.device)
+        out = {k: v[idx, env] for k, v in self._buf.items()}
+        if sample_next_obs:
+            nxt = (idx + 1) % self.buffer_size
+            for k in self.obs_keys:
+                out[f"next_{k}"] = self._buf[k][nxt, env]
+        return out
+
 
 
 class AsyncReplayBuffer:

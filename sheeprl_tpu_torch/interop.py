@@ -25,7 +25,12 @@ arrays, `None` where a module has no parameter) and hands the tree over:
     moments and the counters;
   - `sac_checkpoint_from_jax` maps `agent.actor` onto the port's
     `SACActor` and carries the critics, `log_alpha` and the three optimizer
-    states as raw tensors by path, for SAC training to take later.
+    states as raw tensors by path, for SAC training to take later;
+  - `ppo_checkpoint_from_jax` returns the port's PPO checkpoint (the keys
+    `agent`, `optimizer`, `update_step` of `algos/ppo/ppo.py:main`): the
+    agent through `ppo_agent_from_jax`, its optax Adam state (behind the
+    clip transform's empty state when `max_grad_norm` > 0) through
+    `adam_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from .ops.quant import QuantLinear
 
 __all__ = [
     "adam_state_from_jax", "dreamer_v3_checkpoint_from_jax", "flatten_params", "load_jax_params",
-    "sac_checkpoint_from_jax", "state_dict_from_jax",
+    "ppo_agent_from_jax", "ppo_checkpoint_from_jax", "sac_checkpoint_from_jax", "state_dict_from_jax",
 ]
 
 
@@ -179,4 +184,27 @@ def sac_checkpoint_from_jax(tree: Mapping, actor: tnn.Module) -> dict:
                   "log_alpha": torch.from_numpy(np.array(agent["log_alpha"]))},
         **{k: raw(tree[k]) for k in ("qf_optimizer", "actor_optimizer", "alpha_optimizer")},
         "global_step": int(np.asarray(tree["global_step"])),
+    }
+
+
+def ppo_agent_from_jax(agent: tnn.Module, params: Mapping) -> tnn.Module:
+    """Load a reference `PPOAgent`'s parameters (its flattened pytree:
+    encoders, actor backbone, heads, critic) into the port's `agent`, built
+    with the same config; returns it."""
+    return load_jax_params(agent, params)
+
+
+def ppo_checkpoint_from_jax(tree: Mapping, agent: tnn.Module, optimizer: torch.optim.Optimizer,
+                            seed: int = 0) -> dict:
+    """A reference PPO checkpoint (the restored tree, key contract
+    `sheeprl_tpu/algos/ppo/ppo.py:811-830`) -> the port's checkpoint dict,
+    laid out for `agent` and `optimizer` (a `torch.optim.Adam` over
+    `agent.parameters()`, built with the same config). The generator state
+    the port's checkpoint adds is a fresh generator's, seeded `seed`: the
+    reference's JAX key cannot be carried."""
+    return {
+        "agent": state_dict_from_jax(agent, tree["agent"]),
+        "optimizer": adam_state_from_jax(agent, optimizer, tree["optimizer"]),
+        "update_step": int(np.asarray(tree["update_step"])),
+        "generator": torch.Generator().manual_seed(seed).get_state(),
     }

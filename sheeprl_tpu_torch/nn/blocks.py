@@ -1,6 +1,6 @@
-"""Composite blocks (the port of sheeprl_tpu/nn/blocks.py): MLP, CNN and
-DeCNN, each a stack of (linear|conv|deconv) -> [LayerNorm] -> activation
-miniblocks. A Dreamer miniblock (k4/s2/SAME, no bias, affine LayerNorm,
+"""Composite blocks (the port of sheeprl_tpu/nn/blocks.py): MLP, CNN,
+DeCNN and NatureCNN, each a stack of (linear|conv|deconv) -> [LayerNorm] ->
+activation miniblocks. A Dreamer miniblock (k4/s2/SAME, no bias, affine LayerNorm,
 SiLU) runs as one fused kernel under the reference's guard alone; the
 kernel wrappers differentiate through their residual forwards."""
 
@@ -16,7 +16,7 @@ from ..ops.kernels.deconv import deconv_ln_silu
 from .core import Activation, activation
 from .layers import Conv2d, ConvTranspose2d, LayerNorm, Linear
 
-__all__ = ["MLP", "CNN", "DeCNN"]
+__all__ = ["MLP", "CNN", "DeCNN", "NatureCNN"]
 
 
 class MLP(tnn.Module):
@@ -152,3 +152,38 @@ class DeCNN(tnn.Module):
             if activated:
                 x = act(x)
         return x.reshape(lead + x.shape[1:])
+
+
+class NatureCNN(tnn.Module):
+    """The DQN-Nature encoder (NHWC): three VALID convolutions (8/4, 4/2,
+    3/1; 32, 64, 64 channels times `channels_multiplier`) with ReLU and no
+    norm, flattened, then a Linear to `features_dim` and ReLU. No stage
+    meets the fused kernel's guard (k4/s2/SAME with LayerNorm and SiLU), so
+    every stage is a plain convolution, as in the reference."""
+
+    def __init__(self, in_channels: int, features_dim: int, *, screen_size: int = 64,
+                 channels_multiplier: int = 1, generator: torch.Generator | None = None):
+        super().__init__()
+        if channels_multiplier <= 0:
+            raise ValueError(f"channels_multiplier must be greater than zero, given {channels_multiplier}")
+        channels = [32 * channels_multiplier, 64 * channels_multiplier, 64 * channels_multiplier]
+        kernels, strides = [8, 4, 3], [4, 2, 1]
+        self.cnn = CNN(in_channels, channels, kernels, strides, paddings=["VALID"] * 3, act="relu",
+                       generator=generator)
+        side = screen_size
+        for k, s in zip(kernels, strides):
+            side = (side - k) // s + 1
+        if side <= 0:
+            raise ValueError(f"screen_size {screen_size} is too small for the NatureCNN's convolutions")
+        self.fc = Linear(side * side * channels[-1], features_dim, generator=generator)
+        self.act = "relu"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [..., H, W, C] -> [..., features_dim]."""
+        lead = x.shape[:-3]
+        y = self.cnn(x).reshape(lead + (-1,))
+        return activation(self.act)(self.fc(y))
+
+    @property
+    def output_dim(self) -> int:
+        return self.fc.out_features

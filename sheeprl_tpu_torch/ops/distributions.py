@@ -1,7 +1,8 @@
-"""The distributions of sheeprl_tpu/ops/distributions.py that DreamerV3
-samples from and trains with: the one-hot categorical of the stochastic
-state and the actor, Bernoulli (the continue head), the DreamerV3 trio
-Symlog / MSE / TwoHotEncoding, and the categorical KL.
+"""The distributions of sheeprl_tpu/ops/distributions.py that DreamerV3 and
+PPO sample from and train with: the one-hot categorical of the stochastic
+state and the actors, Normal (PPO's continuous actions), Bernoulli (the
+continue head), the DreamerV3 trio Symlog / MSE / TwoHotEncoding, and the
+categorical KL.
 
 Sampling takes either injected Gumbel noise (the parity tests feed the
 reference's own draw) or an explicit `torch.Generator`: a one-hot sample is
@@ -11,6 +12,8 @@ the two-hot kernel (`ops/kernels/two_hot.py`) for every tensor."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -18,9 +21,13 @@ from .kernels.two_hot import two_hot_log_prob
 from .math import symexp, symlog
 
 __all__ = [
-    "Bernoulli", "Independent", "MSEDistribution", "OneHotCategorical", "SymlogDistribution",
+    "Bernoulli", "Independent", "MSEDistribution", "Normal", "OneHotCategorical", "SymlogDistribution",
     "TwoHotEncodingDistribution", "gumbel_noise", "kl_categorical", "unimix_logits",
 ]
+
+
+_LOG_SQRT_2PI = 0.5 * math.log(2 * math.pi)
+_LOG_SQRT_2PI_E = 0.5 * math.log(2 * math.pi * math.e)
 
 
 def _sum_last(x: torch.Tensor, ndims: int) -> torch.Tensor:
@@ -97,12 +104,48 @@ def unimix_logits(logits: torch.Tensor, unimix: float = 0.01) -> torch.Tensor:
     return torch.log(probs)
 
 
+class Normal:
+    """Gaussian with elementwise `loc` and `scale`; a sample draws from an
+    explicit `torch.Generator` (the reference threads a JAX key)."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
+        self.loc = loc
+        self.scale = scale
+
+    def sample(self, generator: torch.Generator | None = None, sample_shape: tuple[int, ...] = ()) -> torch.Tensor:
+        shape = tuple(sample_shape) + torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+        eps = torch.randn(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
+        return self.loc + self.scale * eps
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        z = (x - self.loc) / self.scale
+        return -0.5 * torch.square(z) - torch.log(self.scale) - _LOG_SQRT_2PI
+
+    def entropy(self) -> torch.Tensor:
+        return _LOG_SQRT_2PI_E + torch.log(self.scale) * torch.ones_like(self.loc)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def stddev(self) -> torch.Tensor:
+        return self.scale * torch.ones_like(self.loc)
+
+
 class Independent:
     """Reinterpret the trailing `event_ndims` batch dims as event dims."""
 
     def __init__(self, base, event_ndims: int = 1):
         self.base = base
         self.event_ndims = event_ndims
+
+    def sample(self, generator: torch.Generator | None = None, sample_shape: tuple[int, ...] = ()) -> torch.Tensor:
+        return self.base.sample(generator, sample_shape)
 
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return _sum_last(self.base.log_prob(x), self.event_ndims)

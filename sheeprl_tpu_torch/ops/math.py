@@ -1,6 +1,6 @@
 """Core RL math of the port (the subset of sheeprl_tpu/ops/math.py that
-DreamerV3 uses). The reference's reverse `lax.scan` recursions are Python
-loops over time here: PyTorch runs eagerly."""
+DreamerV3 and PPO use). The reference's reverse `lax.scan` recursions are
+Python loops over time here: PyTorch runs eagerly."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 from .kernels.two_hot import two_hot
 
-__all__ = ["lambda_values_dv3", "polynomial_decay", "symexp", "symlog", "two_hot"]
+__all__ = ["gae", "lambda_values_dv3", "normalize", "polynomial_decay", "symexp", "symlog", "two_hot"]
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
@@ -19,6 +19,41 @@ def symlog(x: torch.Tensor) -> torch.Tensor:
 def symexp(x: torch.Tensor) -> torch.Tensor:
     """sign(x) * (exp(|x|) - 1)."""
     return torch.sign(x) * (torch.exp(torch.abs(x)) - 1.0)
+
+
+def gae(
+    rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor, next_value: torch.Tensor,
+    next_done: torch.Tensor, gamma: float, gae_lambda: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation (arXiv:1506.02438) over time-major
+    `[T, ...]` rewards, values and dones; `next_value` and `next_done`
+    bootstrap the step after the rollout. `dones[t]` is the done flag
+    entering step t, so step t continues into t + 1 unless `dones[t + 1]`
+    (or `next_done` at the last step). -> (returns, advantages), `[T, ...]`."""
+    dones = dones.float()
+    next_nonterminal = torch.cat([1.0 - dones[1:], (1.0 - next_done.float())[None]], dim=0)
+    next_values = torch.cat([values[1:], next_value[None]], dim=0)
+    deltas = rewards + gamma * next_values * next_nonterminal - values
+    carry = torch.zeros_like(next_value)
+    advantages = [None] * rewards.shape[0]
+    for t in reversed(range(rewards.shape[0])):
+        carry = deltas[t] + gamma * gae_lambda * next_nonterminal[t] * carry
+        advantages[t] = carry
+    advantages = torch.stack(advantages)
+    return advantages + values, advantages
+
+
+def normalize(x: torch.Tensor, eps: float = 1e-8, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(x - mean) / (std + eps), the statistics over the entries `mask`
+    selects (all when None); std is the population one, as `jnp.std`."""
+    if mask is None:
+        mean, std = x.mean(), x.std(correction=0)
+    else:
+        mask = mask.float()
+        n = mask.sum().clamp_min(1.0)
+        mean = (x * mask).sum() / n
+        std = torch.sqrt((torch.square(x - mean) * mask).sum() / n)
+    return (x - mean) / (std + eps)
 
 
 def lambda_values_dv3(

@@ -1,10 +1,11 @@
 """Environment construction (the port of sheeprl_tpu/utils/env.py's
 `make_env` and `make_dict_env`): the `*_dummy` envs, CartPole-v1 through the
 port's own copy of the reference's JAX CartPole (`envs/cartpole.py`) and
-Pendulum-v1 through its JAX Pendulum (`envs/pendulum.py`), as the reference
-routes an env it has only in JAX through its host twin (its `pixeltoy`
-branch). The reference resizes and converts images with cv2, which the port
-does without: an image that needs a resize or a grayscale conversion raises
+Pendulum-v1 through its JAX Pendulum (`envs/pendulum.py`), as the
+reference routes an env it has only in JAX through its host twin (its
+`pixeltoy` branch); the reference reaches these two through gymnasium.
+The reference resizes and converts images with cv2, which the port does
+without: an image that needs a resize or a grayscale conversion raises
 instead."""
 
 from __future__ import annotations
@@ -78,11 +79,11 @@ def make_dict_env(
     prefix: str = "",
     vector_env_idx: int = 0,
 ) -> Callable[[], DictObservation]:
-    """Dict-observation env thunk for `*_dummy` env ids and `CartPole-v1`
-    (`envs/cartpole.py`, seeded by `seed`). A Box image observation is
-    exposed under the first cnn key (default `rgb`), a Box vector
-    observation, CartPole's included, under the first mlp key (default
-    `state`)."""
+    """Dict-observation env thunk for `*_dummy` env ids, `CartPole-v1`
+    (`envs/cartpole.py`) and `Pendulum-v1` (`envs/pendulum.py`), each
+    seeded by `seed`. A Box image observation is exposed under the first
+    cnn key (default `rgb`), a Box vector observation, CartPole's and
+    Pendulum's included, under the first mlp key (default `state`)."""
     del rank, run_name, prefix, vector_env_idx
 
     def thunk() -> DictObservation:
@@ -91,11 +92,15 @@ def make_dict_env(
             from ..envs.cartpole import CartPole
 
             env = CartPole(seed)
+        elif lid == "pendulum-v1":
+            from ..envs.pendulum import Pendulum
+
+            env = Pendulum(seed)
         elif "dummy" in lid:
             env = get_dummy_env(lid)
         else:
             raise ValueError(
-                f"env {env_id!r}: only CartPole-v1 and the *_dummy backend are ported; the "
+                f"env {env_id!r}: only CartPole-v1, Pendulum-v1 and the *_dummy backend are ported; the "
                 "other backends need gymnasium"
             )
         cnn_keys = list(getattr(args, "cnn_keys", None) or [])

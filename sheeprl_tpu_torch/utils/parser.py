@@ -98,14 +98,38 @@ class DataclassArgumentParser(argparse.ArgumentParser):
         self.add_argument(f"--{name}", **kwargs)
 
     def parse_args_into_dataclasses(self, args: list[str] | None = None) -> tuple:
+        """Dataclasses from `args` (sys.argv when None). Each output carries
+        `_cli_provided`, the fields the command line set explicitly (not
+        left at their defaults): a resumed or evaluated run lets exactly
+        those override its checkpoint's config (`utils/evaluation.py`)."""
         namespace, remaining = self.parse_known_args(args)
         if remaining:
             raise ValueError(f"unknown arguments: {remaining}")
+        provided = self._provided_flags(args)
         outputs = []
         for dtype in self.dataclass_types:
             keys = {f.name for f in dataclasses.fields(dtype) if f.init}
-            outputs.append(dtype(**{k: v for k, v in vars(namespace).items() if k in keys}))
+            out = dtype(**{k: v for k, v in vars(namespace).items() if k in keys})
+            out._cli_provided = provided & keys
+            outputs.append(out)
         return tuple(outputs)
+
+    def _provided_flags(self, args: list[str] | None) -> set[str]:
+        """Re-parse with every default suppressed: the namespace then holds
+        exactly the dests the command line gave (through `--flag=value`,
+        `--no_flag` and `@file.args` expansion alike)."""
+        saved = [(a, a.default) for a in self._actions]
+        saved_defaults = dict(self._defaults)
+        for a in self._actions:
+            a.default = argparse.SUPPRESS
+        self._defaults.clear()
+        try:
+            namespace, _ = self.parse_known_args(args)
+        finally:
+            for a, d in saved:
+                a.default = d
+            self._defaults.update(saved_defaults)
+        return set(vars(namespace))
 
     def parse_dict(self, args: dict[str, Any]) -> tuple:
         """Dataclasses from a dict of field values (a checkpoint's args.json

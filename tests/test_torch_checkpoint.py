@@ -388,7 +388,8 @@ def _run_main(argv, monkeypatch=None):
 
 def _runs(run_dir):
     """metrics.jsonl split into runs (a resumed run appends to it): ->
-    [(training records, done record), ...]."""
+    [(training records, done record), ...]. The records of a run's test
+    episodes (`Test/*`) are left out."""
     with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
         records = [json.loads(line) for line in fh if line.strip()]
     runs, current = [], []
@@ -396,7 +397,7 @@ def _runs(run_dir):
         if r.get("event") == "done":
             runs.append((current, r))
             current = []
-        else:
+        elif "gradient_steps" in r:
             current.append(r)
     return runs
 

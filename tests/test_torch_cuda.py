@@ -10,7 +10,8 @@ deconv at Cout past 512, ragged Cin (3, 37) and Cout (45) and N = 1, 8 and
 int8 SAC trunk (bit-exact, at Pendulum's and wider trunks, odd widths and
 the device-memory scratch path) and symlog/symexp, and the gradient
 reaching the parameters through CNN, DeCNN and LayerNormGRUCell on CUDA
-tensors. Marked `cuda`: they skip without a CUDA device. The file
+tensors; one PPO update on the card against the CPU's and `ppo --dry_run`
+on the card. Marked `cuda`: they skip without a CUDA device. The file
 imports neither jax nor the reference, so it also runs on a machine that
 has neither:
 
@@ -704,3 +705,72 @@ def test_serve_ckpt_loader_on_the_card(cuda_device, tmp_path):
                 state, acts = policy.step(player, state, {"rgb": obs.to(device)})
         actions.append(acts.float().cpu())
     assert torch.equal(actions[0], actions[1])
+
+
+def _ppo_update(device, env: str, seed: int = 0):
+    """One PPO update at tiny widths on `device` from the same seeded
+    parameters, rollout and permutations. -> (metrics, agent)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.algos.ppo.args import PPOArgs
+    from sheeprl_tpu_torch.envs import spaces
+
+    pixels = env == "pixels"
+    args = PPOArgs(device=str(device), dense_units=16, cnn_features_dim=32, mlp_features_dim=16, update_epochs=2,
+                   per_rank_batch_size=8, max_grad_norm=0.5, normalize_advantages=True, ent_coef=0.01,
+                   cnn_keys=["rgb"] if pixels else [], mlp_keys=[] if pixels else ["state"])
+    space = {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)} if pixels else {"state": spaces.Box(-1, 1, (4,))}
+    agent = ppo.build_agent(args, [2], False, space, args.cnn_keys, args.mlp_keys,
+                            torch.Generator().manual_seed(seed)).to(device)
+    optimizer = ppo.make_optimizer(args, agent)
+    gen, n = torch.Generator().manual_seed(seed + 1), 32
+    obs = (torch.randint(0, 256, (n, 64, 64, 3), generator=gen, dtype=torch.uint8) if pixels
+           else torch.randn(n, 4, generator=gen))
+    batch = {"rgb" if pixels else "state": obs,
+             "actions": torch.nn.functional.one_hot(torch.randint(0, 2, (n,), generator=gen), 2).float(),
+             "logprobs": torch.log(torch.rand(n, 1, generator=gen) * 0.4 + 0.3),
+             "values": torch.randn(n, 1, generator=gen), "returns": torch.randn(n, 1, generator=gen) * 3,
+             "advantages": torch.randn(n, 1, generator=gen) * 2}
+    perms = torch.stack([torch.randperm(n, generator=gen) for _ in range(args.update_epochs)])
+    metrics = ppo.make_train_step(args, n // args.per_rank_batch_size)(
+        agent, optimizer, {k: v.to(device) for k, v in batch.items()}, 1e-3, 0.2, 0.01, perms=perms)
+    return metrics, agent
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", ["cartpole", "pixels"])
+def test_ppo_update_on_the_card_matches_the_cpu(cuda_device, env):
+    """One PPO update (8 Adam steps) on the card against the same update on
+    the CPU: losses at rtol 1e-3, every parameter to 1e-4 of its largest
+    magnitude (f32 sums in other orders, TF32 off)."""
+    card, card_agent = _ppo_update(cuda_device, env)
+    host, host_agent = _ppo_update(torch.device("cpu"), env)
+    for k in host:
+        assert abs(card[k] - host[k]) <= 1e-3 * abs(host[k]) + 1e-7, k
+    want = host_agent.state_dict()
+    for k, p in card_agent.state_dict().items():
+        assert float((p.cpu() - want[k]).abs().max()) <= 1e-4 * float(want[k].abs().max()), k
+
+
+@pytest.mark.cuda
+def test_ppo_dry_run_on_cuda(cuda_device, tmp_path):
+    """`ppo --dry_run` without `--device` runs on the card: one update, a
+    checkpoint, the test episode; `--eval_only` over it with `--device cpu`
+    evaluates the card's checkpoint on the CPU."""
+    import json
+
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    ppo.main(["--env_id", "CartPole-v1", "--dry_run", "--num_envs", "2", "--rollout_steps", "16",
+              "--per_rank_batch_size", "8", "--root_dir", str(tmp_path), "--run_name", "r"])
+    with open(tmp_path / "r" / "metrics.jsonl") as fh:
+        records = [json.loads(line) for line in fh]
+    done = records[-1]
+    assert done["device"].startswith("cuda") and done["updates"] == 1 and len(done["test_returns"]) == 1
+    ckpt = str(tmp_path / "r" / "checkpoints" / "ckpt_1")
+    ppo.main(["--eval_only", "--checkpoint_path", ckpt, "--device", "cpu", "--root_dir", str(tmp_path),
+              "--run_name", "eval"])
+    with open(tmp_path / "eval" / "metrics.jsonl") as fh:
+        done = [json.loads(line) for line in fh][-1]
+    assert done["device"] == "cpu" and done["updates"] == 0
