@@ -41,12 +41,23 @@ class StandardArgs:
         default="float32",
         help="compute dtype of the network forward (float32|bfloat16)",
     )
+    warm_compile: str = Arg(
+        default="off",
+        help="whole-step CUDA graphs (compile/plan.py): on the card every hot "
+        "step (train step, player and policy steps, the minibatch step) runs "
+        "as one replayed graph either way; 'on' warms up and captures each at "
+        "startup from example arguments, 'off' (the default) at its first "
+        "call. A call whose shapes differ from the capture's runs eagerly and "
+        "counts Compile/aot_fallbacks. On the CPU the steps run directly",
+    )
 
     def __setattr__(self, name: str, value: Any) -> None:
         if name == "precision" and value not in ("float32", "bfloat16"):
             raise ValueError(
                 f"precision must be 'float32' or 'bfloat16', got {value!r}"
             )
+        if name == "warm_compile" and value not in ("on", "off"):
+            raise ValueError(f"warm_compile must be 'on' or 'off', got {value!r}")
         super().__setattr__(name, value)
         if name == "log_dir" and value:
             os.makedirs(value, exist_ok=True)

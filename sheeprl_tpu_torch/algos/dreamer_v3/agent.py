@@ -406,14 +406,14 @@ class Actor(tnn.Module):
         )
 
     def forward(self, state: torch.Tensor, is_training: bool = True,
-                generator: torch.Generator | None = None, gumbels: Sequence[torch.Tensor] | None = None):
+                gumbels: Sequence[torch.Tensor] | None = None):
         """-> (actions tuple, distributions tuple): straight-through draws in
-        training (with `gumbels`, one per head, when given, else noise from
-        `generator`), the mode in evaluation."""
+        training (with `gumbels`, one per head, when given), the mode in
+        evaluation."""
         dists = self.dists(state)
         if is_training:
             gumbels = gumbels if gumbels is not None else [None] * len(dists)
-            actions = tuple(d.rsample(g, generator) for d, g in zip(dists, gumbels))
+            actions = tuple(d.rsample(g) for d, g in zip(dists, gumbels))
         else:
             actions = tuple(d.mode for d in dists)
         return actions, dists
@@ -429,29 +429,39 @@ class PlayerState:
 
 
 def exploration_actions(
-    actions: tuple[torch.Tensor, ...], is_continuous: bool, expl_amount: float,
-    generator: torch.Generator | None = None,
+    actions: tuple[torch.Tensor, ...], is_continuous: bool, expl_amount,
+    generator: torch.Generator | None = None, noise: Sequence[tuple[torch.Tensor, torch.Tensor]] | None = None,
 ) -> torch.Tensor:
     """Add exploration noise and concatenate the per-head actions: clipped
-    Gaussian noise for continuous control, epsilon-uniform one-hot swaps per
-    discrete head. With `expl_amount` 0 no draw changes an action, and none
-    is made."""
+    Gaussian noise for continuous control (none at an amount of 0), an
+    epsilon-uniform one-hot swap per discrete head. A discrete head takes
+    its draws from `noise` (uniform [N] for the swapped-in index, uniform
+    [N] for the swap), else from `generator`, and every row takes the same
+    arithmetic whatever the amount (no branch on it, so `expl_amount` may
+    be a device scalar and a CUDA graph of the step serves every amount, 0
+    included)."""
     if is_continuous:
+        if noise is not None:
+            raise NotImplementedError("continuous exploration with given noise is not ported")
         cat = torch.cat(actions, dim=-1)
         if expl_amount <= 0.0:
             return cat
-        noise = torch.randn(cat.shape, generator=generator, device=cat.device, dtype=cat.dtype)
-        return torch.clamp(cat + expl_amount * noise, -1.0, 1.0)
-    if expl_amount <= 0.0:
-        return torch.cat(actions, dim=-1)
+        gauss = torch.randn(cat.shape, generator=generator, device=cat.device, dtype=cat.dtype)
+        return torch.clamp(cat + expl_amount * gauss, -1.0, 1.0)
+    if noise is None:
+        noise = [tuple(torch.rand((2, *act.shape[:-1]), generator=generator, device=act.device)) for act in actions]
     out = []
-    for act in actions:
+    for act, (u_idx, u_take) in zip(actions, noise):
         n = act.shape[-1]
-        rand_idx = torch.randint(0, n, act.shape[:-1], generator=generator, device=act.device)
+        rand_idx = (u_idx * n).long().clamp_max(n - 1)
         rand_one_hot = F.one_hot(rand_idx, n).to(act.dtype)
-        take = torch.rand(act.shape[:-1], generator=generator, device=act.device) < expl_amount
-        out.append(torch.where(take[..., None], rand_one_hot, act))
+        out.append(torch.where((u_take < expl_amount)[..., None], rand_one_hot, act))
     return torch.cat(out, dim=-1)
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """`ops.distributions.gumbel_noise`'s transform of uniform draws."""
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
 class PlayerDV3(tnn.Module):
@@ -499,34 +509,62 @@ class PlayerDV3(tnn.Module):
             stochastic_state=(1 - m) * state.stochastic_state + m * fresh.stochastic_state,
         )
 
-    def step(
-        self,
-        state: PlayerState,
-        obs: dict,
-        gumbel: torch.Tensor | None = None,
-        generator: torch.Generator | None = None,
-        expl_amount: float = 0.0,
-        is_training: bool = True,
-    ) -> tuple[PlayerState, torch.Tensor]:
-        """One action step. The posterior is sampled with `gumbel`
-        ([N, S, D]) when given, else with noise drawn from `generator`.
-        Returns (new_state, actions [N, sum(actions_dim)])."""
+    def _posterior(self, state: PlayerState, obs: dict, gumbel: torch.Tensor):
+        """The recurrent state, the posterior drawn with `gumbel` [N, S, D]
+        (flat [N, S*D]) and their latent, from the compute-dtype obs."""
         dt = _dtype(self.compute_dtype)
-        obs = {k: v.to(dt) for k, v in obs.items()}
-        embedded = self.encoder(obs)
+        embedded = self.encoder({k: v.to(dt) for k, v in obs.items()})
         recurrent = self.rssm.recurrent_model(
             torch.cat([state.stochastic_state, state.actions], dim=-1), state.recurrent_state
         )
-        if gumbel is None:
-            shape = (recurrent.shape[0], self.stochastic_size, self.discrete_size)
-            gumbel = gumbel_noise(shape, generator, recurrent.device)
         _, stochastic = self.rssm._representation(recurrent, embedded, gumbel)
         stochastic = stochastic.reshape(*stochastic.shape[:-2], -1)
-        latent = torch.cat([stochastic, recurrent], dim=-1)
-        actions, _ = self.actor(latent, is_training=is_training, generator=generator)
-        cat = exploration_actions(actions, self.is_continuous, expl_amount, generator)
-        new_state = PlayerState(actions=cat.to(dt), recurrent_state=recurrent, stochastic_state=stochastic)
-        return new_state, cat
+        return recurrent, stochastic, torch.cat([stochastic, recurrent], dim=-1)
+
+    def step(self, state: PlayerState, obs: dict, gumbel: torch.Tensor | None = None,
+             generator: torch.Generator | None = None) -> tuple[PlayerState, torch.Tensor]:
+        """One greedy action step: the actor's mode, no exploration (the
+        served step, and the test episodes' greedy play). The posterior is
+        sampled with `gumbel` ([N, S, D]) when given, else with noise drawn
+        from `generator`. Sampled actions take `noisy_step`.
+        Returns (new_state, actions [N, sum(actions_dim)])."""
+        dt = _dtype(self.compute_dtype)
+        if gumbel is None:
+            rows = state.recurrent_state.shape[0]
+            gumbel = gumbel_noise((rows, self.stochastic_size, self.discrete_size), generator, self.device)
+        recurrent, stochastic, latent = self._posterior(state, obs, gumbel)
+        actions, _ = self.actor(latent, is_training=False)
+        cat = torch.cat(actions, dim=-1)
+        return PlayerState(actions=cat.to(dt), recurrent_state=recurrent, stochastic_state=stochastic), cat
+
+    def noise_width(self) -> int:
+        """The uniform draws a row of `noisy_step` takes: the posterior's
+        S*D Gumbels, one Gumbel a discrete action, and two exploration
+        draws a head."""
+        return self.stochastic_size * self.discrete_size + sum(self.actions_dim) + 2 * len(self.actions_dim)
+
+    def draw_noise(self, n: int, generator: torch.Generator, device) -> torch.Tensor:
+        """One `noisy_step`'s randomness for `n` rows: uniform [n, noise_width] in one draw."""
+        return torch.rand((n, self.noise_width()), generator=generator, device=device)
+
+    def noisy_step(self, state: PlayerState, obs: dict, uniform: torch.Tensor,
+                   expl_amount: torch.Tensor) -> tuple[PlayerState, torch.Tensor]:
+        """A step with sampled actions and all its randomness given, so it
+        can be replayed as one CUDA graph: `uniform` from `draw_noise` (the
+        posterior's Gumbels, the actor's Gumbel-max draws, then the
+        exploration draws of each head) and `expl_amount` a device scalar
+        (the training loop's decaying amount; 0 in the test episodes that
+        sample). Returns (new_state, actions [N, sum(actions_dim)])."""
+        dt = _dtype(self.compute_dtype)
+        rows, sd, a = uniform.shape[0], self.stochastic_size * self.discrete_size, sum(self.actions_dim)
+        gumbel = _gumbel(uniform[:, :sd]).reshape(rows, self.stochastic_size, self.discrete_size)
+        recurrent, stochastic, latent = self._posterior(state, obs, gumbel)
+        head_gumbels = torch.split(_gumbel(uniform[:, sd:sd + a]), list(self.actions_dim), dim=-1)
+        actions, _ = self.actor(latent, is_training=True, gumbels=head_gumbels)
+        draws = uniform[:, sd + a:]
+        noise = [(draws[:, 2 * i], draws[:, 2 * i + 1]) for i in range(len(self.actions_dim))]
+        cat = exploration_actions(actions, self.is_continuous, expl_amount, noise=noise)
+        return PlayerState(actions=cat.to(dt), recurrent_state=recurrent, stochastic_state=stochastic), cat
 
 
 def build_models(

@@ -48,6 +48,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ...compile.plan import CompilePlan
 from ...data.buffers import AsyncReplayBuffer
 from ...nn.blocks import MLP
 from ...ops.distributions import (
@@ -61,11 +62,11 @@ from ...ops.distributions import (
 )
 from ...ops.math import lambda_values_dv3, polynomial_decay
 from ...ops.moments import Moments
-from ...ops.optim import apply_gradients, clip_by_global_norm, global_norm
+from ...ops.optim import adam, apply_gradients, clip_by_global_norm, global_norm, load_optimizer_state
 from ...ops.precision import compute_dtype, to_compute, to_float32
 from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
 from ...utils.device import resolve_device
-from ...utils.env import make_dict_env
+from ...utils.env import make_dict_env, obs_zeros
 from ...utils.evaluation import apply_eval_overrides, run_test_episodes, validate_eval_args
 from ...utils.logger import create_logger
 from ...utils.parser import DataclassArgumentParser
@@ -122,17 +123,19 @@ def restore_state(state: DV3TrainState, ckpt: dict) -> None:
         module.load_state_dict(ckpt[key])
     for key, opt in (("world_optimizer", state.world_opt), ("actor_optimizer", state.actor_opt),
                      ("critic_optimizer", state.critic_opt)):
-        opt.load_state_dict(ckpt[key])
+        load_optimizer_state(opt, ckpt[key])
     state.moments.load_state_dict(ckpt["moments"])
 
 
 def make_optimizers(args: DreamerV3Args, world_model, actor, critic):
     """Three Adams (eps 1e-8 / 1e-5 / 1e-5, the reference's `optax.adam`
-    settings); the step clips with `clip_by_global_norm` before each."""
+    settings), capturable where the models live on CUDA; the step clips
+    with `clip_by_global_norm` before each."""
+    device = next(world_model.parameters()).device
     return (
-        torch.optim.Adam(world_model.parameters(), lr=args.world_lr, eps=1e-8),
-        torch.optim.Adam(actor.parameters(), lr=args.actor_lr, eps=1e-5),
-        torch.optim.Adam(critic.parameters(), lr=args.critic_lr, eps=1e-5),
+        adam(world_model.parameters(), args.world_lr, 1e-8, device),
+        adam(actor.parameters(), args.actor_lr, 1e-5, device),
+        adam(critic.parameters(), args.critic_lr, 1e-5, device),
     )
 
 
@@ -155,13 +158,21 @@ def draw_noise(args: DreamerV3Args, seq_len: int, batch: int, actions_dim: Seque
 
 
 def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequence[str],
-                    actions_dim: Sequence[int], is_continuous: bool):
+                    actions_dim: Sequence[int], is_continuous: bool, plan: CompilePlan | None = None,
+                    example=None):
     """The DreamerV3 update (the reference's `make_train_step`) ->
     `train_step(state, data, tau, noise) -> metrics`: `data` holds [T, B, ...]
     tensors on the models' device (`rewards`, `dones`, `is_first`,
     `actions` and the observation keys, pixels as uint8), `tau` the EMA
-    weight of the target critic (0 skips the update), `noise` the draws of
-    `draw_noise`. The metrics are the reference's 13, as a dict of floats."""
+    weight of the target critic (0 leaves it as it is), `noise` the draws of
+    `draw_noise`. The metrics are the reference's 13, as a dict of floats.
+
+    The step has two parts. The device part, `train_step.device_step(state,
+    data, tau, noise) -> the 13 metrics as one f32 tensor`, takes `tau` as a
+    device scalar and holds the world, actor and critic steps and their
+    three Adams; with `plan` it is registered there as "train_step" (with
+    the `example` thunk), so on the card it runs as one CUDA graph. The host
+    part makes the scalar and pulls the metrics (`.cpu().tolist()`)."""
     if is_continuous:
         raise NotImplementedError("continuous-action training is not ported yet")
     # the forwards run in the compute dtype; parameters stay f32 (every
@@ -256,13 +267,14 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         norm = apply_gradients(params, _grads(value_loss, params), state.critic_opt, args.critic_clip_gradients)
         return value_loss, norm
 
-    def train_step(state: DV3TrainState, data: dict, tau: float, noise: dict) -> dict[str, float]:
+    def device_step(state: DV3TrainState, data: dict, tau: torch.Tensor, noise: dict) -> torch.Tensor:
         # EMA target-critic update before the gradient step, with the
-        # pre-update critic (the reference's ordering); tau 0 is a no-op
-        if tau > 0.0:
-            with torch.no_grad():
-                for t, c in zip(state.target_critic.parameters(), state.critic.parameters()):
-                    t.copy_(tau * c + (1.0 - tau) * t)
+        # pre-update critic (the reference's ordering). `tau` is a device
+        # scalar applied at every step, as in the reference: with a finite
+        # critic, 0 * c + 1 * t is t bit for bit
+        with torch.no_grad():
+            for t, c in zip(state.target_critic.parameters(), state.critic.parameters()):
+                t.copy_(tau * c + (1.0 - tau) * t)
         losses, wm_norm, recurrent_states, posteriors, priors_logits, posteriors_logits = world_step(
             state, data, noise
         )
@@ -286,12 +298,18 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
             post_entropy = OneHotCategorical(posteriors_logits.reshape(shaped)).entropy().sum(-1).mean()
             prior_entropy = OneHotCategorical(priors_logits.reshape(shaped)).entropy().sum(-1).mean()
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        values = torch.stack([
+        return torch.stack([
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, policy_loss, value_loss,
             kl, post_entropy, prior_entropy, wm_norm, actor_norm, critic_norm,
-        ]).detach().float().cpu().tolist()
-        return dict(zip(METRICS, values))
+        ]).detach().float()
 
+    step = device_step if plan is None else plan.register("train_step", device_step, example=example, role="update")
+
+    def train_step(state: DV3TrainState, data: dict, tau: float, noise: dict) -> dict[str, float]:
+        tau_t = torch.full((), float(tau), device=data["dones"].device)
+        return dict(zip(METRICS, step(state, data, tau_t, noise).cpu().tolist()))
+
+    train_step.device_step = step
     return train_step
 
 
@@ -369,7 +387,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         world_model, actor, critic, target_critic,
         *make_optimizers(args, world_model, actor, critic),
         Moments(args.moments_decay, args.moment_max, args.moments_percentile_low,
-                args.moments_percentile_high),
+                args.moments_percentile_high, device=device),
     )
     expl_decay_steps, start_step, resumed = 0, 1, None
     if args.checkpoint_path:
@@ -393,13 +411,36 @@ def main(argv: Sequence[str] | None = None) -> None:
         compute_dtype=args.precision,
     )
     preprocess = make_device_preprocess(cnn_keys)
-    train_step = make_train_step(args, cnn_keys, mlp_keys, actions_dim, is_continuous)
-
     n_envs = args.num_envs
     if args.dry_run:
         # one iteration: the first (and only) training samples from the one
         # row each env ring holds
         args.per_rank_sequence_length = min(args.per_rank_sequence_length, max(args.train_every // n_envs, 1))
+
+    # the hot steps as CUDA graphs on the card (compile/plan.py): the
+    # gradient step and the player step, with example arguments of their
+    # shapes for --warm_compile on
+    plan = CompilePlan.from_args(args)
+
+    def _train_example():
+        T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+        data = obs_zeros(observation_space.spaces, obs_keys, (T, B), device)
+        data["actions"] = torch.zeros((T, B, int(sum(actions_dim))), device=device)
+        data.update({k: torch.zeros((T, B, 1), device=device) for k in ("rewards", "dones", "is_first")})
+        noise = draw_noise(args, T, B, actions_dim, torch.Generator(device=device).manual_seed(0), device)
+        return state, data, torch.ones((), device=device), noise
+
+    train_step = make_train_step(args, cnn_keys, mlp_keys, actions_dim, is_continuous, plan=plan,
+                                 example=_train_example)
+
+    def _player_step(player, player_state, obs: dict, uniform, expl):
+        with torch.no_grad():
+            return player.noisy_step(player_state, preprocess(obs), uniform, expl)
+
+    player_step = plan.register("player_step", _player_step, example=lambda: (
+        player, player.init_states(n_envs), obs_zeros(observation_space.spaces, obs_keys, (n_envs,), device),
+        player.draw_noise(n_envs, torch.Generator(device=device).manual_seed(0), device),
+        torch.zeros((), device=device)))
     buffer_size = args.buffer_size // n_envs if not args.dry_run else 2
     rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed)
     buffer_ckpt = os.path.abspath(args.checkpoint_path) + "_buffer.npz" if args.checkpoint_path else None
@@ -432,6 +473,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     # gradient step after it takes tau 1
     gradient_steps = player_steps = env_steps = 0
     policy_collect_s, step_ms, checkpoints = 0.0, [], []
+    plan.start()
     start = time.perf_counter()
     if args.eval_only:
         num_updates = start_step - 1  # no training: straight to the test episodes
@@ -441,10 +483,10 @@ def main(argv: Sequence[str] | None = None) -> None:
             actions = _random_actions(rng, actions_dim, n_envs)
         else:
             with torch.inference_mode():
-                dev_obs = preprocess({k: torch.from_numpy(step_data[k]).to(device) for k in obs_keys})
-                player_state, acts = player.step(
-                    player_state, dev_obs, generator=noise_gen, expl_amount=expl_amount, is_training=True
-                )
+                dev_obs = {k: torch.from_numpy(step_data[k]).to(device) for k in obs_keys}
+                player_state, acts = player_step(player, player_state, dev_obs,
+                                                 player.draw_noise(n_envs, noise_gen, device),
+                                                 torch.full((), float(expl_amount), device=device))
             actions = acts.float().cpu().numpy()
             player_steps += 1
         step_data["actions"] = actions
@@ -541,6 +583,7 @@ def main(argv: Sequence[str] | None = None) -> None:
 
     for env in envs:
         env.close()
+    plan.close()
     test_steps: list[int] = []
 
     def episode() -> float:
@@ -558,7 +601,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         "policy_env_steps_per_s": player_steps * n_envs / policy_collect_s if policy_collect_s > 0 else None,
         "device": str(device), "checkpoints": checkpoints, "resumed": resumed,
         "test_returns": test_returns, "test_player_steps": test_steps, "test_ms": test_ms,
-        **_params_delta(start_params, state),
+        **_params_delta(start_params, state), "compile": plan.gauges(), "compile_stats": plan.stats(),
     }
     logger.record(summary)
     print(f"[dreamer_v3] done: {gradient_steps} gradient steps, {env_steps} env steps, run dir {run_dir}",

@@ -33,13 +33,15 @@ def test(player, logger, args, cnn_keys, sample_actions: bool = False) -> tuple[
     """Play one episode in a fresh env reset with `args.seed`, from
     `player.init_states(1)`, and log `Test/cumulative_reward`. Actions are
     the actor's samples when `sample_actions` (the reference's final test
-    passes True), drawn from a generator seeded by `args.seed`, else its
-    mode; no exploration noise. A `--dry_run` episode ends after one step.
+    passes True: `noisy_step` with uniform draws from a generator seeded by
+    `args.seed` and an exploration amount of 0), else its mode (`step`,
+    the posterior drawn from that generator). A `--dry_run` episode ends after one step.
     -> (the episode's return, its player steps)."""
     env = make_dict_env(args.env_id, args.seed, rank=0, args=args, prefix="test")()
     device = player.device
     preprocess = make_device_preprocess(cnn_keys)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    no_exploration = torch.zeros((), device=device)
     obs, _ = env.reset(seed=args.seed)
     with torch.inference_mode():
         state = player.init_states(1)
@@ -47,8 +49,11 @@ def test(player, logger, args, cnn_keys, sample_actions: bool = False) -> tuple[
     while not done:
         with torch.inference_mode():
             dev_obs = preprocess({k: torch.as_tensor(np.asarray(v)[None], device=device) for k, v in obs.items()})
-            state, actions = player.step(state, dev_obs, generator=generator, expl_amount=0.0,
-                                         is_training=sample_actions)
+            if sample_actions:
+                state, actions = player.noisy_step(state, dev_obs, player.draw_noise(1, generator, device),
+                                                   no_exploration)
+            else:
+                state, actions = player.step(state, dev_obs, generator=generator)
         act = one_hot_to_env_actions(actions.float(), player.actions_dim, player.is_continuous)[0]
         if isinstance(env.action_space, spaces.Discrete):
             act = act.item()

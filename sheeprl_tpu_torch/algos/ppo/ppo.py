@@ -39,10 +39,11 @@ import torch
 from ...data.buffers import ReplayBuffer
 from ...envs import spaces
 from ...ops.math import gae, normalize, polynomial_decay
-from ...ops.optim import apply_gradients
+from ...compile.plan import CompilePlan
+from ...ops.optim import adam, apply_gradients, load_optimizer_state
 from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
 from ...utils.device import resolve_device
-from ...utils.env import make_dict_env
+from ...utils.env import make_dict_env, obs_zeros
 from ...utils.evaluation import apply_eval_overrides, run_test_episodes, validate_eval_args
 from ...utils.logger import create_logger
 from ...utils.parser import DataclassArgumentParser
@@ -104,10 +105,10 @@ def build_agent(args: PPOArgs, actions_dim: Sequence[int], is_continuous: bool, 
 
 
 def make_optimizer(args: PPOArgs, agent: PPOAgent) -> torch.optim.Adam:
-    """Adam with the reference's eps (optax `scale_by_adam`); the train step
-    clips by global norm before it when `max_grad_norm` > 0 and sets the lr
-    of each update."""
-    return torch.optim.Adam(agent.parameters(), lr=args.lr, eps=args.eps)
+    """Adam with the reference's eps (optax `scale_by_adam`), capturable
+    where the agent lives on CUDA; the train step clips by global norm
+    before it when `max_grad_norm` > 0 and sets the lr of each update."""
+    return adam(agent.parameters(), args.lr, args.eps, next(agent.parameters()).device)
 
 
 @torch.no_grad()
@@ -129,7 +130,24 @@ def compute_gae_returns(agent: PPOAgent, data: dict, next_obs: dict, next_done: 
     return gae(data["rewards"], data["values"], data["dones"], next_value, next_done, gamma, gae_lambda)
 
 
-def make_train_step(args: PPOArgs, num_minibatches: int):
+def _static_batch(step, data: dict) -> dict:
+    """`data` copied into the captured minibatch step's own batch tensors,
+    which a replay then reads without a copy; `data` itself before the
+    capture, on the CPU, or if its shapes differ from the capture's."""
+    static = getattr(step, "static_args", lambda: None)()
+    if static is None:
+        return data
+    batch = static[2]
+    if batch.keys() != data.keys() or any(batch[k].shape != v.shape or batch[k].dtype != v.dtype
+                                          for k, v in data.items()):
+        return data
+    with torch.no_grad():
+        for k, v in data.items():
+            batch[k].copy_(v)
+    return batch
+
+
+def make_train_step(args: PPOArgs, num_minibatches: int, plan: CompilePlan | None = None, example=None):
     """The PPO update -> `train_step(agent, optimizer, data, lr, clip_coef,
     ent_coef, generator=None, perms=None) -> metrics`. `data` holds flat
     `[n, ...]` tensors (the observation keys, `actions`, `logprobs`,
@@ -137,7 +155,20 @@ def make_train_step(args: PPOArgs, num_minibatches: int):
     takes `num_minibatches` Adam steps of `n // num_minibatches` rows from
     its permutation, dropping the remainder: `perms` (`[epochs, n]`, the
     reference's own in the parity tests) or `torch.randperm` from
-    `generator`. The metrics are the mean of each loss over the steps."""
+    `generator`. The metrics are the mean of each loss over the steps.
+
+    One Adam step is `train_step.minibatch_step(agent, optimizer, data,
+    idx, lr, clip_coef, ent_coef) -> the three losses`: the gather of the
+    minibatch's rows by the index tensor, the forward, the gradients, the
+    clip and Adam, with `lr`, `clip_coef` and `ent_coef` as device scalars
+    (the annealed values a CUDA graph must read at every replay; a
+    capturable Adam reads the lr tensor, another the update's float). With
+    `plan` it is registered there as "minibatch_step" (with the `example`
+    thunk); once it is captured, each update copies `data` into the
+    step's static batch once and passes that, so a replay copies only the
+    index and the three scalars. On the host stay the permutations, the
+    loops over epochs and minibatches, and one pull of the losses an
+    update."""
     obs_keys = (*args.cnn_keys, *args.mlp_keys)
 
     def loss_fn(agent: PPOAgent, batch: dict, clip_coef: float, ent_coef: float):
@@ -151,26 +182,45 @@ def make_train_step(args: PPOArgs, num_minibatches: int):
         ent = entropy_loss(entropy, args.loss_reduction)
         return pg + args.vf_coef * vf + ent_coef * ent, torch.stack([pg, vf, ent]).detach()
 
+    def minibatch_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, data: dict, idx: torch.Tensor,
+                       lr: torch.Tensor, clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> torch.Tensor:
+        for group in optimizer.param_groups:
+            if group.get("capturable"):
+                group["lr"] = lr
+        params = list(agent.parameters())
+        loss, parts = loss_fn(agent, {k: v[idx] for k, v in data.items()}, clip_coef, ent_coef)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        apply_gradients(params, grads, optimizer, args.max_grad_norm)
+        return parts
+
+    step = minibatch_step if plan is None else plan.register("minibatch_step", minibatch_step, example=example,
+                                                             role="update")
+
     def train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, data: dict, lr: float, clip_coef: float,
                    ent_coef: float, generator: torch.Generator | None = None,
                    perms: torch.Tensor | None = None) -> dict[str, float]:
         n = data["logprobs"].shape[0]
         mb_size = n // num_minibatches
+        device = data["logprobs"].device
+        scalars = [torch.full((), float(v), device=device) for v in (lr, clip_coef, ent_coef)]
         for group in optimizer.param_groups:
-            group["lr"] = lr
-        params = [p for p in agent.parameters()]
-        losses = []
+            group["lr"] = float(lr)
+        losses, batch = [], data
         for epoch in range(args.update_epochs):
             perm = perms[epoch] if perms is not None else torch.randperm(n, generator=generator)
-            idxes = perm[: num_minibatches * mb_size].reshape(num_minibatches, mb_size).to(data["logprobs"].device)
+            idxes = perm[: num_minibatches * mb_size].reshape(num_minibatches, mb_size).to(device)
             for idx in idxes:
-                loss, parts = loss_fn(agent, {k: v[idx] for k, v in data.items()}, clip_coef, ent_coef)
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-                apply_gradients(params, grads, optimizer, args.max_grad_norm)
-                losses.append(parts)
+                if batch is data:
+                    batch = _static_batch(step, data)
+                # the step's outputs are a graph's static outputs on the
+                # card, overwritten by the next replay
+                losses.append(step(agent, optimizer, batch, idx, *scalars).clone())
+        for group in optimizer.param_groups:  # a float in the checkpoint, as the reference's
+            group["lr"] = float(lr)
         return dict(zip(LOSSES, torch.stack(losses).mean(0).cpu().tolist()))
 
+    train_step.minibatch_step = step
     return train_step
 
 
@@ -191,20 +241,22 @@ class Rollout:
         return {k: torch.from_numpy(np.stack([o[k] for o in self.obs])).to(device) for k in keys}
 
     def collect(self, agent: PPOAgent, rb: ReplayBuffer, obs_keys: Sequence[str],
-                generator: torch.Generator) -> None:
+                generator: torch.Generator, step=policy_step) -> None:
         """`rb.buffer_size` policy steps into `rb`, their sampling noise
         drawn at once from `generator` and moved to the agent's device in
         one copy; each step pulls only the env action indices to the host
         (with host storage also the log-prob and value; the obs and the
         one-hot are rebuilt there). An env whose episode ends resets in the
-        same step; a row's `dones` is the done flag entering its step."""
+        same step; a row's `dones` is the done flag entering its step.
+        `step` is `policy_step` or its graphed twin (`main` registers it);
+        its outputs are copied into `rb` before the next step."""
         device = next(agent.parameters()).device
         host = rb.prefers_host_adds
         noise = agent.draw_noise(generator, rb.buffer_size, len(self.envs)).to(device)
         for t in range(rb.buffer_size):
             host_obs = {k: np.stack([o[k] for o in self.obs]) for k in obs_keys}
             obs = {k: torch.from_numpy(v).to(device) for k, v in host_obs.items()}
-            actions, logprob, value, env_idx = policy_step(agent, obs, noise[t])
+            actions, logprob, value, env_idx = step(agent, obs, noise[t])
             env_idx = env_idx.cpu().numpy()
             env_actions = indices_to_env_actions(env_idx, agent.actions_dim, agent.is_continuous)
             rewards, dones = np.zeros(len(self.envs), np.float32), np.zeros(len(self.envs), np.float32)
@@ -294,7 +346,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     if args.checkpoint_path:
         ckpt = load_checkpoint(args.checkpoint_path, device)
         agent.load_state_dict(ckpt["agent"])
-        optimizer.load_state_dict(ckpt["optimizer"])
+        load_optimizer_state(optimizer, ckpt["optimizer"])
         gen.set_state(ckpt["generator"].cpu())
         start_update = int(ckpt["update_step"]) + 1
         resumed = {"checkpoint": os.path.abspath(args.checkpoint_path), "start_update": start_update}
@@ -305,13 +357,33 @@ def main(argv: Sequence[str] | None = None) -> None:
     # a dry run takes exactly one update, also after a resume
     num_updates = args.total_steps // rollout_size if not args.dry_run else start_update
     num_minibatches = max(rollout_size // args.per_rank_batch_size, 1)
-    train_step = make_train_step(args, num_minibatches)
     rb = ReplayBuffer(args.rollout_steps, n_envs, storage="device", device=device, obs_keys=obs_keys,
                       seed=args.seed)
+
+    # the policy step and the minibatch step as CUDA graphs on the card
+    # (compile/plan.py), with example arguments of their shapes for
+    # --warm_compile on
+    plan = CompilePlan.from_args(args)
+
+    def _obs(lead: tuple) -> dict:
+        return obs_zeros(observation_space.spaces, obs_keys, lead, device)
+
+    def _minibatch_example():
+        data = {**_obs((rollout_size,)), "actions": torch.zeros((rollout_size, int(sum(actions_dim))), device=device),
+                **{k: torch.zeros((rollout_size, 1), device=device)
+                   for k in ("logprobs", "values", "returns", "advantages")}}
+        idx = torch.zeros((rollout_size // num_minibatches,), dtype=torch.int64, device=device)
+        return (agent, optimizer, data, idx, *(torch.full((), v, device=device)
+                                               for v in (args.lr, args.clip_coef, args.ent_coef)))
+
+    train_step = make_train_step(args, num_minibatches, plan=plan, example=_minibatch_example)
+    graphed_policy_step = plan.register("policy_step", policy_step, example=lambda: (
+        agent, _obs((n_envs,)), agent.draw_noise(torch.Generator(device=device), n_envs)))
 
     rollout = Rollout(envs, args.seed)
     rollout_ms, train_ms, checkpoints = [], [], []
     env_steps = 0
+    plan.start()
     start = time.perf_counter()
     if args.eval_only:
         num_updates = start_update - 1  # no update: straight to the test episodes
@@ -322,7 +394,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                                   (args.ent_coef, args.anneal_ent_coef))
         )
         t0 = time.perf_counter()
-        rollout.collect(agent, rb, obs_keys, gen)
+        rollout.collect(agent, rb, obs_keys, gen, step=graphed_policy_step)
         env_steps += rollout_size
         t1 = time.perf_counter()
         batch = rollout_batch(agent, rb, rollout, obs_keys, args)
@@ -354,6 +426,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                                 "save_ms": (time.perf_counter() - t_save) * 1e3})
     for env in envs:
         env.close()
+    plan.close()
 
     t_test = time.perf_counter()
     test_returns = run_test_episodes(
@@ -365,7 +438,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         "event": "done", "updates": len(train_ms), "env_steps": env_steps, "rollout_ms": rollout_ms,
         "train_ms": train_ms, "env_steps_per_s": env_steps / max(sum(rollout_ms) + sum(train_ms), 1e-9) * 1e3,
         "device": str(device), "checkpoints": checkpoints, "resumed": resumed, "test_returns": test_returns,
-        "test_ms": (time.perf_counter() - t_test) * 1e3,
+        "test_ms": (time.perf_counter() - t_test) * 1e3, "compile": plan.gauges(), "compile_stats": plan.stats(),
     })
     print(f"[ppo] done: {len(train_ms)} updates, {env_steps} env steps, test returns {test_returns}, "
           f"run dir {run_dir}", flush=True)

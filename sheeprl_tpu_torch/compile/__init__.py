@@ -1,2 +1,7 @@
-"""Measured decisions (the port of sheeprl_tpu/compile/decisions.py, the
-part the int8 serving ladder needs)."""
+"""Compilation for the port (the counterpart of sheeprl_tpu/compile/): the
+plan of whole-step CUDA graphs (`plan.py`) and measured decisions (the part
+of `decisions.py` the int8 serving ladder needs)."""
+
+from .plan import CompilePlan, WarmJit, graphed
+
+__all__ = ["CompilePlan", "WarmJit", "graphed"]

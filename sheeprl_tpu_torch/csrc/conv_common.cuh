@@ -184,7 +184,10 @@ __device__ __forceinline__ void stage_mma(const T* As, const T* Bs, float (&acc)
 }
 
 // two blocks an SM: at most 128 registers a thread
-template <typename T, int WM, bool DECONV>
+// RES names the instantiation launched for the residual-writing forward
+// (`pre_out` set); the code is the same, so a profile can tell
+// conv_ln_silu_residuals' launches from conv_ln_silu's by the name alone
+template <typename T, int WM, bool DECONV, bool RES>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_gemm_kernel(const __grid_constant__ Gemm q) {
   using TL = Tile<T, WM>;
@@ -576,7 +579,8 @@ bool check_plan(int P, int K, int Cout, int phases, int wm, int splits, int k_pe
 // writes the residual itself).
 template <typename T, int WM, bool DECONV>
 int launch_gemm(Gemm q, int phases, int smem, cudaStream_t stream) {
-  auto kernel = conv_gemm_kernel<T, WM, DECONV>;
+  const auto kernel = q.pre_out != nullptr ? conv_gemm_kernel<T, WM, DECONV, true>
+                                           : conv_gemm_kernel<T, WM, DECONV, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kBM = Tile<T, WM>::kBM, kBN = Tile<T, WM>::kBN;

@@ -247,7 +247,10 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
-template <typename T>
+// kResiduals names the instantiation that writes `hat` and `rstd` (the
+// forward under autodiff); the code is the same, so a profile can tell the
+// two wrappers' launches apart by the kernel's name alone
+template <typename T, bool kResiduals>
 __global__ void __launch_bounds__(kRowThreads)
 gru_row_kernel(const float* __restrict__ parts, const T* __restrict__ h,
                const float* __restrict__ scale, const float* __restrict__ offset,
@@ -342,8 +345,9 @@ int launch(const void* x, const void* h, const void* w, const float* scale,
   if (err != cudaSuccess) return err;
   const int N = 3 * H;
   const size_t smem = static_cast<size_t>(N) * sizeof(float);
+  const auto row_kernel = hat != nullptr ? gru_row_kernel<T, true> : gru_row_kernel<T, false>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(gru_row_kernel<T>,
+    const cudaError_t e = cudaFuncSetAttribute(row_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -360,7 +364,7 @@ int launch(const void* x, const void* h, const void* w, const float* scale,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gru_row_kernel<T>, static_cast<const float*>(parts), ht, scale,
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, row_kernel, static_cast<const float*>(parts), ht, scale,
                                            offset, static_cast<T*>(out), hat, rstd, B, H, splits, eps);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

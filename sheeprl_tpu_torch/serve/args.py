@@ -73,6 +73,14 @@ class ServeArgs(StandardArgs):
         "a rung whose divergence exceeds the bound is disqualified and keeps "
         "serving f32. 'off' (default) serves f32",
     )
+    # serving wants its graphs before the first request, as the reference
+    # wants its AOT executables
+    warm_compile: str = Arg(
+        default="on",
+        help="capture the per-rung policy steps as CUDA graphs at startup "
+        "('on', the default for serving) or at each rung's first dispatch "
+        "('off'); on the CPU the steps run directly",
+    )
     quant_bound: float = Arg(
         default=0.05,
         help="max tolerated action divergence (max |delta| over the held-out "

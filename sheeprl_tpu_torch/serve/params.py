@@ -10,6 +10,12 @@ they already grabbed, so no request ever observes a half-swapped model.
 Failure semantics: a reload that raises keeps serving version N and only
 increments `Serve/reload_failures` — a corrupt checkpoint degrades the
 freshness of the policy, never its availability.
+
+`GraphParams` keeps, per kind of params (f32, int8), the object the rungs'
+CUDA graphs were captured with: a graph reads its parameters by address,
+so before a dispatch of a newer version the dispatch thread copies that
+version's tensors into the held object's, on its own stream, ahead of the
+replay. A dispatch still sees one whole version, never a mix of two.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import threading
 import time
 from typing import Any, Callable
 
-__all__ = ["ParamsStore"]
+import torch
+
+__all__ = ["GraphParams", "ParamsStore"]
 
 
 class ParamsStore:
@@ -116,3 +124,26 @@ class ParamsStore:
             # failed; reload availability must not depend on telemetry
             except Exception:
                 pass
+
+
+class GraphParams:
+    """The params object each kind of rung ("f32", "int8") is captured with,
+    and the version its tensors hold. Only the dispatch thread calls `sync`."""
+
+    def __init__(self):
+        self._held: dict[str, list] = {}  # kind -> [version, params]
+
+    def sync(self, kind: str, version: int, params: Any) -> Any:
+        """The held object of `kind`, holding `version`'s tensors: the first
+        object seen is kept; a newer version's state is copied into it."""
+        slot = self._held.get(kind)
+        if slot is None:
+            self._held[kind] = [version, params]
+            return params
+        if slot[0] != version:
+            src = params.state_dict()
+            with torch.no_grad():
+                for k, dst in slot[1].state_dict().items():
+                    dst.copy_(src[k])
+            slot[0] = version
+        return slot[1]

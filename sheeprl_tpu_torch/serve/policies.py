@@ -84,15 +84,27 @@ class SACServePolicy:
         self.obs_dim = obs_dim
         self.act_dim = act_dim
         self.device = device
+        self._obs: dict[int, torch.Tensor] = {}  # the rung's observation buffer
 
     @staticmethod
     def step(actor, obs: torch.Tensor) -> torch.Tensor:
         return actor.get_greedy_actions(obs)
 
+    def obs_buffer(self, rung: int) -> torch.Tensor:
+        """The rung's observation buffer on the device: a rung's graph
+        reads it in place (`CompilePlan.register(adopt=True)`)."""
+        if rung not in self._obs:
+            self._obs[rung] = torch.zeros((rung, self.obs_dim), device=self.device)
+        return self._obs[rung]
+
+    def example(self, params, rung: int) -> tuple:
+        return params, self.obs_buffer(rung)
+
     def run(self, runner: Callable, params, version, batch, pendings, rung) -> dict:
-        del version, pendings, rung
+        del version, pendings
         with torch.inference_mode():
-            obs = torch.from_numpy(np.asarray(batch["obs"], dtype=np.float32)).to(self.device)
+            obs = self.obs_buffer(rung)
+            obs.copy_(torch.from_numpy(np.asarray(batch["obs"], dtype=np.float32)))
             acts = runner(params, obs)
             return {"actions": acts.float().cpu().numpy()}
 
@@ -154,6 +166,7 @@ class DV3ServePolicy:
         self._sessions: dict[str, dict[str, torch.Tensor]] = {}
         self._init_cache: tuple[int, dict[str, torch.Tensor]] | None = None
         self._prep = make_device_preprocess(cnn_keys)
+        self._buffers: dict[int, tuple[dict, dict]] = {}  # rung -> (state, obs) on the device
 
     def step(self, player, state: dict, obs: dict) -> tuple[dict, torch.Tensor]:
         """One greedy player step over a batch of state rows and raw obs."""
@@ -165,15 +178,28 @@ class DV3ServePolicy:
             stochastic_state=state["stochastic"],
         )
         rows = st.recurrent_state.shape[0]
-        new_st, acts = player.step(
-            st, self._prep(obs), gumbel=self.gumbel.expand(rows, -1, -1),
-            expl_amount=0.0, is_training=False,
-        )
+        new_st, acts = player.step(st, self._prep(obs), gumbel=self.gumbel.expand(rows, -1, -1))
         return {
             "actions": new_st.actions,
             "recurrent": new_st.recurrent_state,
             "stochastic": new_st.stochastic_state,
         }, acts
+
+    def buffers(self, rung: int, params) -> tuple[dict, dict]:
+        """The rung's state and observation buffers on the device: a rung's
+        graph reads them in place (`CompilePlan.register(adopt=True)`)."""
+        from ..utils.env import obs_zeros
+
+        if rung not in self._buffers:
+            with torch.no_grad():
+                st = params.init_states(rung)
+            state = {"actions": st.actions, "recurrent": st.recurrent_state, "stochastic": st.stochastic_state}
+            obs = obs_zeros(self.obs_space, self.obs_keys, (rung,), self.device)
+            self._buffers[rung] = (state, obs)
+        return self._buffers[rung]
+
+    def example(self, params, rung: int) -> tuple:
+        return (params, *self.buffers(rung, params))
 
     # ---- state rows --------------------------------------------------------
     def init_row(self, version: int, params) -> dict[str, torch.Tensor]:
@@ -203,15 +229,22 @@ class DV3ServePolicy:
         while len(rows) < rung:  # pad rows carry the inert init state
             rows.append(init)
         with torch.inference_mode():
-            state = {k: torch.stack([r[k] for r in rows]) for k in ("actions", "recurrent", "stochastic")}
-            obs = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in self.obs_keys}
+            state, obs = self.buffers(rung, params)
+            for k, buf in state.items():
+                torch.stack([r[k] for r in rows], out=buf)
+            for k, buf in obs.items():
+                buf.copy_(torch.from_numpy(np.asarray(batch[k])))
             new_state, acts = runner(params, state, obs)
             actions = acts.float().cpu().numpy()
+            # on the card the runner's outputs are a graph's static outputs,
+            # overwritten by the next dispatch: the session rows are views of
+            # a copy
+            kept = {k: v.clone() for k, v in new_state.items()}
         # scatter updated rows back; only the dispatch thread touches the
         # table, so plain dict ops are race-free
         for i, sid in enumerate(sids):
             if sid is not None:
-                self._sessions[sid] = {k: v[i] for k, v in new_state.items()}
+                self._sessions[sid] = {k: v[i] for k, v in kept.items()}
         while len(self._sessions) > self.session_cap:  # FIFO eviction
             self._sessions.pop(next(iter(self._sessions)))
         return {"actions": actions}

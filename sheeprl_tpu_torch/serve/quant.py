@@ -5,7 +5,8 @@ calibration, quality-receipt rung acceptance, and quantized dispatch.
     batches (or loads the `quant_scales.npz` persisted beside a checkpoint)
     and returns a copy of the served actor with its `Linear`s swapped for
     `QuantLinear`s;
-  - each ladder rung is then timed through `compile/decisions.py:decide`
+  - each ladder rung is then timed through `compile/decisions.py:decide`,
+    each candidate graphed as the rung serves it (`compile/plan.py:graphed`),
     under bounded-divergence acceptance: int8 wins a rung only when it is
     faster AND its max action divergence on the held-out set stays within
     `--quant_bound`; past the bound it is disqualified and the rung keeps
@@ -42,6 +43,7 @@ import torch
 import torch.nn as tnn
 
 from ..compile.decisions import tree_leaves
+from ..compile.plan import graphed
 from ..ops.kernels.int8_trunk import fused_int8_trunk, fused_int8_trunk_supported
 from ..ops.precision import compute_dtype
 
@@ -194,10 +196,14 @@ class QuantState:
             # on them, so the measured divergence is the committed receipt
             example = self._calib_inputs(version, params, rung, self.seed + _HELD_OUT_SEED_OFFSET)
 
-            def build(label, _p=params, _q=qparams):
+            def build(label, _p=params, _q=qparams, _r=rung):
+                # each candidate as the rung would serve it: one CUDA graph
+                # on the card (compile/plan.py), timed by its replays
                 if label == "int8":
-                    return lambda *a: step_int8(_q, *a)
-                return lambda *a: step_f32(_p, *a)
+                    step = lambda *a: step_int8(_q, *a)  # noqa: E731
+                else:
+                    step = lambda *a: step_f32(_p, *a)  # noqa: E731
+                return graphed(f"decide_{label}_b{_r}", step, self.policy.device, self.telem)
 
             d = dec.decide(
                 "serve_quant",

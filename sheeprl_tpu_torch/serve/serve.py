@@ -16,7 +16,13 @@ Wiring, in dependency order:
      checkpoint off the dispatch path and flips to it; a reload that fails
      keeps the version and counts `Serve/reload_failures`), micro-batcher
      (batcher.py), FLK1 socket front (server.py);
-  5. the serve loop: `Serve/*` telemetry intervals and graceful drain on
+  5. the per-rung steps registered with the CompilePlan as `policy_b<rung>`
+     (compile/plan.py): on the card each dispatch is one CUDA graph replay,
+     captured at startup (`--warm_compile on`, the default) or at the
+     rung's first dispatch. A graph holds its parameters by address, so the
+     dispatch thread copies a reloaded version's tensors into the held ones
+     before the replay (params.py:`GraphParams`);
+  6. the serve loop: `Serve/*` telemetry intervals and graceful drain on
      SIGTERM/SIGINT — queued requests are served, NEW requests are shed
      with reason="draining", and the process exits rc 75.
      `--serve_requests` completion stays a plain rc 0.
@@ -44,12 +50,15 @@ RC_PREEMPTED = 75  # EX_TEMPFAIL: a drained exit, resumable by a supervisor
 
 @register_algorithm(name="serve")
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    import torch
+
+    from ..compile.plan import CompilePlan
     from ..telemetry.core import Telemetry
     from ..utils.device import resolve_device
     from .args import ServeArgs
     from .batcher import MicroBatcher
     from .ladder import parse_rungs
-    from .params import ParamsStore
+    from .params import GraphParams, ParamsStore
     from .policies import build_policy
     from .quant import DV3_NOT_PORTED, QuantState
     from .server import ServeServer
@@ -65,6 +74,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     log_dir = os.path.join(root_dir, run_name)
     args.log_dir = log_dir  # side effect: mkdir + args.json dump
     telem = Telemetry(log_dir, role="serve")
+    plan = CompilePlan.from_args(args, telem)
+    telem.add_gauges(plan.gauges)
 
     policy, params, loader = build_policy(args, device)
     store = ParamsStore(loader, params, source=args.ckpt, telem=telem)
@@ -87,12 +98,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             return qstate.step_for(qstate.params_for(*store.current()))
         return policy.step
 
-    runners = {rung: _step_of(rung) for rung in rungs}
+    held = GraphParams()
 
-    def dispatch(stacked, pendings, rung):
+    def _live(rung: int):
+        """(version, the params object the rung's graph reads)."""
         version, live = store.current()
         if _is_int8(rung):
             live = qstate.params_for(version, live)
+        return version, held.sync("int8" if _is_int8(rung) else "f32", version, live)
+
+    def _inference(step):
+        def run(*a):
+            with torch.inference_mode():
+                return step(*a)
+        return run
+
+    runners = {
+        rung: plan.register(f"policy_b{rung}", _inference(_step_of(rung)),
+                            example=lambda r=rung: policy.example(_live(r)[1], r), adopt=True)
+        for rung in rungs
+    }
+    plan.start()
+
+    def dispatch(stacked, pendings, rung):
+        version, live = _live(rung)
         return policy.run(runners[rung], live, version, stacked, pendings, rung), version
 
     batcher = MicroBatcher(
@@ -142,6 +171,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         telem.event("serve.stop", completed=server.completed, version=store.version,
                     signal=got_signal[0] if got_signal else None)
         server.close()
+        plan.close()
         # final gauge flush so a report sees the last state
         telem.interval({"Serve/uptime_seconds": max(time.monotonic() - start_t, 1e-6)},
                        step=server.completed, sps=0.0)

@@ -14,7 +14,7 @@ from typing import Any, Callable, Optional
 
 from ..envs import spaces
 
-__all__ = ["make_env", "make_dict_env", "get_dummy_env"]
+__all__ = ["make_env", "make_dict_env", "get_dummy_env", "obs_zeros"]
 
 
 def get_dummy_env(env_id: str):
@@ -127,3 +127,13 @@ def make_dict_env(
         return DictObservation(env, key)
 
     return thunk
+
+
+def obs_zeros(obs_space: dict, keys, lead: tuple, device) -> dict:
+    """Zero observations `[*lead, *shape]` of each key's space, in its
+    dtype, on `device`: the example arguments of a graphed step."""
+    import numpy as np
+    import torch
+
+    return {k: torch.zeros(tuple(lead) + tuple(obs_space[k].shape), device=device,
+                           dtype=torch.from_numpy(np.zeros(0, obs_space[k].dtype)).dtype) for k in keys}

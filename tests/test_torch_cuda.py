@@ -11,9 +11,13 @@ int8 SAC trunk (bit-exact, at Pendulum's and wider trunks, odd widths and
 the device-memory scratch path) and symlog/symexp, and the gradient
 reaching the parameters through CNN, DeCNN and LayerNormGRUCell on CUDA
 tensors; one PPO update on the card against the CPU's and `ppo --dry_run`
-on the card. Marked `cuda`: they skip without a CUDA device. The file
-imports neither jax nor the reference, so it also runs on a machine that
-has neither:
+on the card; each kernel captured in a CUDA graph and replayed equal to its
+eager launch (kernel 5's cooperative launch, kernels 1/2's programmatic
+dependent launch and kernel 6's cluster launch among them), a graphed
+DreamerV3 run resumed on the CPU, and a graphed `serve --ckpt` with a
+RELOAD and sessions that keep their rows. Marked `cuda`: they skip
+without a CUDA device. The file imports neither jax nor the reference, so
+it also runs on a machine that has neither:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
@@ -774,3 +778,300 @@ def test_ppo_dry_run_on_cuda(cuda_device, tmp_path):
     with open(tmp_path / "eval" / "metrics.jsonl") as fh:
         done = [json.loads(line) for line in fh][-1]
     assert done["device"] == "cpu" and done["updates"] == 0
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (compile/plan.py): each kernel captured and replayed, the
+# graphed entry points against their eager selves
+# ---------------------------------------------------------------------------
+
+
+def _leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _leaves(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for v in out for t in _leaves(v)]
+    return [t for v in vars(out).values() for t in _leaves(v)]
+
+
+def _kernel_case(name, dev):
+    """(wrapper, its counter, make_args(seed)) of kernel `name` at a path's
+    shapes: kernel 1 at rung 8, 2 at the scan's B = 16 and imagination's
+    B = 1,024, 3 at rung 8's first stage, 3-res and 4 at training stages,
+    5 at the CartPole path's widths in bf16 (cooperative launch), 6 at
+    Pendulum's trunk (cluster launch), 7 at the critic loss's shape."""
+    def gen_of(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def gru_args(batch):
+        def make(seed):
+            g = gen_of(seed)
+            return (_rand(g, batch, 512).to(dev), torch.tanh(_rand(g, batch, 512)).to(dev),
+                    _rand(g, 1536, 1024, scale=0.03).to(dev), (1.0 + _rand(g, 1536, scale=0.1)).to(dev),
+                    _rand(g, 1536, scale=0.1).to(dev), 1e-5)
+        return make
+
+    def conv_args(n, cin, cout, size):
+        def make(seed):
+            g = gen_of(seed)
+            return (torch.rand(n, size, size, cin, generator=g).to(dev), _rand(g, 4, 4, cin, cout, scale=0.05).to(dev),
+                    (1.0 + _rand(g, cout, scale=0.1)).to(dev), _rand(g, cout, scale=0.1).to(dev), 1e-3)
+        return make
+
+    def deconv_args(seed):
+        g = gen_of(seed)
+        return (_rand(g, 64, 8, 8, 128).to(dev), _rand(g, 4, 4, 128, 64, scale=0.03).to(dev),
+                (1.0 + _rand(g, 64, scale=0.1)).to(dev), _rand(g, 64, scale=0.1).to(dev), 1e-3)
+
+    def rssm_args(seed):
+        return (*_rssm_inputs(gen_of(seed), dev, torch.bfloat16, 16), "silu", (1e-3, 1e-5, 1e-3))
+
+    def int8_args(seed):
+        x, tensors = _int8_trunk(gen_of(seed), (3, 256, 256, 1), 8)
+        return (x.to(dev), *[t.to(dev) for t in tensors])
+
+    def two_hot_args(seed):
+        g = gen_of(seed)
+        return ((8.0 * _rand(g, 15360, 1)).to(dev), _rand(g, 15360, 255, scale=2.0).to(dev),
+                torch.linspace(-20.0, 20.0, 255, device=dev)[None])
+
+    def symlog_args(seed):
+        return ((_rand(gen_of(seed), 1024, 255) * 10).to(dev),)
+
+    cases = {
+        "1_gru": (gru.layernorm_gru_cell, gru.layernorm_gru_cell, gru_args(8)),
+        "2_gru_residuals_b16": (gru.layernorm_gru_cell_residuals, gru.layernorm_gru_cell_residuals, gru_args(16)),
+        "2_gru_residuals_b1024": (gru.layernorm_gru_cell_residuals, gru.layernorm_gru_cell_residuals,
+                                  gru_args(1024)),
+        "3_conv": (cnn.conv_ln_silu, cnn.conv_ln_silu, conv_args(8, 3, 32, 64)),
+        "3res_conv_residuals": (cnn.conv_ln_silu_residuals, cnn.conv_ln_silu_residuals, conv_args(64, 32, 64, 32)),
+        "4_deconv": (deconv.deconv_ln_silu, deconv.deconv_ln_silu, deconv_args),
+        "5_fused_rssm": (rssm.fused_rssm_step, rssm.fused_rssm_step, rssm_args),
+        "6_int8_trunk": (int8_trunk.fused_int8_trunk, int8_trunk.fused_int8_trunk, int8_args),
+        "7_two_hot": (two_hot.two_hot_log_prob, two_hot.two_hot_log_prob, two_hot_args),
+        "8_symlog": (symlog.symlog, symlog.symlog, symlog_args),
+    }
+    return cases[name]
+
+
+KERNEL_GRAPH_CASES = ["1_gru", "2_gru_residuals_b16", "2_gru_residuals_b1024", "3_conv", "3res_conv_residuals",
+                      "4_deconv", "5_fused_rssm", "6_int8_trunk", "7_two_hot", "8_symlog"]
+# the kernel each wrapper call launches exactly once, by its name on the device
+KERNEL_DEVICE_NAMES = {
+    "1_gru": r"gru_row_kernel<[^<>]*, false>", "2_gru_residuals_b16": r"gru_row_kernel<[^<>]*, true>",
+    "2_gru_residuals_b1024": r"gru_row_kernel<[^<>]*, true>", "3_conv": r"conv_gemm_kernel<[^<>]*, false, false>",
+    "3res_conv_residuals": r"conv_gemm_kernel<[^<>]*, false, true>", "4_deconv": r"conv_gemm_kernel<[^<>]*, true, \w+>",
+    "5_fused_rssm": r"fused_rssm_kernel<", "6_int8_trunk": r"int8_trunk_kernel<", "7_two_hot": r"two_hot_kernel<",
+    "8_symlog": r"symlog_kernel<",
+}
+
+
+def _device_launches(fn, pattern: str) -> int:
+    """The kernels matching `pattern` that the device ran during `fn()`, by
+    torch.profiler (CUDA activity)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pattern, e.name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNEL_GRAPH_CASES)
+def test_kernel_captured_in_a_graph_replays_as_its_eager_launch(cuda_device, name):
+    """Each kernel inside a CUDA graph: the first call warms up, the plan
+    captures (kernel 5's cooperative launch, kernels 1/2's programmatic
+    dependent launch of the row pass, kernel 6's cluster launch), and a
+    replay on new inputs equals the eager launch on them bit for bit. The
+    wrapper counts the warm-up's launch and the capture's, never a
+    replay's; the device runs the kernel once a replay (torch.profiler)."""
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.ops.kernels import launch_counters
+
+    fn, counter, make = _kernel_case(name, cuda_device)
+    plan = CompilePlan(device=cuda_device)
+    graphed = plan.register(name, fn)
+    with torch.no_grad():
+        before = counter.launches
+        graphed(*make(0))  # eager warm-up, then the capture
+        assert counter.launches == before + 2
+        args = make(1)
+        outs = []
+        ran = _device_launches(lambda: outs.extend(graphed(*args) for _ in range(2)), KERNEL_DEVICE_NAMES[name])
+        assert counter.launches == before + 2 and ran == 2
+        want = fn(*args)
+    stats = plan.stats()["entries"][name]
+    assert stats["compiled"] and stats["aot_calls"] == 2 and stats["fallbacks"] == 0
+    counted = next(k for k, f in launch_counters().items() if f is counter)
+    assert stats["launches_per_replay"] == {counted: 1}
+    for out in outs:
+        for g, w in zip(_leaves(out), _leaves(want)):
+            assert torch.equal(g, w), (name, float((g.float() - w.float()).abs().max()))
+
+
+TINY_DV3 = ["--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--num_envs", "1", "--cnn_channels_multiplier", "2",
+            "--dense_units", "16", "--hidden_size", "16", "--recurrent_state_size", "16", "--stochastic_size", "4",
+            "--discrete_size", "4", "--per_rank_batch_size", "2", "--per_rank_sequence_length", "4", "--horizon",
+            "3", "--learning_starts", "8", "--train_every", "1", "--buffer_size", "64", "--bins", "15"]
+
+
+@pytest.mark.cuda
+def test_graphed_dreamer_v3_run_resumes_on_the_cpu(cuda_device, tmp_path):
+    """A DreamerV3 run on the card takes its gradient and player steps as
+    graph replays (no fallback); its checkpoint (capturable Adams, step
+    counts on the card) resumes on the CPU and trains on from it."""
+    import json
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    dv3.main([*TINY_DV3, "--total_steps", "16", "--checkpoint_every", "12", "--checkpoint_buffer",
+              "--root_dir", str(tmp_path), "--run_name", "r"])
+    with open(tmp_path / "r" / "metrics.jsonl") as fh:
+        done = [json.loads(line) for line in fh if '"event": "done"' in line][-1]
+    stats = done["compile_stats"]["entries"]
+    assert done["compile"]["Compile/aot_fallbacks"] == 0
+    assert stats["train_step"]["aot_calls"] + stats["train_step"]["eager_calls"] == done["gradient_steps"]
+    assert stats["player_step"]["aot_calls"] + stats["player_step"]["eager_calls"] == done["player_steps"]
+    assert stats["train_step"]["aot_calls"] > 0 and stats["player_step"]["aot_calls"] > 0
+    dv3.main(["--checkpoint_path", str(tmp_path / "r" / "checkpoints" / "ckpt_12"), "--device", "cpu"])
+    with open(tmp_path / "r" / "metrics.jsonl") as fh:
+        done = [json.loads(line) for line in fh if '"event": "done"' in line][-1]
+    assert done["device"] == "cpu" and done["gradient_steps"] == 4 and done["Params/world_model_delta"] > 0
+
+
+TINY_DV3_CARTPOLE = ["--env_id", "CartPole-v1", "--mlp_keys", "state", "--num_envs", "1", "--dense_units", "16",
+                     "--hidden_size", "16", "--recurrent_state_size", "16", "--stochastic_size", "4", "--discrete_size",
+                     "4", "--mlp_layers", "2", "--per_rank_batch_size", "2", "--per_rank_sequence_length", "4",
+                     "--horizon", "3", "--learning_starts", "8", "--total_steps", "20", "--train_every", "1",
+                     "--buffer_size", "64", "--bins", "15", "--critic_target_network_update_freq", "2",
+                     "--expl_amount", "0.5", "--expl_decay", "--max_step_expl_decay", "4"]
+TINY_PPO = ["--env_id", "CartPole-v1", "--num_envs", "2", "--rollout_steps", "8", "--per_rank_batch_size", "4",
+            "--update_epochs", "2", "--total_steps", "48", "--dense_units", "16", "--mlp_features_dim", "16",
+            "--anneal_lr", "--anneal_clip_coef", "--anneal_ent_coef", "--ent_coef", "0.01"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["dreamer_v3", "ppo"])
+def test_warm_compile_on_equals_off_bit_for_bit(cuda_device, tmp_path, algo):
+    """`--warm_compile on` warms each step up on example arguments and
+    captures it before the loop, then puts back what the warm-up changed
+    (parameters, buffers, the Adams' state, the return normaliser through
+    its `state_dict`); the run must go on as `off` does, where each step
+    is captured at its first call: the same records and the same final
+    state, bit for bit (graph replays both ways, no fallback). No convs, so
+    that two eager runs agree bit for bit."""
+    import json
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    main, argv, last = (dv3.main, TINY_DV3_CARTPOLE, "ckpt_20") if algo == "dreamer_v3" else (ppo.main, TINY_PPO,
+                                                                                              "ckpt_3")
+    records, states = {}, {}
+    for warm in ("off", "on"):
+        main([*argv, "--warm_compile", warm, "--root_dir", str(tmp_path), "--run_name", warm])
+        with open(tmp_path / warm / "metrics.jsonl") as fh:
+            lines = [json.loads(line) for line in fh if line.strip()]
+        done = lines[-1]
+        # the losses of every update, the test episodes' returns
+        records[warm] = [{k: v for k, v in r.items() if k != "sps" and not k.startswith("Time/")} for r in lines
+                         if any(k.startswith("Loss/") for k in r)] + [done["test_returns"]]
+        states[warm] = torch.load(tmp_path / warm / "checkpoints" / last / "state.pt", map_location="cpu",
+                                  weights_only=False)
+        assert done["compile"]["Compile/aot_fallbacks"] == 0 and done["compile"]["Compile/aot_calls"] > 0
+        assert done["compile"]["Compile/warm_enabled"] == float(warm == "on")
+    assert len(records["off"]) > 2 and records["on"] == records["off"]
+
+    def leaves(tree, path=""):
+        if isinstance(tree, torch.Tensor):
+            yield path, tree
+        elif isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                yield from leaves(tree[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+
+    on, off = dict(leaves(states["on"])), dict(leaves(states["off"]))
+    assert on.keys() == off.keys() and len(on) > 10
+    assert [k for k in on if not torch.equal(on[k], off[k])] == []
+
+
+def _serve_thread(argv, root):
+    import os
+    import threading
+    import time
+
+    from sheeprl_tpu_torch.cli import run
+
+    failures = []
+
+    def _run():
+        try:
+            run(["serve", *argv, "--root_dir", root, "--run_name", "s", "--deadline_ms", "0"])
+        except BaseException as err:  # reported by the caller
+            failures.append(err)
+
+    t = threading.Thread(target=_run, daemon=True)
+    t.start()
+    addr = os.path.join(root, "s", "serve_address")
+    deadline = time.monotonic() + 300
+    while not os.path.exists(addr):
+        assert not failures and time.monotonic() < deadline, failures
+        time.sleep(0.05)
+    return open(addr).read().strip(), t, failures
+
+
+@pytest.mark.cuda
+def test_graphed_serve_reload_moves_the_answers_and_keeps_sessions(cuda_device, tmp_path):
+    """`serve --ckpt` on the card at a tiny width: each dispatch is a graph
+    replay; a RELOAD moves the graphed rung's answers to the new version
+    (each answer equal to a direct step of the loaded params); a session's
+    row survives the next dispatch, which overwrites the graph's outputs."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.client import ServeClient
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    dv3.main(["--device", "cpu", *TINY_DV3, "--total_steps", "16", "--checkpoint_every", "12",
+              "--root_dir", str(tmp_path), "--run_name", "r"])
+    first, second = (str(tmp_path / "r" / "checkpoints" / f"ckpt_{s}") for s in (12, 16))
+    rng = np.random.default_rng(0)
+    obs = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(12)]
+    addr, t, failures = _serve_thread(["--ckpt", first, "--max_batch", "2", "--serve_requests", "12"],
+                                      str(tmp_path / "serve"))
+    answers = []
+    with ServeClient(addr) as client:
+        for i, o in enumerate(obs):
+            if i == 6:
+                assert client.reload(second)["version"] == 2
+            # sessions a and b alternate: each dispatch overwrites the rung's
+            # outputs while the other session's row waits in the table
+            answers.append(client.request({"rgb": o}, session="ab"[i % 2])[0]["actions"])
+    t.join(120)
+    assert not failures and not t.is_alive()
+    policy, player1, loader = build_policy(ServeArgs(ckpt=first), cuda_device)
+    player2 = loader(second)
+    states = {}
+    for i, o in enumerate(obs):
+        player = player1 if i < 6 else player2  # the rows the sessions hold carry over the reload
+        sid = "ab"[i % 2]
+        if sid not in states:
+            states[sid] = {k: v[None] for k, v in policy.init_row(1, player1).items()}
+        with torch.inference_mode():
+            states[sid], acts = policy.step(player, states[sid], {"rgb": torch.from_numpy(o).to(cuda_device)})
+        assert np.array_equal(answers[i], acts.float().cpu().numpy()), i
+    import json
+    import os
+
+    with open(os.path.join(tmp_path, "serve", "s", "telemetry.jsonl")) as fh:
+        gauges = [json.loads(line) for line in fh if '"interval"' in line][-1]["metrics"]
+    assert gauges["Compile/aot_calls"] >= 12 and gauges["Compile/aot_fallbacks"] == 0

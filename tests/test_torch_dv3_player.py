@@ -65,7 +65,7 @@ def test_three_chained_steps_agree_with_injected_noise():
         with torch.inference_mode():
             ts, tact = tplayer.step(
                 ts, {k: torch.from_numpy(v) for k, v in obs.items()},
-                gumbel=torch.from_numpy(np.array(gumbel)), is_training=False,
+                gumbel=torch.from_numpy(np.array(gumbel)),
             )
         _close(ts.recurrent_state, js.recurrent_state)
         _close(ts.stochastic_state, js.stochastic_state)
@@ -98,8 +98,8 @@ def test_bfloat16_step_follows_the_compute_dtype():
     obs = {k: torch.from_numpy(v) for k, v in _obs(np.random.default_rng(1), 2).items()}
     gumbel = torch.from_numpy(np.random.default_rng(2).gumbel(size=(2, S, D)).astype(np.float32))
     with torch.inference_mode():
-        s32, _ = f32.step(f32.init_states(2), obs, gumbel=gumbel, is_training=False)
-        s16, acts = bf16.step(bf16.init_states(2), obs, gumbel=gumbel, is_training=False)
+        s32, _ = f32.step(f32.init_states(2), obs, gumbel=gumbel)
+        s16, acts = bf16.step(bf16.init_states(2), obs, gumbel=gumbel)
     assert s16.recurrent_state.dtype == s16.stochastic_state.dtype == torch.bfloat16
     assert acts.dtype == torch.float32 and torch.equal(acts.sum(-1), torch.ones(2))
     torch.testing.assert_close(s16.recurrent_state.float(), s32.recurrent_state, atol=5e-2, rtol=0)

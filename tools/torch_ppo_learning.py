@@ -7,13 +7,19 @@ ent_coef 0.01, annealed lr, normalized advantages, max_grad_norm 0.5), then
 JSON line a seed: the mean return (the reference's bar is 400), the returns,
 and the host wall of the training and the evaluation.
 
-    python tools/torch_ppo_learning.py --device cpu --seeds 5 6 7 [--out DIR]
+    python tools/torch_ppo_learning.py --device cpu --seeds 5 6 7 [--out DIR] [--eager] [--adam plain]
     python tools/torch_ppo_learning.py --package reference --seeds 5 6 7
 
 The port runs `sheeprl_tpu_torch ppo` and `ppo --eval_only` on its own
 CartPole; the reference runs `sheeprl_tpu`'s `ppo` on the CPU with
 gymnasium's CartPole and evaluates as its test does (JAX and gymnasium
-needed).
+needed). On the card the port's steps run as CUDA graphs; `--eager` calls
+each step directly instead (every CompilePlan in direct mode), the same
+arithmetic without the graphs. `--adam plain` gives PPO PyTorch's default
+Adam (not capturable: step counts on the host, the update's float lr), the
+port's optimizer before its steps became CUDA graphs; a capture refuses
+it, so the steps then run eagerly. On the card that is the arithmetic of
+the port before the graphs; on the CPU it is the default anyway.
 """
 
 from __future__ import annotations
@@ -30,6 +36,31 @@ RECIPE = ["--env_id", "CartPole-v1", "--num_envs", "4", "--total_steps", "65536"
           "--normalize_advantages", "--max_grad_norm", "0.5", "--checkpoint_every", "1000000"]
 FINAL_UPDATE = 65536 // (128 * 4)
 EVAL_SEED, EVAL_EPISODES = 1000, 10
+
+
+def eager_plans() -> None:
+    """Every later CompilePlan of this process calls its steps directly."""
+    from sheeprl_tpu_torch.compile import plan as plan_mod
+
+    original = plan_mod.CompilePlan.__dict__["from_args"].__func__
+
+    def from_args(args, telem=None):
+        plan = original(plan_mod.CompilePlan, args, telem)
+        plan.mode = "direct"
+        return plan
+
+    plan_mod.CompilePlan.from_args = staticmethod(from_args)
+
+
+def plain_adams() -> None:
+    """Every later PPO run of this process builds PyTorch's default Adam,
+    its steps called directly."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    ppo.adam = lambda params, lr, eps, device: torch.optim.Adam(params, lr=lr, eps=eps)
+    eager_plans()
 
 
 def port_returns(seed: int, device: str, out: str) -> list[float]:
@@ -90,17 +121,25 @@ def main() -> int:
     parser.add_argument("--device", default="cuda", help="the port's --device (the reference runs on the CPU)")
     parser.add_argument("--seeds", type=int, nargs="+", default=[5])
     parser.add_argument("--out", default=os.path.join(HERE, "build", "ppo_learning"))
+    parser.add_argument("--eager", action="store_true", help="the port's steps called directly, not graphed")
+    parser.add_argument("--adam", choices=("capturable", "plain"), default="capturable",
+                        help="the port's PPO Adam: capturable on CUDA (the port's), or PyTorch's default (eager)")
     opts = parser.parse_args()
     sys.path.insert(0, HERE)
     import numpy as np
 
+    if opts.adam == "plain":
+        plain_adams()
+    elif opts.eager:
+        eager_plans()
     for seed in opts.seeds:
         t0 = time.perf_counter()
         if opts.package == "port":
             returns = port_returns(seed, opts.device, opts.out)
         else:
             returns = reference_returns(seed, opts.out)
-        print(json.dumps({"package": opts.package, "seed": seed,
+        print(json.dumps({"package": opts.package, "seed": seed, "eager": opts.eager or opts.adam == "plain",
+                          "adam": opts.adam,
                           "device": opts.device if opts.package == "port" else "cpu",
                           "mean_return": float(np.mean(returns)), "returns": returns,
                           "seconds": time.perf_counter() - t0}), flush=True)
