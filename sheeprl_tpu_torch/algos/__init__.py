@@ -2,4 +2,6 @@
 
 from ..serve import serve  # noqa: F401 -- registers the `serve` task
 from .dreamer_v3 import dreamer_v3 as _dreamer_v3  # noqa: F401 -- registers the `dreamer_v3` task
+from .droq import droq as _droq  # noqa: F401 -- registers the `droq` task
 from .ppo import ppo as _ppo  # noqa: F401 -- registers the `ppo` task
+from .sac import sac as _sac  # noqa: F401 -- registers the `sac` task

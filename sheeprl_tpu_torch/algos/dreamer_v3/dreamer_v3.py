@@ -64,12 +64,11 @@ from ...ops.math import lambda_values_dv3, polynomial_decay
 from ...ops.moments import Moments
 from ...ops.optim import adam, apply_gradients, clip_by_global_norm, global_norm, load_optimizer_state
 from ...ops.precision import compute_dtype, to_compute, to_float32
-from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
+from ...utils.checkpoint import load_checkpoint, save_checkpoint
 from ...utils.device import resolve_device
 from ...utils.env import make_dict_env, obs_zeros
-from ...utils.evaluation import apply_eval_overrides, run_test_episodes, validate_eval_args
+from ...utils.evaluation import parse_run_args, run_test_episodes
 from ...utils.logger import create_logger
-from ...utils.parser import DataclassArgumentParser
 from ...utils.registry import register_algorithm
 from ..ppo.ppo import actions_dim_of, validate_obs_keys
 from .agent import Actor, PlayerDV3, WorldModel, build_models
@@ -129,13 +128,12 @@ def restore_state(state: DV3TrainState, ckpt: dict) -> None:
 
 def make_optimizers(args: DreamerV3Args, world_model, actor, critic):
     """Three Adams (eps 1e-8 / 1e-5 / 1e-5, the reference's `optax.adam`
-    settings), capturable where the models live on CUDA; the step clips
-    with `clip_by_global_norm` before each."""
-    device = next(world_model.parameters()).device
+    settings, `ops/optim.py:Adam`); the step clips with
+    `clip_by_global_norm` before each."""
     return (
-        adam(world_model.parameters(), args.world_lr, 1e-8, device),
-        adam(actor.parameters(), args.actor_lr, 1e-5, device),
-        adam(critic.parameters(), args.critic_lr, 1e-5, device),
+        adam(world_model.parameters(), args.world_lr, 1e-8),
+        adam(actor.parameters(), args.actor_lr, 1e-5),
+        adam(critic.parameters(), args.critic_lr, 1e-5),
     )
 
 
@@ -340,19 +338,9 @@ def _params_delta(start: dict[str, list[torch.Tensor]], state: DV3TrainState) ->
 
 @register_algorithm()
 def main(argv: Sequence[str] | None = None) -> None:
-    parser = DataclassArgumentParser(DreamerV3Args)
-    (args,) = parser.parse_args_into_dataclasses(argv)
-    validate_eval_args(args)
-    if args.checkpoint_path:
-        if not os.path.isdir(args.checkpoint_path):
-            raise FileNotFoundError(f"no checkpoint at {args.checkpoint_path}")
-        # the checkpoint's own config, the path kept and the command line's
-        # explicit flags over it (reference :507-514)
-        saved = load_checkpoint_args(args.checkpoint_path)
-        if saved:
-            saved.update(checkpoint_path=args.checkpoint_path)
-            apply_eval_overrides(saved, args)
-            (args,) = parser.parse_dict(saved)
+    # with --checkpoint_path, the checkpoint's own config under the command
+    # line's explicit flags (reference :507-514)
+    args = parse_run_args(DreamerV3Args, argv)
     # fixed by the 4-stage 64x64 conv trunk
     args.screen_size = 64
     args.frame_stack = -1

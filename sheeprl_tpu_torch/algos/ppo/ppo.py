@@ -40,13 +40,12 @@ from ...data.buffers import ReplayBuffer
 from ...envs import spaces
 from ...ops.math import gae, normalize, polynomial_decay
 from ...compile.plan import CompilePlan
-from ...ops.optim import adam, apply_gradients, load_optimizer_state
-from ...utils.checkpoint import load_checkpoint, load_checkpoint_args, save_checkpoint
+from ...ops.optim import Adam, adam, apply_gradients, load_optimizer_state
+from ...utils.checkpoint import load_checkpoint, save_checkpoint
 from ...utils.device import resolve_device
 from ...utils.env import make_dict_env, obs_zeros
-from ...utils.evaluation import apply_eval_overrides, run_test_episodes, validate_eval_args
+from ...utils.evaluation import parse_run_args, run_test_episodes
 from ...utils.logger import create_logger
-from ...utils.parser import DataclassArgumentParser
 from ...utils.registry import register_algorithm
 from .agent import (
     PPOAgent, buffer_actions, env_action_indices, indices_to_env_actions, one_hot_to_env_actions,
@@ -104,11 +103,11 @@ def build_agent(args: PPOArgs, actions_dim: Sequence[int], is_continuous: bool, 
     )
 
 
-def make_optimizer(args: PPOArgs, agent: PPOAgent) -> torch.optim.Adam:
-    """Adam with the reference's eps (optax `scale_by_adam`), capturable
-    where the agent lives on CUDA; the train step clips by global norm
-    before it when `max_grad_norm` > 0 and sets the lr of each update."""
-    return adam(agent.parameters(), args.lr, args.eps, next(agent.parameters()).device)
+def make_optimizer(args: PPOArgs, agent: PPOAgent) -> Adam:
+    """Adam with the reference's eps (optax `scale_by_adam`, then `-lr`:
+    `ops/optim.py:Adam`); the train step clips by global norm before it
+    when `max_grad_norm` > 0 and sets the lr of each update."""
+    return adam(agent.parameters(), args.lr, args.eps)
 
 
 @torch.no_grad()
@@ -161,8 +160,9 @@ def make_train_step(args: PPOArgs, num_minibatches: int, plan: CompilePlan | Non
     idx, lr, clip_coef, ent_coef) -> the three losses`: the gather of the
     minibatch's rows by the index tensor, the forward, the gradients, the
     clip and Adam, with `lr`, `clip_coef` and `ent_coef` as device scalars
-    (the annealed values a CUDA graph must read at every replay; a
-    capturable Adam reads the lr tensor, another the update's float). With
+    (the annealed values a CUDA graph must read at every replay; the
+    port's `Adam` reads the lr tensor, another optimizer the update's
+    float). With
     `plan` it is registered there as "minibatch_step" (with the `example`
     thunk); once it is captured, each update copies `data` into the
     step's static batch once and passes that, so a replay copies only the
@@ -185,7 +185,7 @@ def make_train_step(args: PPOArgs, num_minibatches: int, plan: CompilePlan | Non
     def minibatch_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, data: dict, idx: torch.Tensor,
                        lr: torch.Tensor, clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> torch.Tensor:
         for group in optimizer.param_groups:
-            if group.get("capturable"):
+            if isinstance(optimizer, Adam):
                 group["lr"] = lr
         params = list(agent.parameters())
         loss, parts = loss_fn(agent, {k: v[idx] for k, v in data.items()}, clip_coef, ent_coef)
@@ -313,17 +313,7 @@ def test(agent: PPOAgent, env, logger, args: PPOArgs) -> float:
 
 @register_algorithm()
 def main(argv: Sequence[str] | None = None) -> None:
-    parser = DataclassArgumentParser(PPOArgs)
-    (args,) = parser.parse_args_into_dataclasses(argv)
-    validate_eval_args(args)
-    if args.checkpoint_path:
-        if not os.path.isdir(args.checkpoint_path):
-            raise FileNotFoundError(f"no checkpoint at {args.checkpoint_path}")
-        saved = load_checkpoint_args(args.checkpoint_path)
-        if saved:
-            saved.update(checkpoint_path=args.checkpoint_path)
-            apply_eval_overrides(saved, args)
-            (args,) = parser.parse_dict(saved)
+    args = parse_run_args(PPOArgs, argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         # the reference's float32 products are true float32

@@ -1,5 +1,5 @@
 """SAC config (the port of sheeprl_tpu/algos/sac/args.py: the same fields
-and defaults). Serving parses it from `--model_argv`."""
+and defaults). The `sac` main parses it, and serving from `--model_argv`."""
 
 from __future__ import annotations
 

@@ -13,10 +13,12 @@ windows `[n_samples, T, B, *item]`, each from one env.
 Draws come from a `torch.Generator`; the sampled (env, start) pairs can be
 injected instead, so a test can replay the reference's own sample.
 
-`save` / `load` keep the reference's `.npz` layout (`n_envs`,
+`save` / `load` keep the reference's `.npz` layouts, so a buffer sidecar
+the reference wrote loads here with the same rows: `ReplayBuffer`'s
+(`pos`, `full`, `buffer_size`, `n_envs`, `buf_{key}` of shape
+[buffer_size, n_envs, *item]) and `AsyncReplayBuffer`'s (`n_envs`,
 `buffer_size`, and per env `b{i}_pos`, `b{i}_full`, `b{i}_buf_{key}` of
-shape [buffer_size, 1, *item]), so a buffer sidecar the reference wrote
-loads here with the same rows. The sampler's state is the port's
+shape [buffer_size, 1, *item]). The sampler's state is the port's
 generator's, under `torch_sampler_state`; the reference's `sampler_state`
 (its JAX key) is not read, because the two draw different numbers anyway.
 """
@@ -106,6 +108,23 @@ class ReplayBuffer:
         self.full = self.full or self.pos + length >= self.buffer_size
         self.pos = (self.pos + length) % self.buffer_size
 
+    def _valid_ranges(self, exclude: int) -> tuple[int, int]:
+        """The sampling domain (first, n_valid): a draw r < first maps to
+        itself, the rest shift past the write head."""
+        first = self.pos - exclude
+        if self.full:
+            second_end = self.buffer_size if first >= 0 else self.buffer_size + first
+            first = max(first, 0)
+            return first, first + second_end - self.pos
+        return first, first
+
+    def can_sample(self, sample_next_obs: bool = False) -> bool:
+        """Whether `sample` has a row to draw (the loops gate their first
+        updates on it)."""
+        if self._buf is None or (not self.full and self.pos == 0):
+            return False
+        return self._valid_ranges(1 if sample_next_obs else 0)[1] > 0
+
     def sample(self, batch_size: int, sample_next_obs: bool = False) -> dict:
         """`batch_size` rows drawn uniformly over (time, env), the write head
         excluded; with `sample_next_obs`, `pos - 1` too, and `next_<key>`
@@ -114,13 +133,7 @@ class ReplayBuffer:
             raise ValueError("batch_size must be > 0")
         if self._buf is None or (not self.full and self.pos == 0):
             raise RuntimeError("no samples in buffer; call add() first")
-        first = self.pos - (1 if sample_next_obs else 0)
-        if self.full:
-            second_end = self.buffer_size if first >= 0 else self.buffer_size + first
-            first = max(first, 0)
-            n_valid = first + second_end - self.pos
-        else:
-            n_valid = first
+        first, n_valid = self._valid_ranges(1 if sample_next_obs else 0)
         if n_valid <= 0:
             raise RuntimeError("not enough valid entries to sample; add more data first")
         r = torch.randint(0, n_valid, (batch_size,), generator=self._gen)
@@ -136,6 +149,30 @@ class ReplayBuffer:
             for k in self.obs_keys:
                 out[f"next_{k}"] = self._buf[k][nxt, env]
         return out
+
+    def save(self, path: str) -> None:
+        """Write the ring, its write head and fullness, and the sampler's
+        generator state into one `.npz` at `path` (the reference's layout,
+        `--checkpoint_buffer`)."""
+        flat = {"pos": np.int64(self.pos), "full": np.bool_(self.full), "buffer_size": np.int64(self.buffer_size),
+                "n_envs": np.int64(self.n_envs), SAMPLER_KEY: self._gen.get_state().numpy()}
+        for k, v in (self._buf or {}).items():
+            flat[f"buf_{k}"] = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+        with open(path, "wb") as fh:  # a file object: np.savez appends no suffix
+            np.savez(fh, **flat)
+
+    def load(self, path: str) -> None:
+        """Restore what `save` wrote, or the reference's buffer sidecar (its
+        sampler state, a JAX key, is skipped: the generators differ)."""
+        with np.load(path) as data:
+            if int(data["n_envs"]) != self.n_envs or int(data["buffer_size"]) != self.buffer_size:
+                raise ValueError(f"checkpointed buffer is [{int(data['buffer_size'])}, {int(data['n_envs'])}], "
+                                 f"this one [{self.buffer_size}, {self.n_envs}]")
+            bufs = {k[len("buf_"):]: data[k] for k in data.files if k.startswith("buf_")}
+            self._buf = {k: self._as_stored(np.ascontiguousarray(v)) for k, v in bufs.items()} or None
+            self.pos, self.full = int(data["pos"]), bool(data["full"])
+            if SAMPLER_KEY in data.files:
+                self._gen.set_state(torch.from_numpy(data[SAMPLER_KEY].copy()))
 
 
 

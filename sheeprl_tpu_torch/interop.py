@@ -21,11 +21,14 @@ arrays, `None` where a module has no parameter) and hands the tree over:
     checkpoint (the key contract of `algos/dreamer_v3/dreamer_v3.py:
     checkpoint_state`): the parameters through `state_dict_from_jax`, each
     optax Adam state (`ScaleByAdamState`, behind the clip transform's empty
-    state) as `torch.optim.Adam`'s state_dict (`adam_state_from_jax`), the
+    state) as the port's `Adam`'s state_dict (`adam_state_from_jax`), the
     moments and the counters;
-  - `sac_checkpoint_from_jax` maps `agent.actor` onto the port's
-    `SACActor` and carries the critics, `log_alpha` and the three optimizer
-    states as raw tensors by path, for SAC training to take later;
+  - `sac_checkpoint_from_jax` returns the port's SAC or DroQ checkpoint
+    (the key contract of `algos/sac/sac.py:checkpoint_state`): the actor,
+    the critics and the target critics through `state_dict_from_jax`,
+    `log_alpha`, and the three optax Adam states through
+    `adam_state_from_jax`. The critics' members are stacked on both sides,
+    their weights `[n, in, out]` in both (no transposition);
   - `ppo_checkpoint_from_jax` returns the port's PPO checkpoint (the keys
     `agent`, `optimizer`, `update_step` of `algos/ppo/ppo.py:main`): the
     agent through `ppo_agent_from_jax`, its optax Adam state (behind the
@@ -127,19 +130,22 @@ def _adam_of(opt_state) -> Mapping:
 
 
 def adam_state_from_jax(module: tnn.Module, optimizer: torch.optim.Optimizer, opt_state) -> dict:
-    """`optimizer`'s state_dict (a `torch.optim.Adam` over
+    """`optimizer`'s state_dict (an `ops/optim.py:Adam` over
     `module.parameters()`) filled from the reference's optax state of the
     same module: `mu` -> `exp_avg`, `nu` -> `exp_avg_sq`, each laid out as
     its parameter (the weight's transposition), and `count` -> every
-    parameter's `step`. Both sides count the updates taken, so the bias
+    parameter's `step`. The moments of a leaf the port keeps as a buffer
+    (the SAC actor's action bounds, which the reference never moves) are
+    dropped. Both sides count the updates taken, so the bias
     corrections 1 - beta**step are the same."""
     adam = _adam_of(opt_state)
     mu, nu = flatten_params(adam["mu"]), flatten_params(adam["nu"])
     params = dict(module.named_parameters())
+    buffers = {name for name, _ in module.named_buffers()}
     for side, flat in (("mu", mu), ("nu", nu)):
-        if set(flat) != set(params):
+        if set(flat) - buffers != set(params):
             raise KeyError(f"the Adam {side} paths differ from the module's parameters: "
-                           f"{sorted(set(flat) ^ set(params))}")
+                           f"{sorted((set(flat) - buffers) ^ set(params))}")
     names = {id(p): name for name, p in params.items()}
     order = [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
     transposed = _transposed(module)
@@ -169,21 +175,27 @@ def dreamer_v3_checkpoint_from_jax(tree: Mapping, state) -> dict:
     return out
 
 
-def sac_checkpoint_from_jax(tree: Mapping, actor: tnn.Module) -> dict:
-    """A reference SAC checkpoint (the restored tree, key contract
-    `sheeprl_tpu/algos/sac/sac.py:452-458`) -> the port's: `agent.actor` as
-    `actor`'s state_dict; the critics, target critics, `log_alpha` and the
-    three optimizer states as {dotted path: tensor}, unconverted."""
-    def raw(node) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.array(v)) for k, v in flatten_params(node).items()}
-
-    agent = tree["agent"]
+def sac_checkpoint_from_jax(tree: Mapping, state, seed: int = 0) -> dict:
+    """A reference SAC or DroQ checkpoint (the restored tree, key contract
+    `sheeprl_tpu/algos/sac/sac.py:452-458`, `droq.py`'s the same) -> the
+    port's checkpoint dict, laid out for `state` (a `SACTrainState` whose
+    agent, a `SACAgent` or `DROQAgent`, and Adams are built with the same
+    config). The generator state the port's checkpoint adds is a fresh
+    CPU generator's, seeded `seed`: the reference's JAX key cannot be
+    carried."""
+    agent, ref = state.agent, tree["agent"]
+    alpha = _adam_of(tree["alpha_optimizer"])
+    alpha_state = {"step": torch.tensor(float(np.asarray(alpha["count"]))),
+                   **{k: torch.from_numpy(np.array(alpha[j], np.float32)).reshape(agent.log_alpha.shape)
+                      for k, j in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
     return {
-        "agent": {"actor": state_dict_from_jax(actor, agent["actor"]),
-                  **{k: raw(agent[k]) for k in ("critics", "target_critics")},
-                  "log_alpha": torch.from_numpy(np.array(agent["log_alpha"]))},
-        **{k: raw(tree[k]) for k in ("qf_optimizer", "actor_optimizer", "alpha_optimizer")},
+        "agent": {**{k: state_dict_from_jax(getattr(agent, k), ref[k]) for k in ("actor", "critics", "target_critics")},
+                  "log_alpha": torch.from_numpy(np.array(ref["log_alpha"], np.float32))},
+        "qf_optimizer": adam_state_from_jax(agent.critics, state.qf_opt, tree["qf_optimizer"]),
+        "actor_optimizer": adam_state_from_jax(agent.actor, state.actor_opt, tree["actor_optimizer"]),
+        "alpha_optimizer": {"state": {0: alpha_state}, "param_groups": state.alpha_opt.state_dict()["param_groups"]},
         "global_step": int(np.asarray(tree["global_step"])),
+        "generator": torch.Generator().manual_seed(seed).get_state(),
     }
 
 
@@ -198,7 +210,7 @@ def ppo_checkpoint_from_jax(tree: Mapping, agent: tnn.Module, optimizer: torch.o
                             seed: int = 0) -> dict:
     """A reference PPO checkpoint (the restored tree, key contract
     `sheeprl_tpu/algos/ppo/ppo.py:811-830`) -> the port's checkpoint dict,
-    laid out for `agent` and `optimizer` (a `torch.optim.Adam` over
+    laid out for `agent` and `optimizer` (an `ops/optim.py:Adam` over
     `agent.parameters()`, built with the same config). The generator state
     the port's checkpoint adds is a fresh generator's, seeded `seed`: the
     reference's JAX key cannot be carried."""

@@ -14,23 +14,27 @@ import torch.nn as tnn
 from ..ops.kernels.cnn import cnn_stage_supported, conv_ln_silu
 from ..ops.kernels.deconv import deconv_ln_silu
 from .core import Activation, activation
-from .layers import Conv2d, ConvTranspose2d, LayerNorm, Linear
+from .layers import Conv2d, ConvTranspose2d, LayerNorm, Linear, StackedLayerNorm, StackedLinear, dropout
 
-__all__ = ["MLP", "CNN", "DeCNN", "NatureCNN"]
+__all__ = ["MLP", "CNN", "DeCNN", "NatureCNN", "StackedMLP"]
 
 
 class MLP(tnn.Module):
-    """Linear stack with optional per-layer LayerNorm and an output head.
-    Hidden miniblocks are Linear -> [LayerNorm] -> act; the head is a bare
-    Linear. A layer without a norm holds an `Identity` in `norms`, so the
-    parameter names match the reference's field paths."""
+    """Linear stack with optional per-layer LayerNorm and dropout and an
+    output head. Hidden miniblocks are Linear -> [dropout] -> [LayerNorm] ->
+    act (the reference's order, the DroQ critic's layout); the head is a
+    bare Linear. A layer without a norm holds an `Identity` in `norms`, so
+    the parameter names match the reference's field paths. Dropout runs
+    only when the forward is given `uniforms`, one draw a hidden layer of
+    that layer's output shape (`nn/layers.py:dropout`)."""
 
     def __init__(self, input_dim: int, hidden_sizes: Sequence[int], output_dim: int | None = None,
-                 *, act: Activation = "tanh", layer_norm: bool = False, use_bias: bool = True,
-                 norm_eps: float = 1e-5, generator: torch.Generator | None = None):
+                 *, act: Activation = "tanh", layer_norm: bool = False, dropout_rate: float = 0.0,
+                 use_bias: bool = True, norm_eps: float = 1e-5, generator: torch.Generator | None = None):
         super().__init__()
         sizes = [input_dim, *hidden_sizes]
         self.act = act
+        self.dropout_rate = dropout_rate
         self.layers = tnn.ModuleList(
             Linear(sizes[i], sizes[i + 1], use_bias=use_bias, generator=generator)
             for i in range(len(hidden_sizes))
@@ -40,10 +44,13 @@ class MLP(tnn.Module):
         )
         self.head = None if output_dim is None else Linear(sizes[-1], output_dim, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, uniforms: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
         act = activation(self.act)
-        for layer, norm in zip(self.layers, self.norms):
-            x = act(norm(layer(x)))
+        for i, (layer, norm) in enumerate(zip(self.layers, self.norms)):
+            x = layer(x)
+            if uniforms is not None:
+                x = dropout(x, uniforms[i], self.dropout_rate)
+            x = act(norm(x))
         if self.head is not None:
             x = self.head(x)
         return x
@@ -53,6 +60,31 @@ class MLP(tnn.Module):
         if self.head is not None:
             return self.head.out_features
         return self.layers[-1].out_features
+
+
+class StackedMLP(MLP):
+    """`n` MLPs of one shape as stacked `[n, ...]` parameters (the
+    reference's vmapped ensemble of `MLP`s, whose leaves carry a leading
+    member axis): `[B, in]` (one input for every member) or `[n, B, in]` ->
+    `[n, B, out]`, each layer one batched product (`StackedLinear`). The
+    miniblocks, dropout and parameter names are `MLP`'s; a dropout draw is
+    `[n, B, hidden]`, each member its own."""
+
+    def __init__(self, n: int, input_dim: int, hidden_sizes: Sequence[int], output_dim: int | None = None,
+                 *, act: Activation = "relu", layer_norm: bool = False, dropout_rate: float = 0.0,
+                 norm_eps: float = 1e-5, generator: torch.Generator | None = None):
+        tnn.Module.__init__(self)
+        sizes = [input_dim, *hidden_sizes]
+        self.n = n
+        self.act = act
+        self.dropout_rate = dropout_rate
+        self.layers = tnn.ModuleList(
+            StackedLinear(n, sizes[i], sizes[i + 1], generator=generator) for i in range(len(hidden_sizes))
+        )
+        self.norms = tnn.ModuleList(
+            StackedLayerNorm(n, s, eps=norm_eps) if layer_norm else tnn.Identity() for s in sizes[1:]
+        )
+        self.head = None if output_dim is None else StackedLinear(n, sizes[-1], output_dim, generator=generator)
 
 
 class CNN(tnn.Module):

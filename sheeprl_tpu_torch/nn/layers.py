@@ -2,7 +2,10 @@
 ConvTranspose2d, LayerNorm.
 
 Layouts: `Linear.weight` is torch's [out, in] (the reference keeps
-[in, out]; `interop.py` transposes). Convolutions keep the reference's NHWC
+[in, out]; `interop.py` transposes). `StackedLinear` holds the `n` members
+of an ensemble as one `[n, in, out]` weight, the layout of the
+reference's vmapped `Linear` (no transposition), and runs them as one
+batched product. Convolutions keep the reference's NHWC
 activations and HWIO kernels at their interface. LayerNorm normalizes the
 trailing axis in f32 with each instance's own `eps`. Parameters are f32;
 the forward follows the input's dtype.
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels.deconv import subpixel_deconv
 
-__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm"]
+__all__ = ["Linear", "Conv2d", "ConvTranspose2d", "LayerNorm", "StackedLayerNorm", "StackedLinear", "dropout"]
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator | None) -> None:
@@ -202,3 +205,54 @@ class LayerNorm(tnn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), (self.dim,), self.scale, self.offset, self.eps).to(x.dtype)
+
+
+class StackedLayerNorm(tnn.Module):
+    """`n` LayerNorms over the trailing axis of `[n, ..., dim]`, their
+    affine parameters stacked as `[n, dim]`."""
+
+    def __init__(self, n: int, dim: int, *, eps: float = 1e-5):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.scale = tnn.Parameter(torch.ones(n, dim))
+        self.offset = tnn.Parameter(torch.zeros(n, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.dim,)
+        y = F.layer_norm(x.float(), (self.dim,), None, None, self.eps)
+        return (y * self.scale.view(lead) + self.offset.view(lead)).to(x.dtype)
+
+
+class StackedLinear(tnn.Module):
+    """`n` Linears as one `[n, in, out]` weight and `[n, out]` bias: `[B,
+    in]` (one input for every member) or `[n, B, in]` -> `[n, B, out]` by
+    one `torch.baddbmm`. Each member is initialised as `Linear`."""
+
+    def __init__(self, n: int, in_features: int, out_features: int, *, generator: torch.Generator | None = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = tnn.Parameter(torch.empty(n, in_features, out_features))
+        self.bias = tnn.Parameter(torch.empty(n, out_features))
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x.unsqueeze(0).expand(self.weight.shape[0], -1, -1)
+        return torch.baddbmm(self.bias.to(x.dtype).unsqueeze(1), x, self.weight.to(x.dtype))
+
+    @property
+    def out_features(self) -> int:
+        return self.weight.shape[2]
+
+
+def dropout(x: torch.Tensor, u: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """Inverted dropout with the uniform draw `u` (x's shape) passed in: `x /
+    keep` where `u < keep`, else 0, as the reference's `dropout` keeps
+    `jax.random.bernoulli(key, keep)`, which is `uniform(key) < keep`.
+    Without a draw (or at rate 0) the identity."""
+    if u is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,12 +1,14 @@
 """The gradient step of the port's trainers: optax's `clip_by_global_norm`
-written by hand, then one `torch.optim` step (the reference chains
-`optax.clip_by_global_norm` before `scale_by_adam`).
+written by hand, then one step of `Adam`, optax's `scale_by_adam` followed
+by `scale(-lr)` written by hand (the reference chains
+`optax.clip_by_global_norm` before `optax.adam`).
 
-On CUDA the trainers' Adams are `capturable` (`adam`): their step counts
-live on the device, so a whole train step can be captured in a CUDA graph.
-PyTorch refuses `capturable` on the CPU, so it follows the device, and
-`load_optimizer_state` keeps it so when a state saved on the other device
-is loaded."""
+`Adam` keeps each parameter's update count as an f32 tensor on the
+parameter's device, on the CPU as on the card: both devices run the same
+arithmetic, and a whole train step can be captured in a CUDA graph without
+a `capturable` flag. Its state keys are `torch.optim.Adam`'s (`step`,
+`exp_avg`, `exp_avg_sq`), so a state saved with PyTorch's Adam loads
+(`load_optimizer_state`)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["adam", "apply_gradients", "clip_by_global_norm", "global_norm", "load_optimizer_state"]
+__all__ = ["Adam", "adam", "apply_gradients", "clip_by_global_norm", "global_norm", "load_optimizer_state"]
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -44,20 +46,87 @@ def apply_gradients(params: list[torch.Tensor], grads: Sequence[torch.Tensor], o
     return norm
 
 
-def adam(params, lr, eps: float, device) -> torch.optim.Adam:
-    """`torch.optim.Adam`, capturable where the parameters live on CUDA."""
-    return torch.optim.Adam(params, lr=lr, eps=eps, capturable=torch.device(device).type == "cuda")
+class Adam(torch.optim.Optimizer):
+    """optax's `adam(lr, b1, b2, eps)` (`scale_by_adam` with eps_root 0,
+    then `scale(-lr)`, then `apply_updates`), in optax's order of
+    operations, over every parameter with a gradient:
+
+        mu = (1 - b1) * g + b1 * mu;   nu = (1 - b2) * g * g + b2 * nu
+        count += 1
+        u = (mu / (1 - b1 ** count)) / (sqrt(nu / (1 - b2 ** count)) + eps)
+        p = p + u * -lr
+
+    everything in f32 tensors, `b ** count` too. `lr` is a float or a
+    device scalar (an annealed lr a graph reads at every replay); a
+    checkpoint should hold a float. Multi-tensor `torch._foreach_*` ops, so a
+    step launches a few kernels a parameter group, not a few a parameter."""
+
+    def __init__(self, params, lr: float | torch.Tensor = 1e-3, betas: tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "betas": tuple(betas), "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            grads = [p.grad for p in params]
+            steps = [self.state[p]["step"] for p in params]
+            mus = [self.state[p]["exp_avg"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            b1, b2 = group["betas"]
+            # the moments: (1 - b) * g**order + b * moment
+            new = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, new)
+            new = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(new, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, new)
+            torch._foreach_add_(steps, 1.0)
+            # the bias corrections 1 - b ** count, in f32
+            bc1 = torch._foreach_pow(b1, steps)
+            torch._foreach_neg_(bc1)
+            torch._foreach_add_(bc1, 1.0)
+            bc2 = torch._foreach_pow(b2, steps)
+            torch._foreach_neg_(bc2)
+            torch._foreach_add_(bc2, 1.0)
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(mus, bc1)
+            torch._foreach_div_(updates, denom)
+            lr = group["lr"]
+            torch._foreach_mul_(updates, -lr if isinstance(lr, torch.Tensor) else -float(lr))
+            torch._foreach_add_(params, updates)
+        return None
+
+
+def adam(params, lr: float | torch.Tensor, eps: float) -> Adam:
+    """The trainers' Adam: optax's `adam(lr, eps=eps)` (`Adam`)."""
+    return Adam(params, lr=lr, eps=eps)
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
-    """`optimizer.load_state_dict(state)` for a state saved on either
-    device: the optimizer keeps its own `capturable`, and a capturable
-    one's step counts go to its parameters' device."""
-    capturable = [group.get("capturable", False) for group in optimizer.param_groups]
+    """`optimizer.load_state_dict(state)` for a state saved on either device,
+    also by PyTorch's Adam: every step count becomes an f32 tensor on its
+    parameter's device, and the param groups keep only the optimizer's own
+    settings (a PyTorch Adam's `capturable`, `foreach`, ... are dropped)."""
+    keys = [set(group) for group in optimizer.param_groups]
     optimizer.load_state_dict(state)
-    for group, flag in zip(optimizer.param_groups, capturable):
-        group["capturable"] = flag
+    for group, own in zip(optimizer.param_groups, keys):
+        for k in set(group) - own:
+            del group[k]
         for p in group["params"]:
             st = optimizer.state.get(p, {})
             if "step" in st:
-                st["step"] = st["step"].to(p.device if flag else "cpu", torch.float32)
+                st["step"] = torch.as_tensor(st["step"]).to(p.device, torch.float32)

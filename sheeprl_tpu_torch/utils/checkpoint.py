@@ -17,8 +17,10 @@ reference's rule, `valid_checkpoint`); `list_checkpoints` and
 `latest_checkpoint` skip the others. The state keys follow each
 algorithm's key contract (DreamerV3: world_model, actor, critic,
 target_critic, the three optimizers, moments, expl_decay_steps,
-global_step, batch_size; SAC: agent, qf_optimizer, actor_optimizer,
-alpha_optimizer, global_step).
+global_step, batch_size; SAC and DroQ: agent (actor, critics,
+target_critics, log_alpha), qf_optimizer, actor_optimizer,
+alpha_optimizer, global_step, plus the port's generator; PPO: agent,
+optimizer, update_step, plus generator).
 
 Saves block: the reference's asynchronous writer is orbax's. Its
 telemetry events, the `ckpt.write` fault-injection site with its retries

@@ -1,15 +1,19 @@
 """Evaluation shared by the mains (the port of sheeprl_tpu/utils/evaluation.py):
-the merge of command-line flags into a config restored from a checkpoint,
-and the loop of greedy test episodes that ends every run and is all that
-`--eval_only` runs."""
+the merge of command-line flags into a config restored from a checkpoint
+(`parse_run_args`), and the loop of greedy test episodes that ends every
+run and is all that `--eval_only` runs."""
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import os
+from typing import Any, Callable, Sequence
 
 import numpy as np
 
-__all__ = ["apply_eval_overrides", "run_test_episodes", "validate_eval_args"]
+from .checkpoint import load_checkpoint_args
+from .parser import DataclassArgumentParser
+
+__all__ = ["apply_eval_overrides", "parse_run_args", "run_test_episodes", "validate_eval_args"]
 
 # flags that pick where an evaluation goes, so the command line's value wins
 # over the checkpoint's whatever was given: its device (a checkpoint written
@@ -53,6 +57,24 @@ def apply_eval_overrides(saved: dict[str, Any], args: Any) -> dict[str, Any]:
         for f in provided - {"checkpoint_path", "eval_only"}:
             saved[f] = getattr(args, f)
     return saved
+
+
+def parse_run_args(args_type: type, argv: Sequence[str] | None):
+    """A main's config from its command line; with `--checkpoint_path`, the
+    checkpoint's own config (its sidecar), the path kept and the command
+    line's explicit flags over it (`apply_eval_overrides`)."""
+    parser = DataclassArgumentParser(args_type)
+    (args,) = parser.parse_args_into_dataclasses(argv)
+    validate_eval_args(args)
+    if args.checkpoint_path:
+        if not os.path.isdir(args.checkpoint_path):
+            raise FileNotFoundError(f"no checkpoint at {args.checkpoint_path}")
+        saved = load_checkpoint_args(args.checkpoint_path)
+        if saved:
+            saved.update(checkpoint_path=args.checkpoint_path)
+            apply_eval_overrides(saved, args)
+            (args,) = parser.parse_dict(saved)
+    return args
 
 
 def run_test_episodes(episode_fn: Callable[[], float], args: Any, logger) -> list[float]:

@@ -592,7 +592,9 @@ def test_serve_sac_int8_ckpt_reads_persisted_scales_then_rederives_on_reload(ref
     import sheeprl_tpu_torch.compile.decisions as decisions
     from sheeprl_tpu.utils.checkpoint import load_checkpoint as ref_load
     from sheeprl_tpu.utils.checkpoint import load_checkpoint_args as ref_args_of
-    from sheeprl_tpu_torch.algos.sac.agent import SACActor
+    from sheeprl_tpu_torch.algos.sac.agent import SACActor, SACAgent
+    from sheeprl_tpu_torch.algos.sac.args import SACArgs
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainState, make_optimizers
     from sheeprl_tpu_torch.interop import flatten_params, sac_checkpoint_from_jax
     from sheeprl_tpu_torch.ops import quant as q
     from sheeprl_tpu_torch.serve.client import ServeClient
@@ -602,12 +604,15 @@ def test_serve_sac_int8_ckpt_reads_persisted_scales_then_rederives_on_reload(ref
     raw = ref_load(reference_sac)
     sidecar = ref_args_of(reference_sac)
     hidden = sidecar["actor_hidden_size"]
-    actor = SACActor(3, 1, hidden_size=hidden, action_low=-2.0, action_high=2.0)
-    converted = sac_checkpoint_from_jax(raw, actor)
+    agent = SACAgent(3, 1, num_critics=sidecar["num_critics"], actor_hidden_size=hidden,
+                     critic_hidden_size=sidecar["critic_hidden_size"], action_low=-2.0, action_high=2.0)
+    converted = sac_checkpoint_from_jax(raw, SACTrainState(agent, *make_optimizers(SACArgs(), agent)))
+    actor = agent.actor
     actor.load_state_dict(converted["agent"]["actor"])
     ref_actor = flatten_params(raw["agent"]["actor"])
     np.testing.assert_array_equal(actor.model.layers[0].weight.detach().numpy(), ref_actor["model.layers.0.weight"].T)
-    assert set(converted) == {"agent", "qf_optimizer", "actor_optimizer", "alpha_optimizer", "global_step"}
+    assert set(converted) == {"agent", "qf_optimizer", "actor_optimizer", "alpha_optimizer", "global_step",
+                              "generator"}
     assert set(converted["agent"]) == {"actor", "critics", "target_critics", "log_alpha"}
     first = str(tmp_path / "checkpoints" / "ckpt_1")
     save_checkpoint(first, converted, sidecar)

@@ -189,7 +189,7 @@ def test_warm_on_leaves_the_state_as_it_was():
     from sheeprl_tpu_torch.ops.optim import adam, apply_gradients
 
     lin = torch.nn.Linear(3, 2)
-    opt = adam(lin.parameters(), 0.1, 1e-8, "cpu")
+    opt = adam(lin.parameters(), 0.1, 1e-8)
     before = {k: v.clone() for k, v in lin.state_dict().items()}
 
     def step(model, optimizer, x):
@@ -206,7 +206,7 @@ def test_warm_on_leaves_the_state_as_it_was():
     # the first real step after it equals a fresh optimizer's first step
     fresh = torch.nn.Linear(3, 2)
     fresh.load_state_dict(before)
-    fresh_opt = adam(fresh.parameters(), 0.1, 1e-8, "cpu")
+    fresh_opt = adam(fresh.parameters(), 0.1, 1e-8)
     x = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
     assert torch.equal(wj(lin, opt, x), step(fresh, fresh_opt, x))
     assert all(torch.equal(lin.state_dict()[k], v) for k, v in fresh.state_dict().items())

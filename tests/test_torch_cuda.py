@@ -1075,3 +1075,144 @@ def test_graphed_serve_reload_moves_the_answers_and_keeps_sessions(cuda_device, 
     with open(os.path.join(tmp_path, "serve", "s", "telemetry.jsonl")) as fh:
         gauges = [json.loads(line) for line in fh if '"interval"' in line][-1]["metrics"]
     assert gauges["Compile/aot_calls"] >= 12 and gauges["Compile/aot_fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the port's Adam and the SAC / DroQ steps on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_adam_on_the_card_matches_its_cpu_run(cuda_device):
+    """`ops/optim.py:Adam` runs the same f32 arithmetic on both devices
+    (step counts are device tensors on each): 100 steps of the same
+    gradients from the same parameters, clipped at 1.0, on the card (the
+    step captured in a CUDA graph and replayed) and on the CPU. The
+    parameters and moments must agree to 1e-6 (the card's `powf`, `sqrtf`
+    and divisions against the CPU's; the gap is printed)."""
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.ops.optim import Adam, apply_gradients
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(64, 32), (32,), (8, 4, 2), (1,)]
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * (10.0 if i % 7 == 0 else 0.1) for s in shapes] for i in range(100)]
+    # a module holds the parameters: a graphed step's tensor arguments are
+    # copied into its own inputs, its modules taken as they are
+    params = {d: torch.nn.ParameterList([p.clone().to(d) for p in init]) for d in ("cpu", cuda_device)}
+    opts = {d: Adam(ps.parameters(), lr=3e-4, eps=1e-4) for d, ps in params.items()}
+
+    def step(module, opt, gs):
+        apply_gradients(list(module.parameters()), gs, opt, 1.0)
+
+    graphed = CompilePlan(device=cuda_device).register("adam", step)
+    for gs in grads:
+        step(params["cpu"], opts["cpu"], gs)
+        graphed(params[cuda_device], opts[cuda_device], [g.to(cuda_device) for g in gs])
+    gaps = []
+    for a, b in zip(params["cpu"].parameters(), params[cuda_device].parameters()):
+        sa, sb = opts["cpu"].state[a], opts[cuda_device].state[b]
+        assert sb["step"].device.type == "cuda" and float(sb["step"]) == float(sa["step"]) == 100
+        for x, y in ((a, b), (sa["exp_avg"], sb["exp_avg"]), (sa["exp_avg_sq"], sb["exp_avg_sq"])):
+            gaps.append(float((x.detach() - y.detach().cpu()).abs().max()))
+    print(f"Adam, 100 steps, card vs CPU: largest gap {max(gaps):.3e}")
+    assert max(gaps) <= 1e-6, gaps
+
+
+def _sac_case(algo: str, device, seed: int = 0):
+    """A SAC or DroQ agent, its Adams, its train step and the inputs of
+    three calls at width 64, B 32, G 3, on `device`."""
+    from sheeprl_tpu_torch.algos.droq.args import DROQArgs
+    from sheeprl_tpu_torch.algos.droq.droq import build_agent as droq_agent
+    from sheeprl_tpu_torch.algos.droq.droq import droq_draws
+    from sheeprl_tpu_torch.algos.droq.droq import make_train_step as droq_step
+    from sheeprl_tpu_torch.algos.sac.args import SACArgs
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainState, build_agent, make_optimizers, make_train_step, sac_draws
+
+    kw = dict(gradient_steps=3, per_rank_batch_size=32, actor_hidden_size=64, critic_hidden_size=64,
+              device=str(device))
+    if algo == "sac":
+        args = SACArgs(**kw)
+        agent, layout, step = build_agent, sac_draws(args, 1), make_train_step
+    else:
+        args = DROQArgs(**kw, dropout=0.1)
+        agent, layout, step = droq_agent, droq_draws(args, 1), droq_step
+    low, high = torch.full((1,), -2.0).numpy(), torch.full((1,), 2.0).numpy()
+    a = agent(args, 3, 1, low, high, torch.Generator().manual_seed(seed)).to(device)
+    state = SACTrainState(a, *make_optimizers(args, a))
+    gen = torch.Generator().manual_seed(seed + 1)
+    calls = []
+    for i in range(3):
+        data = {k: torch.randn(3, 32, n, generator=gen).to(device) for k, n in
+                (("observations", 3), ("next_observations", 3), ("actions", 1), ("rewards", 1))}
+        data["dones"] = (torch.rand(3, 32, 1, generator=gen) < 0.1).float().to(device)
+        draws = layout.fill(layout.new("cpu"), gen).to(device)
+        extra = (torch.tensor(i != 1, device=device) if algo == "sac"
+                 else torch.randn(32, 3, generator=gen).to(device))
+        calls.append((state, data, draws, extra))
+    return step(args, layout), calls, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["sac", "droq"])
+def test_graphed_sac_train_and_policy_steps_equal_eager_bit_for_bit(cuda_device, algo):
+    """The train step (three Adams, the EMA gate as a device bool, DroQ's
+    dropout draws passed in) and the policy step, each graphed by the
+    plan (first call eager, then capture and replays) against the same
+    calls made eagerly from the same state: losses, actions and every
+    parameter, target and Adam moment bit for bit, no fallback."""
+    from sheeprl_tpu_torch.algos.sac.sac import policy_step
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+
+    results = {}
+    for graphed in (False, True):
+        step, calls, state = _sac_case(algo, cuda_device)
+        plan = CompilePlan(device=cuda_device)
+        train = plan.register("train_step", step) if graphed else step
+        policy = plan.register("policy_step", policy_step) if graphed else policy_step
+        gen = torch.Generator().manual_seed(9)
+        outs = []
+        for call in calls:
+            outs.append(train(*call).clone())
+            obs, noise = torch.randn(4, 3, generator=gen).to(cuda_device), torch.randn(4, 1, generator=gen)
+            outs.append(policy(state.agent.actor, obs, noise.to(cuda_device)).clone())
+        torch.cuda.synchronize()
+        moments = [t.clone() for opt in (state.qf_opt, state.actor_opt, state.alpha_opt)
+                   for st in opt.state.values() for t in st.values()]
+        results[graphed] = (outs, {k: v.clone() for k, v in state.agent.state_dict().items()}, moments)
+        if graphed:
+            stats = plan.stats()["entries"]
+            assert all(e["fallbacks"] == 0 and e["aot_calls"] == 2 for e in stats.values()), stats
+    (eo, es, em), (go, gs, gm) = results[False], results[True]
+    assert all(torch.equal(a, b) for a, b in zip(eo, go))
+    assert es.keys() == gs.keys() and [k for k in es if not torch.equal(es[k], gs[k])] == []
+    assert len(em) == len(gm) and all(torch.equal(a, b) for a, b in zip(em, gm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["sac", "droq"])
+def test_graphed_sac_run_on_the_card_resumes_on_the_cpu(cuda_device, tmp_path, algo):
+    """`sac` / `droq` on the card at tiny widths (the train and policy steps
+    graph replays, no fallback), its checkpoint resumed with `--device cpu`
+    (the Adams' step counts moved to the CPU, the card's generator state
+    reseeded) and evaluated there."""
+    import json
+
+    from sheeprl_tpu_torch.cli import run
+
+    argv = [algo, "--num_envs", "1", "--actor_hidden_size", "16", "--critic_hidden_size", "16",
+            "--per_rank_batch_size", "8", "--learning_starts", "16", "--buffer_size", "128", "--gradient_steps",
+            "2", "--root_dir", str(tmp_path), "--run_name", "r"]
+    run([*argv, "--total_steps", "48", "--checkpoint_every", "24"])
+
+    def done():
+        with open(tmp_path / "r" / "metrics.jsonl") as fh:
+            return [json.loads(line) for line in fh][-1]
+
+    rec = done()
+    stats = rec["compile_stats"]["entries"]
+    assert stats["train_step"]["aot_calls"] == rec["train_calls"] - 1 and stats["train_step"]["fallbacks"] == 0
+    assert stats["policy_step"]["fallbacks"] == 0 and stats["policy_step"]["aot_calls"] > 0
+    run([algo, "--checkpoint_path", str(tmp_path / "r" / "checkpoints" / "ckpt_24"), "--device", "cpu"])
+    rec = done()
+    assert rec["device"] == "cpu" and rec["resumed"]["start_step"] == 25 and rec["env_steps"] == 24

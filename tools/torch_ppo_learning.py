@@ -17,9 +17,10 @@ needed). On the card the port's steps run as CUDA graphs; `--eager` calls
 each step directly instead (every CompilePlan in direct mode), the same
 arithmetic without the graphs. `--adam plain` gives PPO PyTorch's default
 Adam (not capturable: step counts on the host, the update's float lr), the
-port's optimizer before its steps became CUDA graphs; a capture refuses
-it, so the steps then run eagerly. On the card that is the arithmetic of
-the port before the graphs; on the CPU it is the default anyway.
+port's optimizer before its steps became CUDA graphs and before it took
+optax's arithmetic (`ops/optim.py:Adam`); a capture refuses it, so the
+steps then run eagerly. That is the arithmetic of the port's PPO before
+the graphs, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def plain_adams() -> None:
 
     from sheeprl_tpu_torch.algos.ppo import ppo
 
-    ppo.adam = lambda params, lr, eps, device: torch.optim.Adam(params, lr=lr, eps=eps)
+    ppo.adam = lambda params, lr, eps: torch.optim.Adam(params, lr=lr, eps=eps)
     eager_plans()
 
 
@@ -122,8 +123,8 @@ def main() -> int:
     parser.add_argument("--seeds", type=int, nargs="+", default=[5])
     parser.add_argument("--out", default=os.path.join(HERE, "build", "ppo_learning"))
     parser.add_argument("--eager", action="store_true", help="the port's steps called directly, not graphed")
-    parser.add_argument("--adam", choices=("capturable", "plain"), default="capturable",
-                        help="the port's PPO Adam: capturable on CUDA (the port's), or PyTorch's default (eager)")
+    parser.add_argument("--adam", choices=("port", "plain"), default="port",
+                        help="PPO's Adam: the port's (optax's arithmetic), or PyTorch's default (eager)")
     opts = parser.parse_args()
     sys.path.insert(0, HERE)
     import numpy as np
