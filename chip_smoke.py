@@ -131,9 +131,28 @@ the final line:
      rows, every rung, a RELOAD to the same actor perturbed): each rung's
      decision, kernel 6's launches counted on the device (the kernels
      line's), every answer equal to its rung's direct call bit for bit, and
-     some answers from int8 rungs.
+     some answers from int8 rungs;
+ 13. anakin: the device envs (`--env_backend jax`, envs/device/): each
+     env's step on the card against its CPU step from 1,024 random states
+     and every action (1e-6 or two f32 ulps; pixeltoy's frames and every
+     flag exactly); `ppo` with phase 10's recipe on the batched CartPole,
+     each rollout one graph replay, beside phase 10's host-env numbers
+     (rollout and train ms an update, env steps/s), its greedy evaluation
+     at seeds 1000-1009 (gated at the bar only where both packages pass at
+     9 of seeds 5-14: ANAKIN_RECEIPT_GATED), one update profiled (device
+     time, launches, busy share); 3 updates of the reference's command at
+     1,024 envs (the rollout's env steps/s); `dreamer_v3` on pixeltoy at
+     DreamerV3's default widths (16 envs, chunks of 4 steps, 10 gradient
+     steps from a replay ring on the card), every launch counted on the
+     device (kernels 1 and 3 inside each chunk's graph, 2, 3-res, 4 and 7 in
+     the gradient step), kernels 1 and 3 held against their plain versions
+     at the chunk's 16 rows, the gradient step against phase 6's, and
+     `--eval_only` over its checkpoint on the host twin; each collector's
+     replay against its eager self (PPO's at the recipe's shape, DreamerV3's
+     player and random chunks), timed both ways. The kernels line's
+     `anakin_launches` are this phase's device counts.
 
-Every path of phases 4, 6-10 and 12 runs graphed through the CLIs
+Every path of phases 4, 6-10, 12 and 13 runs graphed through the CLIs
 (`compile/plan.py`: serve captures every rung at startup, the trainers
 each step at its first call), and each phase fails on a fallback. A
 replay runs no Python, so its kernels move no wrapper's counter: each
@@ -1384,48 +1403,75 @@ class DeviceLaunches:
     runs no wrapper, so the wrappers' counters see only the eager calls
     and the captures; this is the count of what ran, replays included.
     `counts` (by wrapper name, 0 for those of `names` that did not run) is
-    set when the window closes."""
+    set when the window closes.
 
-    def __init__(self, torch, names):
-        self.torch, self.names, self.counts = torch, tuple(names), None
+    A window on the H100 can lose records at its edges: the first after
+    the profiler starts, and at its stop the last ones (once all 512 empty
+    kernels that closed a window, once also the 5 player steps before
+    them; `tools/torch_profiler_edges.py`). So each edge is padded, from
+    the outside in, with `EDGE_PAD_S` of host idle, `EDGE_SLACK` short spin
+    kernels and `EDGE_MARGIN` empty ones. The slack may be lost; a window
+    that lost any of its empty kernels came near the path's own records
+    and (`strict`) raises instead of counting. `edges` holds what each
+    edge kept, and every window's is appended to `WINDOWS`."""
 
-    def _margin(self) -> None:
-        """Empty kernels (`torch.cuda._sleep(0)`), synchronized, at the
-        window's start and end: in one run on the H100 two torch.profiler windows
-        of phase 11 each lost one step's kernel records (5 of the 1,000
-        port kernels of 200 served steps) that a window in a fresh process
-        counts exactly, as every window of phases 4-10 did, whose first and
-        last records are other kernels. A loss at an edge falls on these."""
+    EDGE_PAD_S = 0.25
+    EDGE_SLACK, SLACK_CYCLES = 2048, 40_000  # ~21 us each on the H100
+    EDGE_MARGIN = 512
+    EMPTY_NS = 8_000  # an empty spin kernel's record lasts ~1 us
+    WINDOWS: list = []
+
+    def __init__(self, torch, names, strict: bool = True):
+        self.torch, self.names, self.strict = torch, tuple(names), strict
+        self.counts = self.edges = None
+
+    def _edge(self, closing: bool) -> None:
         torch = self.torch
         torch.cuda.synchronize()
-        for _ in range(512):
-            torch.cuda._sleep(0)
+        if not closing:
+            time.sleep(self.EDGE_PAD_S)
+        layers = [(self.SLACK_CYCLES, self.EDGE_SLACK), (0, self.EDGE_MARGIN)]
+        for cycles, n in layers[::-1] if closing else layers:
+            for _ in range(n):
+                torch.cuda._sleep(cycles)
         torch.cuda.synchronize()
+        if closing:
+            time.sleep(self.EDGE_PAD_S)
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
 
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.__enter__()
-        self._margin()
+        self._edge(closing=False)
         return self
 
     def __exit__(self, *exc):
         torch = self.torch
         try:
-            self._margin()
+            self._edge(closing=True)
         finally:
             self._prof.__exit__(*exc)
         if exc[0] is None:
             cuda = torch.autograd.DeviceType.CUDA
-            results = getattr(self._prof.profiler, "kineto_results", None)
-            if results is not None:
-                names = [e.name() for e in results.events() if e.device_type() == cuda]
-            else:
-                names = [e.name for e in self._prof.events() if e.device_type == cuda]
+            events = sorted((e for e in self._prof.profiler.kineto_results.events() if e.device_type() == cuda),
+                            key=lambda e: e.start_ns())
+            body = [i for i, e in enumerate(events) if "spin_kernel" not in e.name()] or [len(events)]
+
+            def kept(edge):
+                empty = sum(e.duration_ns() < self.EMPTY_NS for e in edge)
+                return {"empty": empty, "slack": len(edge) - empty}
+
+            self.edges = {"head": kept(events[:body[0]]), "tail": kept(events[body[-1] + 1:])}
+            self.WINDOWS.append(self.edges)
+            empty = self.edges["head"]["empty"] + self.edges["tail"]["empty"]
+            if self.strict and empty != 2 * self.EDGE_MARGIN:
+                raise RuntimeError(
+                    f"the profiler window kept {self.edges} of {self.EDGE_MARGIN} empty and {self.EDGE_SLACK} "
+                    "slack kernels an edge: it lost records next to the path's own, so its counts are not exact")
             counts = {k: 0 for k in self.names}
-            for name in names:
-                wrapper = port_kernel(name)
+            for e in events:
+                wrapper = port_kernel(e.name())
                 if wrapper is not None:
                     counts[wrapper] = counts.get(wrapper, 0) + 1
             self.counts = counts
@@ -2455,16 +2501,19 @@ def profile_ppo(torch, ckpt: str, device, graphs: bool = False) -> dict:
                 top=[dict(name=k, ms=ms, calls=c) for k, ms, c in rows[:12]])
 
 
-def ppo_rundown(torch, root: str) -> dict:
+def ppo_rundown(torch, root: str, env_backend: str = "host", learn: str = "learn") -> dict:
     """ROADMAP's Watch for a seed-5 miss of the learning receipt, on the
     card, by `tools/torch_ppo_learning.py` in processes of their own, all
     started together: (1) the seed-5 run again with every step called
     eagerly (`--eager`) must end in the graphed run's parameters bit for
     bit, so the graphs are not the miss's cause; (2) the recipe and its
     greedy evaluation at PPO_RUNDOWN_SEEDS must pass the bar at least
-    PPO_RUNDOWN_PASSES times. Raises unless both hold. -> the run-down."""
+    PPO_RUNDOWN_PASSES times. `env_backend` is the runs' (phase 13's
+    receipt: jax), `learn` the graphed seed-5 run's directory under
+    `root`. Raises unless both hold. -> the run-down."""
     out = os.path.join(root, "rundown")
-    tool = [sys.executable, os.path.join(HERE, "tools", "torch_ppo_learning.py"), "--device", "cuda", "--out", out]
+    tool = [sys.executable, os.path.join(HERE, "tools", "torch_ppo_learning.py"), "--device", "cuda", "--out", out,
+            "--env_backend", env_backend]
     # three processes: each context on the card time-slices with the others
     # (six, four seeds each, took 308 s where one seed alone takes ~13 s)
     half = len(PPO_RUNDOWN_SEEDS) // 2
@@ -2492,7 +2541,7 @@ def ppo_rundown(torch, root: str) -> dict:
         return torch.load(os.path.join(path, "checkpoints", f"ckpt_{PPO_LEARN_UPDATES}", "state.pt"),
                           map_location="cpu", weights_only=False)["agent"]
 
-    graphed, eager = final_agent(os.path.join(root, "learn")), final_agent(os.path.join(out, "learn_5"))
+    graphed, eager = final_agent(os.path.join(root, learn)), final_agent(os.path.join(out, "learn_5"))
     same = set(graphed) == set(eager) and all(torch.equal(graphed[k], eager[k]) for k in graphed)
     means = {r["seed"]: r["mean_return"] for r in results if not r["eager"]}
     eager_mean = next(r["mean_return"] for r in results if r["eager"])
@@ -2653,11 +2702,12 @@ def time_calls(torch, fn, steps: int) -> dict:
                 port_launches={k: n / steps for k, n in ran.counts.items() if n})
 
 
-def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=None) -> dict:
+def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=None, adopt: bool = False) -> dict:
     """`build()` -> (step, its calls' arguments, a thunk of the state the
     calls change, by name). The step runs its calls eagerly twice and graphed
     once (a plan entry: the first call eager, then the capture, then
-    replays), each time from a fresh `build()`. Graphed against eager: bit
+    replays; with `adopt` the graph reads and writes the caller's tensors,
+    as a collector's carry), each time from a fresh `build()`. Graphed against eager: bit
     for bit when the two eager runs agree bit for bit, else outputs within
     `out_tol` (atol, rtol) and each state tensor within `state_tol(name,
     calls)` (absolute), the gaps printed beside the eager-vs-eager gap. Then
@@ -2668,7 +2718,7 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
     def run(graphed: bool):
         fn, calls, state = build()
         plan = CompilePlan(device="cuda") if graphed else None
-        step = plan.register(name, fn) if graphed else fn
+        step = plan.register(name, fn, adopt=adopt) if graphed else fn
         outs = [[t.detach().clone() for t in _tensors(step(*a))] for a in calls]
         torch.cuda.synchronize()
         return dict(step=step, last=calls[-1], plan=plan, outs=outs,
@@ -3161,6 +3211,379 @@ def sac_train_phase(torch, np, run, ServeClient, device, smi: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the device envs (--env_backend jax, the Anakin path)
+# ---------------------------------------------------------------------------
+
+# phase 10's learning recipe on the batched CartPole on the card: a whole
+# rollout (128 steps of 4 envs) one graph replay; evaluated as phase 10's
+ANAKIN_PPO_ARGV = [*PPO_LEARN_ARGV, "--env_backend", "jax"]
+# whether phase 13 gates the receipt at seed 5 (bar 400, phase 10's
+# run-down on a miss): only where both packages pass at 9 or more of seeds
+# 5-14 with --env_backend jax. The reference passes at 8 (seeds 8 and 12
+# miss: 396.8, 252.3; PERF.md §6), so the return is printed, not gated
+ANAKIN_RECEIPT_GATED = False
+# the reference's command at scale (howto/jax_envs.md:15) for 3 updates;
+# the minibatch of 4,096 rows keeps an update at 32 minibatches an epoch
+# (the default 64 would take 2,048): only the rollout is timed
+ANAKIN_SCALE_ENVS = 1024
+ANAKIN_SCALE_ARGV = ["--env_id", "CartPole-v1", "--env_backend", "jax", "--num_envs", str(ANAKIN_SCALE_ENVS),
+                     "--total_steps", str(3 * 128 * ANAKIN_SCALE_ENVS), "--per_rank_batch_size", "4096",
+                     "--checkpoint_every", "1000000"]
+# DreamerV3 on pixeltoy at its default widths (phase 6's model, 5 actions):
+# 16 envs, train_every 64 (a chunk of 4 steps of every env); learning_starts
+# 1,024 env steps, 64 an env, as the T = 64 windows need 64 rows in each
+# env's ring (16 random chunks); then the pretrain step and 9 player chunks
+# of one gradient step each: 10 gradient steps, 36 player steps; the buffer
+# cut to the 100 rows an env the run fills
+ANAKIN_DV3_ENVS, ANAKIN_DV3_CHUNK, ANAKIN_DV3_STEPS = 16, 4, 100
+ANAKIN_DV3_ARGV = ["dreamer_v3", "--env_id", "pixeltoy", "--env_backend", "jax", "--num_envs", str(ANAKIN_DV3_ENVS),
+                   "--train_every", str(ANAKIN_DV3_CHUNK * ANAKIN_DV3_ENVS), "--learning_starts", "1024",
+                   "--total_steps", str(ANAKIN_DV3_STEPS * ANAKIN_DV3_ENVS),
+                   "--buffer_size", str(ANAKIN_DV3_STEPS * ANAKIN_DV3_ENVS)]
+ANAKIN_DV3_GRADIENT_STEPS, ANAKIN_DV3_PLAYER_CHUNKS, ANAKIN_DV3_RANDOM_CHUNKS = 10, 9, 16
+# a device env's step on the card against its CPU step: 1e-6, or two f32
+# ulps of a value past 4 (Pendulum's costs reach 16)
+ENV_ATOL, ENV_RTOL = 1e-6, 2.4e-7
+
+
+def _env_states(torch, env, env_id: str, n: int, gen):
+    """n random states of a device env on the CPU, some a step short of the
+    time limit."""
+    t = torch.randint(0, env.max_episode_steps, (n,), generator=gen, dtype=torch.int32)
+    t[: n // 8] = env.max_episode_steps - 1
+    if env_id == "CartPole-v1":
+        return env.State(state=torch.randn(n, 4, generator=gen) * torch.tensor([1.0, 1.5, 0.1, 1.5]), t=t)
+    if env_id == "Pendulum-v1":
+        return env.State(state=(torch.rand(n, 2, generator=gen) * 2 - 1) * torch.tensor([7.0, 8.0]), t=t)
+    cells = torch.randint(0, env.grid, (2, n, 2), generator=gen, dtype=torch.int32)
+    return env.State(agent=cells[0], goal=cells[1], t=t)
+
+
+def device_env_checks(torch, device, n: int = 1024) -> list[dict]:
+    """Each device env's step on the card against its step on the CPU, from
+    the same n random states, every action (a grid of torques past +-2 for
+    Pendulum): floats within ENV_ATOL / ENV_RTOL (pixeltoy's frames and
+    rewards exactly), every flag and counter exactly. Raises otherwise."""
+    from sheeprl_tpu_torch.envs.device import make_device_env
+    from sheeprl_tpu_torch.envs.device.core import tree_map, tree_state_dict
+
+    gen = torch.Generator().manual_seed(13)
+    rows = []
+    for env_id in ("CartPole-v1", "Pendulum-v1", "pixeltoy"):
+        env = make_device_env(env_id)
+        state = _env_states(torch, env, env_id, n, gen)
+        card_state = tree_map(lambda x: x.to(device), state)
+        if env_id == "Pendulum-v1":
+            actions = [torch.full((n, 1), u) for u in (-3.0, -2.0, -0.7, 0.0, 0.3, 1.999, 2.5)]
+        else:
+            actions = [torch.full((n,), a, dtype=torch.int32) for a in range(2 if env_id == "CartPole-v1" else 5)]
+        max_err, exact, ok = 0.0, True, True
+        for a in actions:
+            want = tree_state_dict(env.step(state, a))
+            got = tree_state_dict(env.step(card_state, a.to(device)))
+            for k, w in want.items():
+                g = got[k].cpu()
+                if w.is_floating_point() and env_id != "pixeltoy":
+                    max_err = max(max_err, float((g - w).abs().max()))
+                    exact = exact and torch.equal(g, w)
+                    ok = ok and bool(((g - w).abs() <= ENV_ATOL + ENV_RTOL * w.abs()).all())
+                else:
+                    ok = ok and torch.equal(g, w)
+        rows.append(dict(env=env_id, n=n, actions=len(actions), max_abs_err=max_err, bit_exact=exact, within_tol=ok))
+        log(f"[anakin] {env_id}: the card's step vs the CPU's from {n} random states, {len(actions)} actions: "
+            f"largest float difference {max_err:.3e} (tol {ENV_ATOL:g} + {ENV_RTOL:g} x |value|), bit for bit "
+            f"{exact}; flags and counters{' and frames' if env_id == 'pixeltoy' else ''} equal: {ok}")
+        if not ok:
+            raise RuntimeError(f"the {env_id} device env's step on the card disagrees with its CPU step")
+    return rows
+
+
+def anakin_ppo_profile(torch, ckpt: str, device) -> dict:
+    """Where a jax-backend PPO update's time goes, from checkpoint `ckpt`: the
+    rollout one replay of the graphed collector (its draws, the replay, the
+    episode dict's pull), then GAE and the graphed minibatch steps, each part
+    synchronized; a torch.profiler window over another update (the busy
+    share is the kernels' device time over the unprofiled wall)."""
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+    from sheeprl_tpu_torch.envs.device.rollout import PPOCollectorCarry, make_ppo_collector
+
+    args, agent, optimizer, _, keys = _ppo_state(torch, ckpt, device)
+    venv = VecDeviceEnv(make_device_env(args.env_id), args.num_envs, device)
+    steps, n = args.rollout_steps, args.rollout_steps * args.num_envs
+    gen = torch.Generator(device=device).manual_seed(2)
+    carry = PPOCollectorCarry.reset(venv, gen)
+    plan = CompilePlan(device=device)
+    collect = plan.register("anakin_rollout", make_ppo_collector(venv, steps, agent.actions_dim, agent.is_continuous),
+                            adopt=True)
+    step = ppo.make_train_step(args, max(n // args.per_rank_batch_size, 1), plan=plan)
+    perms = torch.Generator().manual_seed(3)
+    walls = {}
+
+    def update():
+        t0 = time.perf_counter()
+        traj, ep = collect(agent, carry, venv.draw_resets(gen, steps), agent.draw_noise(gen, steps, args.num_envs))
+        torch.stack(list(ep.values())).tolist()
+        t1 = time.perf_counter()
+        step(agent, optimizer, ppo.flat_batch(agent, traj, carry.obs, carry.prev_done, keys, args), args.lr,
+             args.clip_coef, args.ent_coef, generator=perms)
+        torch.cuda.synchronize()
+        walls.update(rollout_ms=(t1 - t0) * 1e3, train_ms=(time.perf_counter() - t1) * 1e3)
+
+    for _ in range(3):  # warm-ups and captures
+        update()
+    wall = dict(walls)
+    rows = profile_kernels(torch, update, "trace_anakin_ppo.json.gz")
+    device_ms = sum(r[1] for r in rows)
+    total = wall["rollout_ms"] + wall["train_ms"]
+    return dict(**wall, update_ms=total, device_ms=device_ms, launches=sum(r[2] for r in rows),
+                device_busy_share=device_ms / total, top=[dict(name=k, ms=ms, calls=c) for k, ms, c in rows[:12]])
+
+
+def _anakin_player(torch, device):
+    """DreamerV3's player at its default widths over pixeltoy's frames (5
+    actions), from a fixed seed, and the pixeltoy env batch of phase 13."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+
+    venv = VecDeviceEnv(make_device_env("pixeltoy"), ANAKIN_DV3_ENVS, device)
+    args = DreamerV3Args()
+    wm, actor, _, _ = build_models(torch.Generator().manual_seed(0), [5], False, args,
+                                   venv.single_observation_space.spaces, ["rgb"], [])
+    player = PlayerDV3(wm.encoder, wm.rssm, actor, actions_dim=[5], stochastic_size=args.stochastic_size,
+                       discrete_size=args.discrete_size, recurrent_state_size=args.recurrent_state_size).to(device)
+    return player, venv
+
+
+def anakin_graph_cases(torch, device, ckpt: str) -> list[dict]:
+    """Each collector's graph replay against its eager self (phase 11's
+    `graph_case`, the carry adopted), from the same carry and draws: PPO's at
+    the recipe's shape (128 steps of 4 envs, the trained agent of `ckpt`)
+    and DreamerV3's chunk at phase 13's (4 steps of 16 pixeltoy envs, the
+    player at default width), the player's and the random phase's; then
+    each timed both ways (host wall, device time and launches)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import make_device_preprocess
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+    from sheeprl_tpu_torch.envs.device.core import tree_state_dict
+    from sheeprl_tpu_torch.envs.device.rollout import (
+        DreamerCollectorCarry, PPOCollectorCarry, make_dreamer_collector, make_ppo_collector, random_action_sampler,
+    )
+
+    def ppo_case():
+        args, agent, _, _, _ = _ppo_state(torch, ckpt, device)
+        venv = VecDeviceEnv(make_device_env(args.env_id), args.num_envs, device)
+        carry = PPOCollectorCarry.reset(venv, torch.Generator(device=device).manual_seed(4))
+        gen, steps = torch.Generator(device=device).manual_seed(5), args.rollout_steps
+        calls = [(agent, carry, venv.draw_resets(gen, steps), agent.draw_noise(gen, steps, args.num_envs))
+                 for _ in range(3)]
+        return (make_ppo_collector(venv, steps, agent.actions_dim, agent.is_continuous), calls,
+                lambda: tree_state_dict(carry))
+
+    def dv3_case(random_phase: bool):
+        def build():
+            player, venv = _anakin_player(torch, device)
+            with torch.no_grad():
+                pstate = player.init_states(ANAKIN_DV3_ENVS)
+            carry = DreamerCollectorCarry.reset(venv, torch.Generator(device=device).manual_seed(6))
+            gen, sample = torch.Generator(device=device).manual_seed(7), random_action_sampler(
+                venv.single_action_space, [5], False)
+            calls = []
+            for expl in (0.3, 0.0, 0.1):
+                fresh = venv.draw_resets(gen, ANAKIN_DV3_CHUNK)
+                draws = (sample(gen, ANAKIN_DV3_CHUNK, ANAKIN_DV3_ENVS) if random_phase else
+                         torch.rand((ANAKIN_DV3_CHUNK, ANAKIN_DV3_ENVS, player.noise_width()), generator=gen,
+                                    device=device))
+                calls.append((player, pstate, carry, fresh, draws, torch.full((), expl, device=device)))
+            fn = make_dreamer_collector(venv, ANAKIN_DV3_CHUNK, [5], False, make_device_preprocess(["rgb"]),
+                                        random_actions=random_phase)
+            return fn, calls, lambda: tree_state_dict((pstate, carry))
+        return build
+
+    # timed calls a way: an eager PPO rollout is ~0.23 s of 11,400 launches
+    # and a profiler window's records of many cost seconds of collection
+    cases = [("anakin_rollout ppo cartpole T128 N4", ppo_case, 3, (1e-6, 1e-5)),
+             ("anakin_rollout dreamer_v3 pixeltoy T4 N16", dv3_case(False), 30, (1e-4, 1e-4)),
+             ("anakin_rollout_random dreamer_v3 pixeltoy T4 N16", dv3_case(True), 30, (0.0, 0.0))]
+    reports = []
+    for name, build, steps, tol in cases:
+        reports.append(graph_case(torch, name, build, steps, tol, adopt=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports
+
+
+def check_anakin_launches(tag: str, launches: dict, wrapper: dict, done: dict, chunk: int) -> dict:
+    """A jax-backend DreamerV3 run's counts: on the device `expected_launches`
+    (a collection chunk's player steps count as player steps); each graph's
+    launches a replay its step's own (a chunk: `chunk` player steps; the
+    random chunk none); the wrappers' counters their eager calls, captures
+    and the test episodes' eager player steps. Raises otherwise. -> the
+    expected device counts."""
+    per_call = {"train_step": PER_GRADIENT_STEP, "anakin_rollout": {k: chunk * n for k, n in PER_PLAYER_STEP.items()},
+                "anakin_rollout_random": {}}
+    entries = done["compile_stats"]["entries"]
+    check_per_replay(entries, per_call, tag)
+    expected = expected_launches(launches, PER_GRADIENT_STEP, PER_PLAYER_STEP, done)
+    tests = sum(done["test_player_steps"])
+    wrapper_want = wrapper_expected(entries, wrapper, {k: n * tests for k, n in PER_PLAYER_STEP.items()})
+    if launches != expected:
+        raise RuntimeError(f"{tag}: launch counts on the device {launches} != {expected} for "
+                           f"{done['gradient_steps']} gradient steps and {done['player_steps']} player steps")
+    if wrapper != wrapper_want:
+        raise RuntimeError(f"{tag}: the wrappers counted {wrapper}, their eager calls and captures {wrapper_want}")
+    return expected
+
+
+def anakin_phase(torch, np, F, run, device, smi: str, report: dict) -> dict:
+    """Phase 13: the device envs. Each env's card step against its CPU step;
+    PPO's learning recipe on the batched CartPole (a rollout one graph
+    replay) beside phase 10's host envs, its greedy evaluation (gated at
+    seed 5 where ANAKIN_RECEIPT_GATED), one update profiled; 3 updates at
+    1,024 envs; DreamerV3 on pixeltoy at default widths (a chunk one replay
+    with kernels 1 and 3 inside, both held against their plain versions at
+    the chunk's shapes; every launch counted on the device), its
+    `--eval_only` on the host twin; each collector's replay against its
+    eager self. Raises on any failure. -> the phase's report."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
+    from sheeprl_tpu_torch.algos.ppo.ppo import LOSSES
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+
+    out: dict = {"smi": smi}
+    parts: dict[str, float] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - clock[0]
+        clock[0] = now
+
+    root = os.path.join(OUT_DIR, "anakin_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    out["env_checks"] = device_env_checks(torch, device)
+    lap("env checks")
+
+    # -- PPO's recipe on the device envs ------------------------------------
+    t0 = time.perf_counter()
+    updates, done = drive_ppo(run, root, ANAKIN_PPO_ARGV, "learn")
+    learn_s = time.perf_counter() - t0
+    finite = all(math.isfinite(r[k]) for r in updates for k in LOSSES)
+    rollout_ms, train_ms = statistics.median(done["rollout_ms"][1:]), statistics.median(done["train_ms"][1:])
+    in_updates = (sum(done["rollout_ms"]) + sum(done["train_ms"])) / 1e3
+    host = report["ppo"]["learn"]
+    log(f"[anakin] {smi}: ppo {' '.join(ANAKIN_PPO_ARGV)}: {done['updates']} updates, {done['env_steps']} env steps "
+        f"in {learn_s:.1f} s, {in_updates:.2f} s of it in the updates (phase 10, host envs: {host['seconds']:.1f} s); "
+        f"the test episode {done['test_ms'] / 1e3:.2f} s; losses finite: {finite}; host wall per "
+        f"update: median rollout {rollout_ms:.2f} ms + train {train_ms:.2f} ms (phase 10: {host['rollout_ms_median']:.2f}"
+        f" + {host['train_ms_median']:.2f}; first {done['rollout_ms'][0]:.1f} + {done['train_ms'][0]:.1f}); "
+        f"{done['env_steps_per_s']:.1f} env steps/s (phase 10: {host['done']['env_steps_per_s']:.1f}); the rollout "
+        f"alone {128 * 4 / rollout_ms * 1e3:.1f} env steps/s")
+    minibatches = 128 * 4 // 128
+    log(f"[anakin] graphs: " + check_graphs(done, "anakin-ppo", {"anakin_rollout": done["updates"],
+                                                                 "minibatch_step": done["updates"] * 6 * minibatches}))
+    if done["updates"] != PPO_LEARN_UPDATES or not finite or done["env_backend"] != "jax":
+        raise RuntimeError(f"the jax-backend PPO run took {done['updates']} updates or lost finiteness")
+    final = os.path.join(root, "learn", "checkpoints", f"ckpt_{PPO_LEARN_UPDATES}")
+    _, ev = drive_ppo(run, root, ["--eval_only", "--checkpoint_path", final, "--test_episodes",
+                                  str(PPO_EVAL_EPISODES), "--seed", str(PPO_EVAL_SEED)], "eval")
+    mean_return = float(np.mean(ev["test_returns"]))
+    log(f"[anakin] --eval_only on the host CartPole, seeds {PPO_EVAL_SEED}-{PPO_EVAL_SEED + PPO_EVAL_EPISODES - 1}: "
+        f"returns {ev['test_returns']}, mean {mean_return:.1f} (bar {PPO_RETURN_BAR:.0f}; "
+        + ("gated at seed 5" if ANAKIN_RECEIPT_GATED else "not gated: the pass rates in PERF.md §6") + ")")
+    rundown = None
+    if ANAKIN_RECEIPT_GATED and not mean_return >= PPO_RETURN_BAR:
+        log(f"[anakin] MISS: seed 5's greedy mean {mean_return:.1f} is below the bar {PPO_RETURN_BAR:.0f}")
+        rundown = ppo_rundown(torch, root, env_backend="jax")
+    lap("ppo recipe and evaluation")
+    prof = anakin_ppo_profile(torch, final, device)
+    host_update = next(r for r in report["graphs"] if r["name"] == "ppo update graphed")
+    log(f"[anakin-profile] one update from the final checkpoint: host wall {prof['update_ms']:.2f} ms (rollout "
+        f"{prof['rollout_ms']:.2f} + train {prof['train_ms']:.2f}), device time {prof['device_ms']:.2f} ms in "
+        f"{prof['launches']} launches, busy share {prof['device_busy_share']:.3f} (phase 11's graphed update on the "
+        f"host envs: {host_update['update_ms']:.2f} ms, rollout {host_update['rollout_ms']:.2f} + train "
+        f"{host_update['train_ms']:.2f}, {host_update['launches']} launches, busy {host_update['device_busy_share']:.3f})")
+    for row in prof["top"]:
+        log(f"[anakin-profile]   {row['ms']:.4f} ms x{row['calls']}  {row['name'][:90]}")
+    out["ppo"] = dict(argv=ANAKIN_PPO_ARGV, seconds=learn_s, done=done, rollout_ms_median=rollout_ms,
+                      train_ms_median=train_ms, eval=dict(returns=ev["test_returns"], mean=mean_return,
+                                                          gated=ANAKIN_RECEIPT_GATED, rundown=rundown),
+                      profile=prof)
+
+    lap("ppo profile")
+    # -- the reference's command at 1,024 envs ------------------------------
+    t0 = time.perf_counter()
+    _, scale = drive_ppo(run, root, ANAKIN_SCALE_ARGV, "scale")
+    scale_s = time.perf_counter() - t0
+    roll = statistics.median(scale["rollout_ms"][1:])
+    sps = 128 * ANAKIN_SCALE_ENVS / roll * 1e3
+    log(f"[anakin-scale] ppo {' '.join(ANAKIN_SCALE_ARGV)}: {scale['updates']} updates in {scale_s:.1f} s; rollout "
+        f"{[round(x, 2) for x in scale['rollout_ms']]} ms (median after the first {roll:.2f}: {sps:.1f} env steps/s "
+        f"of the rollout alone), train {[round(x, 2) for x in scale['train_ms']]} ms; graphs: "
+        + check_graphs(scale, "anakin-scale", {"anakin_rollout": 3, "minibatch_step": 3 * 10 * 32}))
+    out["scale"] = dict(argv=ANAKIN_SCALE_ARGV, done=scale, seconds=scale_s, rollout_ms_median=roll,
+                        rollout_env_steps_per_s=sps)
+
+    lap("ppo at 1,024 envs")
+    # -- DreamerV3 on pixeltoy ------------------------------------------------
+    t0 = time.perf_counter()
+    launches, records, dv3, wrapper = drive_train(torch, run, root, ANAKIN_DV3_ARGV, "pixeltoy")
+    dv3_s = time.perf_counter() - t0
+    finite = all(math.isfinite(r[k]) for r in records for k in METRICS)
+    moved = {m: dv3[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+    step_ms = statistics.median(dv3["train_step_ms"][1:])
+    chunks = dv3["anakin"]["Anakin/rollouts"]
+    log(f"[anakin-dv3] {' '.join(ANAKIN_DV3_ARGV)}: chunk {dv3['anakin_chunk']}, {chunks:.0f} chunks, "
+        f"{dv3['gradient_steps']} gradient steps, {dv3['player_steps']} player steps, {dv3['env_steps']} env steps in "
+        f"{dv3_s:.1f} s; losses finite: {finite}; parameter change {moved}; a player chunk's host wall (draws, "
+        f"replay, add_direct, the pull) median {statistics.median(dv3['anakin_chunk_ms'][1:]):.3f} ms (first "
+        f"{dv3['anakin_chunk_ms'][0]:.1f}; every chunk's mean, the warm-up's random ones and both captures "
+        f"included: {dv3['anakin']['Anakin/collect_seconds_total'] / chunks * 1e3:.3f}); "
+        f"env steps/s while the player acts {dv3['policy_env_steps_per_s']:.1f}; gradient step median "
+        f"{step_ms:.2f} ms (phase 6: {report['train']['step_ms_median']:.2f}); {fmt_tests(dv3)}")
+    log(f"[anakin-dv3] launches on the device {launches}, by the wrappers {wrapper}; graphs: "
+        + check_graphs(dv3, "anakin-dv3", {"train_step": dv3["gradient_steps"],
+                                           "anakin_rollout": ANAKIN_DV3_PLAYER_CHUNKS,
+                                           "anakin_rollout_random": ANAKIN_DV3_RANDOM_CHUNKS}))
+    if (dv3["gradient_steps"] != ANAKIN_DV3_GRADIENT_STEPS or dv3["player_steps"] != ANAKIN_DV3_PLAYER_CHUNKS
+            * ANAKIN_DV3_CHUNK or not finite or min(moved.values()) <= 0):
+        raise RuntimeError(f"the pixeltoy DreamerV3 run took {dv3['gradient_steps']} gradient steps, "
+                           f"{dv3['player_steps']} player steps, lost finiteness or moved nothing")
+    expected = check_anakin_launches("anakin-dv3", launches, wrapper, dv3, ANAKIN_DV3_CHUNK)
+    lap("dreamer_v3 run")
+    # kernels 1 and 3 at the chunk's shapes (16 rows) against their plain versions
+    gen = torch.Generator().manual_seed(21)
+    kernel_rows = [check_gru(torch, F, gru, ANAKIN_DV3_ENVS, torch.float32, gen)]
+    kernel_rows += [check_conv(torch, F, cnn, ANAKIN_DV3_ENVS, stage, torch.float32, gen) for stage in STAGES]
+    for r in kernel_rows:
+        log("[anakin-dv3 kernels]" + fmt(r))
+    if not all(r["within_tol"] for r in kernel_rows):
+        raise RuntimeError("kernel 1 or 3 at the collection chunk's shapes disagrees with its plain version")
+    lap("kernels 1 and 3 at 16 rows")
+    ckpt = dv3["checkpoints"][-1]["path"]
+    ev_launches, _, ev, ev_wrapper = drive_train(torch, run, os.path.join(root, "eval"),
+                                                 ("dreamer_v3", "--eval_only", "--checkpoint_path", ckpt,
+                                                  "--test_episodes", "2"), "eval")
+    log(f"[anakin-dv3] dreamer_v3 --eval_only --checkpoint_path .../{os.path.basename(ckpt)} --test_episodes 2 on the "
+        f"host twin: {fmt_tests(ev)}; gradient steps {ev['gradient_steps']}; launches on the device {ev_launches}")
+    if ev["gradient_steps"] != 0 or len(ev["test_returns"]) != 2:
+        raise RuntimeError(f"the pixeltoy evaluation trained or played the wrong episodes: {ev}")
+    check_anakin_launches("anakin-dv3-eval", ev_launches, ev_wrapper, ev, ANAKIN_DV3_CHUNK)
+    out["dv3"] = dict(argv=ANAKIN_DV3_ARGV, seconds=dv3_s, done=dv3, launches=launches, wrapper_launches=wrapper,
+                      expected=expected, step_ms_median=step_ms, kernel_rows=kernel_rows,
+                      eval=dict(done=ev, launches=ev_launches))
+
+    lap("dreamer_v3 evaluation")
+    # -- each collector's replay against its eager self ---------------------
+    out["graphs"] = anakin_graph_cases(torch, device, final)
+    lap("collectors graphed vs eager")
+    out["seconds"] = parts
+    log("[anakin] the phase's parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; {sum(parts.values()):.1f} in all")
+    return out
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one card")
@@ -3432,8 +3855,17 @@ def main() -> int:
     GC.next_phase("12 sac training")
     report["sac_train"] = sac_train_phase(torch, np, run, ServeClient, torch.device("cuda"), smi)
 
+    # -- phase 13: the device envs (--env_backend jax, the Anakin path) -----------
+    GC.next_phase("13 anakin")
+    report["anakin"] = anakin_phase(torch, np, F, run, torch.device("cuda"), smi, report)
+
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])
+    edges = DeviceLaunches.WINDOWS
+    report["profiler_windows"] = edges
+    log(f"[windows] {len(edges)} launch-count windows kept every empty edge kernel; slack kept at the least "
+        + ", ".join(f"{side} {min(w[side]['slack'] for w in edges)} of {DeviceLaunches.EDGE_SLACK}"
+                    for side in ("head", "tail")))
 
     # -- the kernels line: each kernel's work in one step of its path ------------
     def rows_of(kernel, shapes, dtype="float32"):
@@ -3502,6 +3934,16 @@ def main() -> int:
         })
     # symlog_symexp is exported and called by nothing, as in the reference
     next(k for k in kernels if k["name"] == "symlog_symexp")["path"] = None
+    # phase 13's path: DreamerV3 on pixeltoy's device envs, kernels 1 and 3
+    # inside each collection chunk's graph, 2, 3-res, 4 and 7 in the
+    # gradient step, counted on the device over that run
+    anakin_launches = report["anakin"]["dv3"]["launches"]
+    for k in kernels:
+        k["anakin_launches"] = anakin_launches.get(k["name"], 0)
+    if any(anakin_launches.get(name, 0) == 0 for name in ("layernorm_gru_cell", "conv_ln_silu",
+                                                          "layernorm_gru_cell_residuals", "conv_ln_silu_residuals",
+                                                          "deconv_ln_silu", "two_hot_log_prob")):
+        raise RuntimeError(f"a kernel of phase 13's path was not launched there: {anakin_launches}")
     # every kernel but symlog_symexp lies on a path, and that run must have launched it
     if any(k["launches"] == 0 or k["wrapper_launches"] == 0 for k in kernels if k["name"] != "symlog_symexp"):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")

@@ -1,7 +1,10 @@
 """Base config dataclass shared by every task (the port of
 sheeprl_tpu/algos/args.py, keeping the fields that serving, training,
 checkpointing and evaluation read). `--device` takes the place of the
-reference's `--platform`. Setting `log_dir` dumps `args.json` into the run
+reference's `--platform`. `--env_backend` keeps the reference's values
+(`host|jax`): `jax` runs the env's batched twin on the run's device
+(`envs/device/`), in `ppo` and `dreamer_v3`; the other tasks ignore it, as
+the reference's do. Setting `log_dir` dumps `args.json` into the run
 directory (`eval_args.json` under `--eval_only`)."""
 
 from __future__ import annotations
@@ -51,6 +54,15 @@ class StandardArgs:
         "counts Compile/aot_fallbacks. On the CPU the steps run directly",
     )
 
+    env_backend: str = Arg(
+        default="host",
+        help="where the environments live: 'host' steps the port's host envs "
+        "one by one (the default), 'jax' (the reference's name, kept so its "
+        "configs carry across) runs the batched twin of env_id (envs/device/: "
+        "CartPole-v1, Pendulum-v1, pixeltoy) on the run's device and collects "
+        "a whole rollout as one CUDA graph replay. Read by ppo and dreamer_v3",
+    )
+
     def __setattr__(self, name: str, value: Any) -> None:
         if name == "precision" and value not in ("float32", "bfloat16"):
             raise ValueError(
@@ -58,6 +70,8 @@ class StandardArgs:
             )
         if name == "warm_compile" and value not in ("on", "off"):
             raise ValueError(f"warm_compile must be 'on' or 'off', got {value!r}")
+        if name == "env_backend" and value not in ("host", "jax"):
+            raise ValueError(f"env_backend must be 'host' or 'jax', got {value!r}")
         super().__setattr__(name, value)
         if name == "log_dir" and value:
             os.makedirs(value, exist_ok=True)

@@ -1,8 +1,10 @@
 """DreamerV3 training (the port of sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py):
 `make_optimizers`, `make_train_step` and a synchronous `main` over
-`num_envs` dummy envs.
+`num_envs` host envs, or (`--env_backend jax`) the batched envs on the
+device.
 
     python -m sheeprl_tpu_torch dreamer_v3 --env_id discrete_dummy [--device cpu]
+    python -m sheeprl_tpu_torch dreamer_v3 --env_id pixeltoy --env_backend jax --num_envs 16
 
 One gradient step follows the reference's `make_train_step`: the EMA
 target-critic update first (tau 1 at the first gradient step), the world
@@ -35,6 +37,25 @@ Evaluation: every run ends with `--test_episodes` episodes in fresh envs
 `--eval_only --checkpoint_path P` loads P (not its buffer) and runs only
 those, logging where its own `--root_dir` says or in P's run directory.
 
+`--env_backend jax` (the reference's Anakin path, `dreamer_v3.py:869-915`,
+`:1031-1085`): the envs are `envs/device/`'s batched twin of `--env_id`
+(an id without one raises) and collection is chunked at the training
+cadence, `anakin_chunk = max(min(train_every // num_envs, num_updates -
+start_step + 1), 1)` steps of every env a chunk, each chunk one call of
+`envs/device/rollout.py:make_dreamer_collector` registered with the plan
+as "anakin_rollout" ("anakin_rollout_random" in the learning-starts
+warm-up): on the card one CUDA graph replay, the player's steps inside it.
+The rows go into a replay ring on the device (`AsyncReplayBuffer`,
+`storage="device"`) by `reserve` and `add_direct`, and the ring's samples
+stay there. `global_step` steps by the chunk and names its last step (a
+trailing partial chunk is dropped, as in the reference); the first chunk
+that reaches `learning_starts` takes the pretrain steps. The env carry,
+the player's state and the draws (one for a chunk's reset states, one for
+its uniforms or its random actions) live on the device; the episode dict
+is pulled once a chunk. A checkpoint is also written at the loop's last
+chunk. The carry is not checkpointed (nor is it in the reference): a
+resume starts from fresh envs.
+
 Continuous actions and the gymnasium env backends are not ported.
 """
 
@@ -50,6 +71,8 @@ import torch
 
 from ...compile.plan import CompilePlan
 from ...data.buffers import AsyncReplayBuffer
+from ...envs.device import VecDeviceEnv, make_device_env
+from ...envs.device.rollout import DreamerCollectorCarry, make_dreamer_collector, random_action_sampler
 from ...nn.blocks import MLP
 from ...ops.distributions import (
     Bernoulli,
@@ -69,6 +92,7 @@ from ...utils.device import resolve_device
 from ...utils.env import make_dict_env, obs_zeros
 from ...utils.evaluation import parse_run_args, run_test_episodes
 from ...utils.logger import create_logger
+from ...parallel.anakin import AnakinStats
 from ...utils.registry import register_algorithm
 from ..ppo.ppo import actions_dim_of, validate_obs_keys
 from .agent import Actor, PlayerDV3, WorldModel, build_models
@@ -352,14 +376,21 @@ def main(argv: Sequence[str] | None = None) -> None:
     rng = np.random.default_rng(args.seed)
     noise_gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    envs = [
-        make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
-        for i in range(args.num_envs)
-    ]
-    observation_space = envs[0].observation_space
+    device_envs = args.env_backend == "jax"
+    if device_envs:
+        # the Anakin arrangement: envs and player on the device, a chunk of
+        # collection one graph replay writing into the device ring
+        venv = VecDeviceEnv(make_device_env(args.env_id), args.num_envs, device)
+        envs, observation_space, action_space = [], venv.single_observation_space, venv.single_action_space
+    else:
+        envs = [
+            make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
+            for i in range(args.num_envs)
+        ]
+        observation_space, action_space = envs[0].observation_space, envs[0].action_space
     cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
     obs_keys = [*cnn_keys, *mlp_keys]
-    actions_dim, is_continuous = actions_dim_of(envs[0].action_space)
+    actions_dim, is_continuous = actions_dim_of(action_space)
     if is_continuous:
         raise NotImplementedError("continuous-action training is not ported yet")
 
@@ -425,12 +456,14 @@ def main(argv: Sequence[str] | None = None) -> None:
         with torch.no_grad():
             return player.noisy_step(player_state, preprocess(obs), uniform, expl)
 
-    player_step = plan.register("player_step", _player_step, example=lambda: (
-        player, player.init_states(n_envs), obs_zeros(observation_space.spaces, obs_keys, (n_envs,), device),
-        player.draw_noise(n_envs, torch.Generator(device=device).manual_seed(0), device),
-        torch.zeros((), device=device)))
+    if not device_envs:
+        player_step = plan.register("player_step", _player_step, example=lambda: (
+            player, player.init_states(n_envs), obs_zeros(observation_space.spaces, obs_keys, (n_envs,), device),
+            player.draw_noise(n_envs, torch.Generator(device=device).manual_seed(0), device),
+            torch.zeros((), device=device)))
     buffer_size = args.buffer_size // n_envs if not args.dry_run else 2
-    rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed)
+    rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed,
+                           **(dict(storage="device", device=device) if device_envs else {}))
     buffer_ckpt = os.path.abspath(args.checkpoint_path) + "_buffer.npz" if args.checkpoint_path else None
     if buffer_ckpt and args.checkpoint_buffer and os.path.exists(buffer_ckpt) and not args.eval_only:
         rb.load(buffer_ckpt)
@@ -448,80 +481,133 @@ def main(argv: Sequence[str] | None = None) -> None:
     if resumed is not None:
         resumed.update(learning_starts=learning_starts, expl_amount=expl_amount)
 
-    obs = [env.reset(seed=args.seed + i)[0] for i, env in enumerate(envs)]
-    step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
-    step_data["dones"] = np.zeros((n_envs, 1), np.float32)
-    step_data["rewards"] = np.zeros((n_envs, 1), np.float32)
-    step_data["is_first"] = np.ones((n_envs, 1), np.float32)
-    with torch.inference_mode():
-        player_state = player.init_states(n_envs)
+    chunk, anakin = 1, None
+    if device_envs:
+        chunk = max(min(args.train_every // n_envs, num_updates - start_step + 1), 1)
+        with torch.no_grad():  # updated in place by the collector, outside inference mode
+            player_state = player.init_states(n_envs)
+        carry = DreamerCollectorCarry.reset(venv, noise_gen)
+        sample_random = random_action_sampler(action_space, actions_dim, is_continuous)
+
+        def _draws(generator: torch.Generator, random_phase: bool) -> tuple:
+            """A chunk's reset states, and its random actions or the player's uniforms."""
+            fresh = venv.draw_resets(generator, chunk)
+            if random_phase:
+                return fresh, sample_random(generator, chunk, n_envs)
+            return fresh, torch.rand((chunk, n_envs, player.noise_width()), generator=generator, device=device)
+
+        def _collector(random_phase: bool):
+            name = "anakin_rollout_random" if random_phase else "anakin_rollout"
+            fn = make_dreamer_collector(venv, chunk, actions_dim, is_continuous, preprocess,
+                                        clip_rewards=args.clip_rewards, random_actions=random_phase)
+            # one replay is one chunk; the graph reads and writes the carry's
+            # and the player state's own tensors (adopt)
+            return plan.register(name, fn, adopt=True, example=lambda: (
+                player, player_state, carry, *_draws(torch.Generator(device=device).manual_seed(0), random_phase),
+                torch.zeros((), device=device)))
+
+        collect, collect_random = _collector(False), _collector(True)
+        anakin = AnakinStats(scan_span=chunk, env_batch=n_envs, devices=1)
+    else:
+        obs = [env.reset(seed=args.seed + i)[0] for i, env in enumerate(envs)]
+        step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+        step_data["dones"] = np.zeros((n_envs, 1), np.float32)
+        step_data["rewards"] = np.zeros((n_envs, 1), np.float32)
+        step_data["is_first"] = np.ones((n_envs, 1), np.float32)
+        with torch.inference_mode():
+            player_state = player.init_states(n_envs)
     ep_return, ep_len = np.zeros(n_envs), np.zeros(n_envs, dtype=np.int64)
     episodes: list[tuple[float, int]] = []
     # restarts at 0 on a resume, as in the reference (:1027): the first
     # gradient step after it takes tau 1
     gradient_steps = player_steps = env_steps = 0
-    policy_collect_s, step_ms, checkpoints = 0.0, [], []
+    policy_collect_s, step_ms, chunk_ms, checkpoints = 0.0, [], [], []
     plan.start()
     start = time.perf_counter()
     if args.eval_only:
         num_updates = start_step - 1  # no training: straight to the test episodes
-    for global_step in range(start_step, num_updates + 1):
+    # a chunk of the device path names its last step; a trailing partial
+    # chunk is dropped
+    steps_iter = range(start_step + chunk - 1, num_updates + 1, chunk)
+    last_step = steps_iter[-1] if len(steps_iter) else num_updates
+    for global_step in steps_iter:
         t0 = time.perf_counter()
-        if global_step <= learning_starts:
-            actions = _random_actions(rng, actions_dim, n_envs)
+        if device_envs:
+            random_phase = global_step <= learning_starts and not args.checkpoint_path
+            idx = rb.reserve(chunk)
+            traj, ep = (collect_random if random_phase else collect)(
+                player, player_state, carry, *_draws(noise_gen, random_phase),
+                torch.full((), float(expl_amount), device=device))
+            rb.add_direct(traj, idx, chunk)
+            # the one pull of a chunk (the device has retired it when it lands)
+            n_ep, return_sum, length_sum = torch.stack([ep["episodes"], ep["return_sum"], ep["length_sum"]]).tolist()
+            if n_ep:  # the chunk's mean, once an episode
+                episodes.extend([(return_sum / n_ep, length_sum / n_ep)] * int(n_ep))
+            env_steps += chunk * n_envs
+            anakin.note(chunk * n_envs, time.perf_counter() - t0)
+            if not random_phase:
+                player_steps += chunk
+                policy_collect_s += time.perf_counter() - t0
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
         else:
-            with torch.inference_mode():
-                dev_obs = {k: torch.from_numpy(step_data[k]).to(device) for k in obs_keys}
-                player_state, acts = player_step(player, player_state, dev_obs,
-                                                 player.draw_noise(n_envs, noise_gen, device),
-                                                 torch.full((), float(expl_amount), device=device))
-            actions = acts.float().cpu().numpy()
-            player_steps += 1
-        step_data["actions"] = actions
-        rb.add({k: v[None] for k, v in step_data.items()})
+            if global_step <= learning_starts:
+                actions = _random_actions(rng, actions_dim, n_envs)
+            else:
+                with torch.inference_mode():
+                    dev_obs = {k: torch.from_numpy(step_data[k]).to(device) for k in obs_keys}
+                    player_state, acts = player_step(player, player_state, dev_obs,
+                                                     player.draw_noise(n_envs, noise_gen, device),
+                                                     torch.full((), float(expl_amount), device=device))
+                actions = acts.float().cpu().numpy()
+                player_steps += 1
+            step_data["actions"] = actions
+            rb.add({k: v[None] for k, v in step_data.items()})
 
-        dones = np.zeros(n_envs, np.float32)
-        rewards = np.zeros(n_envs, np.float32)
-        final_obs: dict[int, dict] = {}
-        for i, (env, a) in enumerate(zip(envs, _env_actions(actions, actions_dim))):
-            o, r, term, trunc, _ = env.step(a)
-            rewards[i], dones[i] = r, float(term or trunc)
-            ep_return[i] += r
-            ep_len[i] += 1
-            if dones[i]:
-                # same-step autoreset, as a gymnasium vector env does
-                final_obs[i] = o
-                o, _ = env.reset()
-                episodes.append((float(ep_return[i]), int(ep_len[i])))
-                ep_return[i], ep_len[i] = 0.0, 0
-            obs[i] = o
-        env_steps += n_envs
-        step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
-        step_data["is_first"] = np.zeros((n_envs, 1), np.float32)
-        step_data["dones"] = dones[:, None]
-        step_data["rewards"] = (np.tanh(rewards) if args.clip_rewards else rewards)[:, None].astype(np.float32)
-        done_idx = sorted(final_obs)
-        if done_idx:
-            # terminal rows carry the true final observation and zero actions
-            reset_data = {k: np.stack([final_obs[i][k] for i in done_idx])[None] for k in obs_keys}
-            reset_data["dones"] = np.ones((1, len(done_idx), 1), np.float32)
-            reset_data["actions"] = np.zeros((1, len(done_idx), int(sum(actions_dim))), np.float32)
-            reset_data["rewards"] = step_data["rewards"][done_idx][None]
-            reset_data["is_first"] = np.zeros((1, len(done_idx), 1), np.float32)
-            rb.add(reset_data, done_idx)
-            step_data["rewards"][done_idx] = 0.0
-            step_data["dones"][done_idx] = 0.0
-            step_data["is_first"][done_idx] = 1.0
-            mask = torch.zeros(n_envs, device=device)
-            mask[done_idx] = 1.0
-            with torch.inference_mode():
-                player_state = player.reset_states(player_state, mask)
-        if global_step > learning_starts:
-            policy_collect_s += time.perf_counter() - t0
-        step_before_training -= 1
+            dones = np.zeros(n_envs, np.float32)
+            rewards = np.zeros(n_envs, np.float32)
+            final_obs: dict[int, dict] = {}
+            for i, (env, a) in enumerate(zip(envs, _env_actions(actions, actions_dim))):
+                o, r, term, trunc, _ = env.step(a)
+                rewards[i], dones[i] = r, float(term or trunc)
+                ep_return[i] += r
+                ep_len[i] += 1
+                if dones[i]:
+                    # same-step autoreset, as a gymnasium vector env does
+                    final_obs[i] = o
+                    o, _ = env.reset()
+                    episodes.append((float(ep_return[i]), int(ep_len[i])))
+                    ep_return[i], ep_len[i] = 0.0, 0
+                obs[i] = o
+            env_steps += n_envs
+            step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+            step_data["is_first"] = np.zeros((n_envs, 1), np.float32)
+            step_data["dones"] = dones[:, None]
+            step_data["rewards"] = (np.tanh(rewards) if args.clip_rewards else rewards)[:, None].astype(np.float32)
+            done_idx = sorted(final_obs)
+            if done_idx:
+                # terminal rows carry the true final observation and zero actions
+                reset_data = {k: np.stack([final_obs[i][k] for i in done_idx])[None] for k in obs_keys}
+                reset_data["dones"] = np.ones((1, len(done_idx), 1), np.float32)
+                reset_data["actions"] = np.zeros((1, len(done_idx), int(sum(actions_dim))), np.float32)
+                reset_data["rewards"] = step_data["rewards"][done_idx][None]
+                reset_data["is_first"] = np.zeros((1, len(done_idx), 1), np.float32)
+                rb.add(reset_data, done_idx)
+                step_data["rewards"][done_idx] = 0.0
+                step_data["dones"][done_idx] = 0.0
+                step_data["is_first"][done_idx] = 1.0
+                mask = torch.zeros(n_envs, device=device)
+                mask[done_idx] = 1.0
+                with torch.inference_mode():
+                    player_state = player.reset_states(player_state, mask)
+            if global_step > learning_starts:
+                policy_collect_s += time.perf_counter() - t0
+        step_before_training -= chunk
 
         if global_step >= learning_starts and step_before_training <= 0:
-            n_samples = args.pretrain_steps if global_step == learning_starts else args.gradient_steps
+            # a chunk never lands on learning_starts exactly: the first chunk
+            # at or past it is the pretrain moment
+            first = global_step - chunk < learning_starts if device_envs else global_step == learning_starts
+            n_samples = args.pretrain_steps if first else args.gradient_steps
             local = rb.sample(args.per_rank_batch_size, sequence_length=args.per_rank_sequence_length,
                               n_samples=n_samples)
             rows = []
@@ -530,7 +616,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                     tau = 1.0 if gradient_steps == 0 else args.critic_tau
                 else:
                     tau = 0.0
-                data = {k: torch.from_numpy(v[i]).to(device) for k, v in local.items()}
+                data = {k: v[i] if torch.is_tensor(v) else torch.from_numpy(v[i]).to(device) for k, v in local.items()}
                 t1 = time.perf_counter()
                 noise = draw_noise(args, args.per_rank_sequence_length, args.per_rank_batch_size,
                                    actions_dim, noise_gen, device)
@@ -558,7 +644,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                   f"value_loss {rec['Loss/value_loss']:.4f}", flush=True)
 
         if (args.checkpoint_every > 0 and global_step % args.checkpoint_every == 0) or args.dry_run \
-                or global_step == num_updates:
+                or global_step == last_step:
             ckpt_path = os.path.join(run_dir, "checkpoints", f"ckpt_{global_step}")
             t_save = time.perf_counter()
             nbytes = save_checkpoint(
@@ -590,6 +676,10 @@ def main(argv: Sequence[str] | None = None) -> None:
         "device": str(device), "checkpoints": checkpoints, "resumed": resumed,
         "test_returns": test_returns, "test_player_steps": test_steps, "test_ms": test_ms,
         **_params_delta(start_params, state), "compile": plan.gauges(), "compile_stats": plan.stats(),
+        "env_backend": args.env_backend, "anakin_chunk": chunk if device_envs else None,
+        # each player chunk's host wall: draws, replay, add_direct, the pull
+        "anakin_chunk_ms": chunk_ms,
+        "anakin": anakin.gauges() if anakin is not None else None,
     }
     logger.record(summary)
     print(f"[dreamer_v3] done: {gradient_steps} gradient steps, {env_steps} env steps, run dir {run_dir}",

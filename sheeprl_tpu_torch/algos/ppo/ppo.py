@@ -1,7 +1,8 @@
 """PPO, coupled (the port of sheeprl_tpu/algos/ppo/ppo.py), over the port's
-host envs:
+host envs or (`--env_backend jax`) its batched envs on the device:
 
     python -m sheeprl_tpu_torch ppo --env_id CartPole-v1 [--device cpu]
+    python -m sheeprl_tpu_torch ppo --env_id CartPole-v1 --env_backend jax [--num_envs 1024]
 
 A rollout of `rollout_steps` policy steps over `num_envs` envs (same-step
 autoreset, as a gymnasium vector env does) fills a `ReplayBuffer` on the
@@ -20,9 +21,24 @@ continue the run's random stream on any device. Checkpoints
 the checkpoint's config), and `--eval_only` runs no update.
 Every run ends with `--test_episodes` greedy episodes, each in a fresh env.
 
-Not ported: the JAX env backend (`--env_backend jax`), the flock, the
-non-finite guard, the sanitizer, telemetry spans, the profiler and a mesh
-of more than one device.
+With `--env_backend jax` (the reference's Anakin path, `ppo.py:272-301`,
+`:432-465`, `:638-660`) the envs are `envs/device/`'s batched twin of
+`--env_id` on the run's device (an id without one raises; there is no
+fall back to the host envs), and a whole rollout is one call of
+`envs/device/rollout.py:make_ppo_collector`, registered with the plan as
+"anakin_rollout": on the card one CUDA graph replay. Its carry (the env
+state, the observations, the done flags entering the next step) lives on
+the device across updates, updated in place; each rollout's reset states
+and action noise are drawn in one go from a generator of their own on the
+device, seeded by `--seed`. GAE bootstraps from the carry; the episode
+dict is pulled once a rollout; no `ReplayBuffer` is built. A checkpoint
+adds the carry (`collector`) and that generator's state
+(`collector_generator`), so `--checkpoint_path` resumes the same rollout
+stream; the "done" record adds the `Anakin/*` gauges.
+
+Not ported: the flock, the non-finite guard, the sanitizer, telemetry
+spans, the profiler and a mesh of more than one device (so no
+`shard_env_batch`).
 
 Also the two helpers the serving tier and DreamerV3 use:
 `validate_obs_keys` and `actions_dim_of`."""
@@ -38,9 +54,13 @@ import torch
 
 from ...data.buffers import ReplayBuffer
 from ...envs import spaces
+from ...envs.device import VecDeviceEnv, make_device_env
+from ...envs.device.core import tree_load_, tree_state_dict
+from ...envs.device.rollout import PPOCollectorCarry, make_ppo_collector
 from ...ops.math import gae, normalize, polynomial_decay
 from ...compile.plan import CompilePlan
 from ...ops.optim import Adam, adam, apply_gradients, load_optimizer_state
+from ...parallel.anakin import AnakinStats
 from ...utils.checkpoint import load_checkpoint, save_checkpoint
 from ...utils.device import resolve_device
 from ...utils.env import make_dict_env, obs_zeros
@@ -54,8 +74,8 @@ from .args import PPOArgs
 from .loss import entropy_loss, policy_loss, value_loss
 
 __all__ = [
-    "Rollout", "actions_dim_of", "build_agent", "compute_gae_returns", "main", "make_optimizer", "make_train_step",
-    "policy_step", "rollout_batch", "test", "validate_obs_keys",
+    "Rollout", "actions_dim_of", "build_agent", "compute_gae_returns", "flat_batch", "main", "make_optimizer",
+    "make_train_step", "policy_step", "rollout_batch", "test", "validate_obs_keys",
 ]
 
 LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
@@ -278,16 +298,24 @@ class Rollout:
             self.next_done = dones
 
 
+def flat_batch(agent: PPOAgent, traj: dict, next_obs: dict, next_done: torch.Tensor, obs_keys: Sequence[str],
+               args: PPOArgs) -> dict[str, torch.Tensor]:
+    """The update's flat `[T * N, ...]` batch of a `[T, N, ...]` rollout,
+    with its GAE returns and advantages bootstrapped from `next_obs` and
+    `next_done` ([N, 1])."""
+    data = {k: traj[k] for k in (*obs_keys, *ROLLOUT_KEYS)}
+    data["returns"], data["advantages"] = compute_gae_returns(agent, data, next_obs, next_done, args.gamma,
+                                                              args.gae_lambda)
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in data.items() if k not in ("rewards", "dones")}
+
+
 def rollout_batch(agent: PPOAgent, rb: ReplayBuffer, rollout: Rollout, obs_keys: Sequence[str],
                   args: PPOArgs) -> dict[str, torch.Tensor]:
     """The update's flat `[T * N, ...]` batch of the rollout in `rb`, with
     its GAE returns and advantages bootstrapped from `rollout`'s envs."""
     device = next(agent.parameters()).device
-    data = {k: rb[k] for k in (*obs_keys, *ROLLOUT_KEYS)}
-    data["returns"], data["advantages"] = compute_gae_returns(
-        agent, data, rollout.device_obs(obs_keys, device), torch.from_numpy(rollout.next_done).to(device)[:, None],
-        args.gamma, args.gae_lambda)
-    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in data.items() if k not in ("rewards", "dones")}
+    return flat_batch(agent, {k: rb[k] for k in (*obs_keys, *ROLLOUT_KEYS)}, rollout.device_obs(obs_keys, device),
+                      torch.from_numpy(rollout.next_done).to(device)[:, None], obs_keys, args)
 
 
 def test(agent: PPOAgent, env, logger, args: PPOArgs) -> float:
@@ -311,6 +339,16 @@ def test(agent: PPOAgent, env, logger, args: PPOArgs) -> float:
     return cumulative_reward
 
 
+def _set_generator_state(generator: torch.Generator, state: torch.Tensor) -> None:
+    """Restore a generator's saved state; a state saved from another kind of
+    device (a card's philox state on the CPU, or back) raises."""
+    state = state.cpu()
+    if state.numel() != generator.get_state().numel():
+        raise ValueError(f"the checkpoint's collector generator state was written on another kind of device than "
+                         f"{generator.device}; resume it on the device it was written on")
+    generator.set_state(state)
+
+
 @register_algorithm()
 def main(argv: Sequence[str] | None = None) -> None:
     args = parse_run_args(PPOArgs, argv)
@@ -321,23 +359,39 @@ def main(argv: Sequence[str] | None = None) -> None:
         torch.backends.cudnn.allow_tf32 = False
     logger, run_dir = create_logger(args, "ppo")
 
-    envs = [make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
-            for i in range(args.num_envs)]
-    observation_space = envs[0].observation_space
+    device_envs = args.env_backend == "jax"
+    if device_envs:
+        # the Anakin arrangement: the envs beside the agent on the device,
+        # a whole rollout one graph replay
+        venv = VecDeviceEnv(make_device_env(args.env_id), args.num_envs, device)
+        envs, observation_space, action_space = [], venv.single_observation_space, venv.single_action_space
+    else:
+        envs = [make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
+                for i in range(args.num_envs)]
+        observation_space, action_space = envs[0].observation_space, envs[0].action_space
     cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
     obs_keys = [*cnn_keys, *mlp_keys]
-    actions_dim, is_continuous = actions_dim_of(envs[0].action_space)
+    actions_dim, is_continuous = actions_dim_of(action_space)
 
     agent = build_agent(args, actions_dim, is_continuous, observation_space.spaces, cnn_keys, mlp_keys,
                         torch.Generator().manual_seed(args.seed)).to(device)
     optimizer = make_optimizer(args, agent)
     gen = torch.Generator().manual_seed(args.seed)
+    carry = collect_gen = None
+    if device_envs:
+        # the rollouts' reset states and action noise, drawn on the device
+        collect_gen = torch.Generator(device=device).manual_seed(args.seed)
+        carry = PPOCollectorCarry.reset(venv, collect_gen)
     start_update, resumed = 1, None
     if args.checkpoint_path:
         ckpt = load_checkpoint(args.checkpoint_path, device)
         agent.load_state_dict(ckpt["agent"])
         load_optimizer_state(optimizer, ckpt["optimizer"])
         gen.set_state(ckpt["generator"].cpu())
+        if device_envs and "collector" in ckpt:
+            # the same rollout stream the uninterrupted run would collect
+            tree_load_(carry, ckpt["collector"])
+            _set_generator_state(collect_gen, ckpt["collector_generator"])
         start_update = int(ckpt["update_step"]) + 1
         resumed = {"checkpoint": os.path.abspath(args.checkpoint_path), "start_update": start_update}
         del ckpt
@@ -347,8 +401,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     # a dry run takes exactly one update, also after a resume
     num_updates = args.total_steps // rollout_size if not args.dry_run else start_update
     num_minibatches = max(rollout_size // args.per_rank_batch_size, 1)
-    rb = ReplayBuffer(args.rollout_steps, n_envs, storage="device", device=device, obs_keys=obs_keys,
-                      seed=args.seed)
+    rb = None if device_envs else ReplayBuffer(args.rollout_steps, n_envs, storage="device", device=device,
+                                               obs_keys=obs_keys, seed=args.seed)
 
     # the policy step and the minibatch step as CUDA graphs on the card
     # (compile/plan.py), with example arguments of their shapes for
@@ -367,10 +421,22 @@ def main(argv: Sequence[str] | None = None) -> None:
                                                for v in (args.lr, args.clip_coef, args.ent_coef)))
 
     train_step = make_train_step(args, num_minibatches, plan=plan, example=_minibatch_example)
-    graphed_policy_step = plan.register("policy_step", policy_step, example=lambda: (
-        agent, _obs((n_envs,)), agent.draw_noise(torch.Generator(device=device), n_envs)))
+    anakin = rollout = None
+    if device_envs:
+        def _draws(generator: torch.Generator) -> tuple:
+            return venv.draw_resets(generator, args.rollout_steps), agent.draw_noise(generator, args.rollout_steps,
+                                                                                    n_envs)
 
-    rollout = Rollout(envs, args.seed)
+        # one replay is one whole rollout; the graph reads and writes the
+        # carry's own tensors (adopt)
+        collect = plan.register(
+            "anakin_rollout", make_ppo_collector(venv, args.rollout_steps, actions_dim, is_continuous),
+            example=lambda: (agent, carry, *_draws(torch.Generator(device=device).manual_seed(0))), adopt=True)
+        anakin = AnakinStats(scan_span=args.rollout_steps, env_batch=n_envs, devices=1)
+    else:
+        graphed_policy_step = plan.register("policy_step", policy_step, example=lambda: (
+            agent, _obs((n_envs,)), agent.draw_noise(torch.Generator(device=device), n_envs)))
+        rollout = Rollout(envs, args.seed)
     rollout_ms, train_ms, checkpoints = [], [], []
     env_steps = 0
     plan.start()
@@ -384,10 +450,27 @@ def main(argv: Sequence[str] | None = None) -> None:
                                   (args.ent_coef, args.anneal_ent_coef))
         )
         t0 = time.perf_counter()
-        rollout.collect(agent, rb, obs_keys, gen, step=graphed_policy_step)
+        ended = None
+        if device_envs:
+            traj, ep = collect(agent, carry, *_draws(collect_gen))
+            # the one pull of a rollout: the episode dict (the device has
+            # retired the rollout when it lands)
+            episodes, return_sum, length_sum = torch.stack(
+                [ep["episodes"], ep["return_sum"], ep["length_sum"]]).tolist()
+            if episodes > 0:
+                ended = (return_sum / episodes, length_sum / episodes)
+        else:
+            rollout.collect(agent, rb, obs_keys, gen, step=graphed_policy_step)
+            if rollout.ended:
+                ended = tuple(float(np.mean([e[i] for e in rollout.ended])) for i in (0, 1))
+                rollout.ended.clear()
         env_steps += rollout_size
         t1 = time.perf_counter()
-        batch = rollout_batch(agent, rb, rollout, obs_keys, args)
+        if device_envs:
+            anakin.note(rollout_size, t1 - t0)
+            batch = flat_batch(agent, traj, carry.obs, carry.prev_done, obs_keys, args)
+        else:
+            batch = rollout_batch(agent, rb, rollout, obs_keys, args)
         metrics = train_step(agent, optimizer, batch, lr, clip_coef, ent_coef, generator=gen)
         t2 = time.perf_counter()
         rollout_ms.append((t1 - t0) * 1e3)
@@ -396,10 +479,8 @@ def main(argv: Sequence[str] | None = None) -> None:
         rec = {"update": update, "step": update * rollout_size, **metrics, "Info/learning_rate": lr,
                "Time/rollout_ms": rollout_ms[-1], "Time/train_ms": train_ms[-1],
                "Time/step_per_second": env_steps / (time.perf_counter() - start)}
-        if rollout.ended:
-            rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in rollout.ended]))
-            rec["Game/ep_len_avg"] = float(np.mean([e[1] for e in rollout.ended]))
-            rollout.ended.clear()
+        if ended is not None:
+            rec["Rewards/rew_avg"], rec["Game/ep_len_avg"] = ended
         logger.record(rec)
         print(f"[ppo] update {update}/{num_updates} " + " ".join(
             f"{k.split('/')[1]} {rec[k]:.4g}" for k in (*LOSSES, "Rewards/rew_avg") if k in rec), flush=True)
@@ -408,10 +489,11 @@ def main(argv: Sequence[str] | None = None) -> None:
                 or update == num_updates:
             ckpt_path = os.path.join(run_dir, "checkpoints", f"ckpt_{update}")
             t_save = time.perf_counter()
-            nbytes = save_checkpoint(ckpt_path, {
-                "agent": agent.state_dict(), "optimizer": optimizer.state_dict(), "update_step": update,
-                "generator": gen.get_state(),
-            }, args)
+            saved = {"agent": agent.state_dict(), "optimizer": optimizer.state_dict(), "update_step": update,
+                     "generator": gen.get_state()}
+            if device_envs:  # the rollout stream's position: the carry and its draws' generator
+                saved.update(collector=tree_state_dict(carry), collector_generator=collect_gen.get_state())
+            nbytes = save_checkpoint(ckpt_path, saved, args)
             checkpoints.append({"path": ckpt_path, "update": update, "bytes": nbytes,
                                 "save_ms": (time.perf_counter() - t_save) * 1e3})
     for env in envs:
@@ -429,6 +511,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         "train_ms": train_ms, "env_steps_per_s": env_steps / max(sum(rollout_ms) + sum(train_ms), 1e-9) * 1e3,
         "device": str(device), "checkpoints": checkpoints, "resumed": resumed, "test_returns": test_returns,
         "test_ms": (time.perf_counter() - t_test) * 1e3, "compile": plan.gauges(), "compile_stats": plan.stats(),
+        "env_backend": args.env_backend, "anakin": anakin.gauges() if anakin is not None else None,
     })
     print(f"[ppo] done: {len(train_ms)} updates, {env_steps} env steps, test returns {test_returns}, "
           f"run dir {run_dir}", flush=True)

@@ -6,9 +6,16 @@ PPO's rollout store, and of the sequential sampling of its
 device (the default: a policy step's outputs go in without a round trip)
 or in host numpy, with uniform sampling.
 
-`AsyncReplayBuffer` keeps per-env rings in host numpy, `add(data, indices)` so envs that reset
+`AsyncReplayBuffer` keeps per-env rings, `add(data, indices)` so envs that reset
 mid-step can append their reset rows alone, and `sample` of contiguous
-windows `[n_samples, T, B, *item]`, each from one env.
+windows `[n_samples, T, B, *item]`, each from one env. Its rings are host
+numpy (`storage="host"`, the default) or torch tensors on a device
+(`storage="device"`), where a collector's rows go in without leaving the
+device: `reserve(data_len)` picks the rows of a full-width write and
+`add_direct(traj, idx, data_len)` scatters a `[data_len, n_envs, ...]`
+trajectory there (the reference's `data/buffers.py:1341-1400`). Both
+storages draw the same windows from the same generator; the device one
+gathers them on the device and returns tensors.
 
 Draws come from a `torch.Generator`; the sampled (env, start) pairs can be
 injected instead, so a test can replay the reference's own sample.
@@ -178,42 +185,108 @@ class ReplayBuffer:
 
 class AsyncReplayBuffer:
     """`n_envs` independent rings of `buffer_size` rows each, stored as one
-    array `[buffer_size, n_envs, *item]` per key with a write head per env."""
+    array `[buffer_size, n_envs, *item]` per key with a write head per env:
+    numpy arrays with `storage="host"`, tensors on `device` with
+    `storage="device"`."""
 
-    def __init__(self, buffer_size: int, n_envs: int = 1, seed: int = 0):
+    def __init__(self, buffer_size: int, n_envs: int = 1, seed: int = 0, storage: str = "host",
+                 device: torch.device | str = "cpu"):
         if buffer_size <= 0:
             raise ValueError(f"buffer size must be > 0, got {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"n_envs must be > 0, got {n_envs}")
+        if storage not in ("device", "host"):
+            raise ValueError(f"storage must be 'device' or 'host', got {storage!r}")
         self.buffer_size = buffer_size
         self.n_envs = n_envs
-        self._buf: dict[str, np.ndarray] | None = None
+        self.storage = storage
+        self.device = torch.device(device)
+        self._buf: dict | None = None
         self._pos = np.zeros(n_envs, dtype=np.int64)
         self._full = np.zeros(n_envs, dtype=bool)
         self._gen = torch.Generator().manual_seed(seed)
+        self._pending: tuple[np.ndarray, int] | None = None
 
-    def add(self, data: Mapping[str, np.ndarray], indices: Sequence[int] | None = None) -> None:
+    @property
+    def prefers_host_adds(self) -> bool:
+        """True when `add` wants host numpy values (host storage)."""
+        return self.storage != "device"
+
+    def _stored(self, v):
+        if self.storage == "device":
+            return torch.as_tensor(v, device=self.device)
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    def _allocate(self, data: Mapping) -> None:
+        def ring(v):
+            shape = (self.buffer_size, self.n_envs, *v.shape[2:])
+            if self.storage == "device":
+                return torch.zeros(shape, dtype=v.dtype, device=self.device)
+            return np.zeros(shape, dtype=v.dtype)
+
+        self._buf = {k: ring(v) for k, v in data.items()}
+
+    def add(self, data: Mapping, indices: Sequence[int] | None = None) -> None:
         """Append `data` ([L, n_cols, *item] per key) to the rings of the
         envs in `indices` (all envs when None), one column each."""
+        data = {k: self._stored(v) for k, v in data.items()}
         cols = np.arange(self.n_envs) if indices is None else np.asarray(list(indices), dtype=np.int64)
         length, width = next(iter(data.values())).shape[:2]
         if width != cols.size:
             raise ValueError(f"data has {width} env columns but {cols.size} indices given")
         if self._buf is None:
-            self._buf = {
-                k: np.zeros((self.buffer_size, self.n_envs, *v.shape[2:]), dtype=v.dtype)
-                for k, v in data.items()
-            }
+            self._allocate(data)
         if length > self.buffer_size:
             data = {k: v[-self.buffer_size:] for k, v in data.items()}
             length = self.buffer_size
         for col, env in enumerate(cols):
             rows = (self._pos[env] + np.arange(length)) % self.buffer_size
+            if self.storage == "device":
+                rows = torch.from_numpy(rows).to(self.device)
             for k, v in data.items():
                 self._buf[k][rows, env] = v[:, col]
             if self._pos[env] + length >= self.buffer_size:
                 self._full[env] = True
             self._pos[env] = (self._pos[env] + length) % self.buffer_size
+
+    def reserve(self, data_len: int = 1) -> np.ndarray:
+        """The rows of a full-width `add_direct` of `data_len` rows:
+        `concat(starts, cols)` as int32. The heads advance only in
+        `add_direct`, so rows that are never written stay outside the
+        sampling windows, and a retried `reserve` picks the same rows. Device
+        storage only."""
+        if self.storage != "device":
+            raise RuntimeError("reserve()/add_direct() require device storage")
+        if not 0 < data_len <= self.buffer_size:
+            raise ValueError(f"data_len must be in 1..{self.buffer_size}, got {data_len}")
+        starts = self._pos.copy()
+        self._pending = (starts, int(data_len))
+        return np.concatenate([starts, np.arange(self.n_envs)]).astype(np.int32)
+
+    def add_direct(self, data: Mapping[str, torch.Tensor], idx, data_len: int = 1) -> None:
+        """Scatter `data` (`[data_len, n_envs, *item]` per key, already on the
+        device) at the rows `idx` (from `reserve`: a numpy array or a device
+        tensor) and commit the head advance `reserve` deferred. Device
+        storage only."""
+        if self.storage != "device":
+            raise RuntimeError("reserve()/add_direct() require device storage")
+        pending = self._pending
+        if pending is not None and pending[1] != data_len:
+            raise ValueError(f"add_direct data_len {data_len} != reserved {pending[1]}")
+        if not 0 < data_len <= self.buffer_size:
+            raise ValueError(f"data_len must be in 1..{self.buffer_size}, got {data_len}")
+        if self._buf is None:
+            self._allocate(data)
+        idx = torch.as_tensor(idx, device=self.device).long()
+        starts, cols = idx[: self.n_envs], idx[self.n_envs:]
+        rows = (starts[None, :] + torch.arange(data_len, device=self.device)[:, None]) % self.buffer_size
+        for k, v in data.items():
+            self._buf[k][rows, cols[None, :]] = v
+        if pending is not None:
+            starts_np, length = pending
+            self._full |= starts_np + length >= self.buffer_size
+            self._pos = (starts_np + length) % self.buffer_size
+            self._pending = None
 
     def _windows(self, exclude: int) -> tuple[np.ndarray, np.ndarray]:
         """Per-env sampling domains (first, n_valid): a draw r < first maps
@@ -238,7 +311,7 @@ class AsyncReplayBuffer:
         """`n_samples` batches of `batch_size` windows of `sequence_length`
         rows -> {key: [n_samples, sequence_length, batch_size, *item]}.
         `indices` = (env [n_samples*batch_size], start [n_samples*batch_size])
-        replaces the draws."""
+        replaces the draws. Device storage returns tensors on its device."""
         if batch_size <= 0 or n_samples <= 0:
             raise ValueError("batch_size and n_samples must be > 0")
         if self._buf is None:
@@ -262,22 +335,29 @@ class AsyncReplayBuffer:
         else:
             env, start = (np.asarray(a, dtype=np.int64) for a in indices)
         idx = (start[:, None] + np.arange(sequence_length)[None, :]) % self.buffer_size
+        if self.storage == "device":
+            idx, env = torch.from_numpy(idx).to(self.device), torch.from_numpy(env).to(self.device)
         out = {}
         for k, v in self._buf.items():
             s = v[idx, env[:, None]]  # [BD, T, *item]
             s = s.reshape(n_samples, batch_size, sequence_length, *s.shape[2:])
-            out[k] = np.ascontiguousarray(np.swapaxes(s, 1, 2))
+            if self.storage == "device":
+                out[k] = s.transpose(1, 2).contiguous()
+            else:
+                out[k] = np.ascontiguousarray(np.swapaxes(s, 1, 2))
         return out
 
     def save(self, path: str) -> None:
         """Write every env's ring, write head and fullness, and the
-        sampler's generator state into one `.npz` at `path`."""
+        sampler's generator state into one `.npz` at `path` (the same file
+        from either storage, and either storage loads it)."""
         flat: dict[str, np.ndarray] = {"n_envs": np.int64(self.n_envs), "buffer_size": np.int64(self.buffer_size)}
         for i in range(self.n_envs):
             flat[f"b{i}_pos"] = np.int64(self._pos[i])
             flat[f"b{i}_full"] = np.bool_(self._full[i])
             for k, v in (self._buf or {}).items():
-                flat[f"b{i}_buf_{k}"] = v[:, i:i + 1]
+                ring = v[:, i:i + 1]
+                flat[f"b{i}_buf_{k}"] = ring.cpu().numpy() if isinstance(ring, torch.Tensor) else ring
         flat[SAMPLER_KEY] = self._gen.get_state().numpy()
         with open(path, "wb") as fh:  # a file object: np.savez appends no suffix
             np.savez(fh, **flat)
@@ -295,9 +375,11 @@ class AsyncReplayBuffer:
             prefix = "b0_buf_"
             keys = [k[len(prefix):] for k in data.files if k.startswith(prefix)]
             self._buf = {
-                k: np.ascontiguousarray(np.concatenate([data[f"b{i}_buf_{k}"] for i in range(self.n_envs)], axis=1))
+                k: self._stored(np.ascontiguousarray(
+                    np.concatenate([data[f"b{i}_buf_{k}"] for i in range(self.n_envs)], axis=1)))
                 for k in keys
             } or None
+            self._pending = None
             self._pos = np.array([int(data[f"b{i}_pos"]) for i in range(self.n_envs)], dtype=np.int64)
             self._full = np.array([bool(data[f"b{i}_full"]) for i in range(self.n_envs)], dtype=bool)
             if SAMPLER_KEY in data.files:

@@ -34,6 +34,14 @@ arrays, `None` where a module has no parameter) and hands the tree over:
     agent through `ppo_agent_from_jax`, its optax Adam state (behind the
     clip transform's empty state when `max_grad_norm` > 0) through
     `adam_state_from_jax`.
+
+The device envs' states come across too (the tests start both packages'
+envs and collectors from the same state with them): the reference's
+env-state, `VecEnvState` and collector-carry pytrees, as numpy arrays keyed
+by field path (flat, `vec.env_state.state`, or nested dicts), become the
+port's dataclasses of tensors (`env_state_from_jax`,
+`vec_env_state_from_jax`, `collector_carry_from_jax`). The field names are
+the reference's, so the mapping is one to one; no layout changes.
 """
 
 from __future__ import annotations
@@ -48,8 +56,9 @@ from .nn.layers import Linear
 from .ops.quant import QuantLinear
 
 __all__ = [
-    "adam_state_from_jax", "dreamer_v3_checkpoint_from_jax", "flatten_params", "load_jax_params",
-    "ppo_agent_from_jax", "ppo_checkpoint_from_jax", "sac_checkpoint_from_jax", "state_dict_from_jax",
+    "adam_state_from_jax", "collector_carry_from_jax", "dreamer_v3_checkpoint_from_jax", "env_state_from_jax",
+    "flatten_params", "load_jax_params", "ppo_agent_from_jax", "ppo_checkpoint_from_jax", "sac_checkpoint_from_jax",
+    "state_dict_from_jax", "vec_env_state_from_jax",
 ]
 
 
@@ -220,3 +229,50 @@ def ppo_checkpoint_from_jax(tree: Mapping, agent: tnn.Module, optimizer: torch.o
         "update_step": int(np.asarray(tree["update_step"])),
         "generator": torch.Generator().manual_seed(seed).get_state(),
     }
+
+
+def _sub(flat: dict[str, np.ndarray], prefix: str) -> dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def _tensor(value: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(value)).to(device)
+
+
+def env_state_from_jax(env, tree: Mapping, device="cpu"):
+    """A reference env-state pytree (`CartPoleState`, `PendulumState`,
+    `PixelToyState`; one env's or a batch's) -> `env.State` (the port's
+    device env `env`) with the same arrays as tensors on `device`."""
+    import dataclasses
+
+    flat = flatten_params(tree)
+    names = [f.name for f in dataclasses.fields(env.State)]
+    if set(flat) != set(names):
+        raise KeyError(f"reference env state {sorted(flat)} does not map onto {env.State.__name__} {names}")
+    return env.State(**{n: _tensor(flat[n], device) for n in names})
+
+
+def vec_env_state_from_jax(env, tree: Mapping, device="cpu"):
+    """A reference `VecEnvState` pytree (`env_state`, `ep_return`,
+    `ep_length`) -> the port's `VecEnvState` over `env.State`."""
+    from .envs.device.core import VecEnvState
+
+    flat = flatten_params(tree)
+    return VecEnvState(env_state=env_state_from_jax(env, _sub(flat, "env_state."), device),
+                       ep_return=_tensor(flat["ep_return"], device), ep_length=_tensor(flat["ep_length"], device))
+
+
+def collector_carry_from_jax(env, tree: Mapping, device="cpu"):
+    """A reference collector carry (`PPOCollectorCarry`: `vec`, `obs`,
+    `prev_done`; `DreamerCollectorCarry`: also `prev_reward` and
+    `is_first`) -> the port's carry of the same kind."""
+    from .envs.device.rollout import DreamerCollectorCarry, PPOCollectorCarry
+
+    flat = flatten_params(tree)
+    common = dict(vec=vec_env_state_from_jax(env, _sub(flat, "vec."), device),
+                  obs={k: _tensor(v, device) for k, v in _sub(flat, "obs.").items()},
+                  prev_done=_tensor(flat["prev_done"], device))
+    if "prev_reward" in flat:
+        return DreamerCollectorCarry(**common, prev_reward=_tensor(flat["prev_reward"], device),
+                                     is_first=_tensor(flat["is_first"], device))
+    return PPOCollectorCarry(**common)

@@ -4,6 +4,8 @@ port's own copy of the reference's JAX CartPole (`envs/cartpole.py`) and
 Pendulum-v1 through its JAX Pendulum (`envs/pendulum.py`), as the
 reference routes an env it has only in JAX through its host twin (its
 `pixeltoy` branch); the reference reaches these two through gymnasium.
+`pixeltoy` takes that branch here too: its device env stepped at N = 1 on
+the CPU (`envs/device/host.py:HostTwin`).
 The reference resizes and converts images with cv2, which the port does
 without: an image that needs a resize or a grayscale conversion raises
 instead."""
@@ -80,14 +82,24 @@ def make_dict_env(
     vector_env_idx: int = 0,
 ) -> Callable[[], DictObservation]:
     """Dict-observation env thunk for `*_dummy` env ids, `CartPole-v1`
-    (`envs/cartpole.py`) and `Pendulum-v1` (`envs/pendulum.py`), each
-    seeded by `seed`. A Box image observation is exposed under the first
+    (`envs/cartpole.py`), `Pendulum-v1` (`envs/pendulum.py`) and `pixeltoy`
+    (`envs/device/host.py`, its frames under `rgb`), each seeded by `seed`. A Box image observation is exposed under the first
     cnn key (default `rgb`), a Box vector observation, CartPole's and
     Pendulum's included, under the first mlp key (default `state`)."""
     del rank, run_name, prefix, vector_env_idx
 
     def thunk() -> DictObservation:
         lid = env_id.lower()
+        if "pixeltoy" in lid:
+            # an env only the device has: its host twin steps the same
+            # dynamics one env at a time (evaluation, --env_backend host)
+            from ..envs.device import HostTwin, make_device_env
+
+            twin = HostTwin(make_device_env(lid), seed=seed)
+            _check_image(twin.observation_space.spaces["rgb"].shape, env_id, args)
+            if not (getattr(args, "cnn_keys", None) or getattr(args, "mlp_keys", None)):
+                args.cnn_keys = ["rgb"]
+            return twin
         if lid == "cartpole-v1":
             from ..envs.cartpole import CartPole
 
@@ -100,7 +112,7 @@ def make_dict_env(
             env = get_dummy_env(lid)
         else:
             raise ValueError(
-                f"env {env_id!r}: only CartPole-v1, Pendulum-v1 and the *_dummy backend are ported; the "
+                f"env {env_id!r}: only CartPole-v1, Pendulum-v1, pixeltoy and the *_dummy backend are ported; the "
                 "other backends need gymnasium"
             )
         cnn_keys = list(getattr(args, "cnn_keys", None) or [])
@@ -114,19 +126,25 @@ def make_dict_env(
         key = cnn_keys[0] if cnn_keys else "rgb"
         if not cnn_keys:
             args.cnn_keys = [key]
-        screen = getattr(args, "screen_size", 64)
-        channels = 1 if getattr(args, "grayscale_obs", False) else 3
-        if shape != (screen, screen, channels):
-            raise ValueError(
-                f"{env_id} emits {shape} images but --screen_size {screen} / "
-                f"grayscale_obs ask for {(screen, screen, channels)}; image "
-                "resizing and grayscale conversion are not ported"
-            )
-        if getattr(args, "frame_stack", -1) > 0:
-            raise ValueError("frame stacking is not ported")
+        _check_image(shape, env_id, args)
         return DictObservation(env, key)
 
     return thunk
+
+
+def _check_image(shape: tuple, env_id: str, args: Any) -> None:
+    """Raise unless the env's images are what the config asks for: the port
+    neither resizes, converts to grayscale nor stacks frames."""
+    screen = getattr(args, "screen_size", 64)
+    channels = 1 if getattr(args, "grayscale_obs", False) else 3
+    if tuple(shape) != (screen, screen, channels):
+        raise ValueError(
+            f"{env_id} emits {tuple(shape)} images but --screen_size {screen} / "
+            f"grayscale_obs ask for {(screen, screen, channels)}; image "
+            "resizing and grayscale conversion are not ported"
+        )
+    if getattr(args, "frame_stack", -1) > 0:
+        raise ValueError("frame stacking is not ported")
 
 
 def obs_zeros(obs_space: dict, keys, lead: tuple, device) -> dict:

@@ -1216,3 +1216,175 @@ def test_graphed_sac_run_on_the_card_resumes_on_the_cpu(cuda_device, tmp_path, a
     run([algo, "--checkpoint_path", str(tmp_path / "r" / "checkpoints" / "ckpt_24"), "--device", "cpu"])
     rec = done()
     assert rec["device"] == "cpu" and rec["resumed"]["start_step"] == 25 and rec["env_steps"] == 24
+
+
+# ---------------------------------------------------------------------------
+# the device envs and the Anakin collectors (`envs/device/`) on the card
+# ---------------------------------------------------------------------------
+
+ENV_LIMITS = {"CartPole-v1": 500, "Pendulum-v1": 200, "pixeltoy": 128}
+
+
+def _device_env_states(env_id: str, n: int, gen: torch.Generator):
+    """n random states of the env (some a step short of the time limit), on the CPU."""
+    from sheeprl_tpu_torch.envs.device import CartPoleState, PendulumState, PixelToyState
+
+    t = torch.randint(0, ENV_LIMITS[env_id], (n,), generator=gen, dtype=torch.int32)
+    t[:4] = ENV_LIMITS[env_id] - 1
+    if env_id == "CartPole-v1":
+        return CartPoleState(state=torch.randn(n, 4, generator=gen) * torch.tensor([1.0, 1.5, 0.1, 1.5]), t=t)
+    if env_id == "Pendulum-v1":
+        u = torch.rand(n, 2, generator=gen) * 2 - 1
+        return PendulumState(state=u * torch.tensor([7.0, 8.0]), t=t)
+    cells = torch.randint(0, 16, (2, n, 2), generator=gen, dtype=torch.int32)
+    return PixelToyState(agent=cells[0], goal=cells[1], t=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["CartPole-v1", "Pendulum-v1", "pixeltoy"])
+def test_device_env_step_on_the_card_matches_the_cpu(cuda_device, env_id):
+    """Each device env's step on the card from the CPU's states, every
+    action: observations and rewards to 1e-6 (or two f32 ulps of a value
+    past 4; the card's `sin`/`cos` may round an ulp apart), pixeltoy's
+    frames and every flag exactly."""
+    from sheeprl_tpu_torch.envs.device import make_device_env
+    from sheeprl_tpu_torch.envs.device.core import tree_map
+
+    env = make_device_env(env_id)
+    state = _device_env_states(env_id, 256, torch.Generator().manual_seed(0))
+    card_state = tree_map(lambda x: x.to(cuda_device), state)
+    if env_id == "Pendulum-v1":
+        actions = [torch.full((256, 1), u) for u in (-3.0, -2.0, -0.7, 0.0, 0.3, 1.999, 2.5)]
+    else:
+        actions = [torch.full((256,), a, dtype=torch.int32) for a in range(2 if env_id == "CartPole-v1" else 5)]
+    for a in actions:
+        want = env.step(state, a)
+        got = env.step(card_state, a.to(cuda_device))
+        w_leaves, g_leaves = [], []
+        for w, g in ((want[0], got[0]), (want[1], got[1]), (want[2], got[2]), (want[3], got[3]), (want[4], got[4])):
+            tree_map(lambda x, y: (w_leaves.append(x), g_leaves.append(y.cpu())), w, g)
+        for w, g in zip(w_leaves, g_leaves):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            if w.is_floating_point() and env_id != "pixeltoy":
+                torch.testing.assert_close(g, w, atol=1e-6, rtol=2.4e-7)
+            else:
+                assert torch.equal(g, w), env_id
+
+
+def _ppo_collector_case(env_id: str, device):
+    from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent
+    from sheeprl_tpu_torch.algos.ppo.ppo import actions_dim_of
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+    from sheeprl_tpu_torch.envs.device.rollout import PPOCollectorCarry, make_ppo_collector
+
+    venv = VecDeviceEnv(make_device_env(env_id), 16, device)
+    space = venv.single_observation_space.spaces
+    actions_dim, cont = actions_dim_of(venv.single_action_space)
+    cnn = [k for k, s in space.items() if len(s.shape) == 3]
+    agent = PPOAgent(actions_dim, space, cnn, [k for k in space if k not in cnn], dense_units=16, mlp_features_dim=16,
+                     cnn_features_dim=32, is_continuous=cont, generator=torch.Generator().manual_seed(0)).to(device)
+    carry = PPOCollectorCarry.reset(venv, torch.Generator(device=device).manual_seed(1))
+
+    def draws(gen):
+        return venv.draw_resets(gen, 8), agent.draw_noise(gen, 8, 16)
+
+    return make_ppo_collector(venv, 8, actions_dim, cont), (agent, carry), draws, carry
+
+
+def _dreamer_collector_case(random_phase: bool, device):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import make_device_preprocess
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+    from sheeprl_tpu_torch.envs.device.rollout import (
+        DreamerCollectorCarry, make_dreamer_collector, random_action_sampler,
+    )
+
+    venv = VecDeviceEnv(make_device_env("pixeltoy", max_episode_steps=6), 4, device)
+    args = DreamerV3Args(cnn_channels_multiplier=2, dense_units=16, hidden_size=16, recurrent_state_size=16,
+                         stochastic_size=4, discrete_size=4)
+    wm, actor, _, _ = build_models(torch.Generator().manual_seed(0), [5], False, args,
+                                   venv.single_observation_space.spaces, ["rgb"], [])
+    player = PlayerDV3(wm.encoder, wm.rssm, actor, actions_dim=[5], stochastic_size=4, discrete_size=4,
+                       recurrent_state_size=16).to(device)
+    with torch.no_grad():
+        pstate = player.init_states(4)
+    carry = DreamerCollectorCarry.reset(venv, torch.Generator(device=device).manual_seed(1))
+    sampler = random_action_sampler(venv.single_action_space, [5], False)
+
+    def draws(gen):
+        fresh = venv.draw_resets(gen, 6)
+        if random_phase:
+            return fresh, sampler(gen, 6, 4), torch.zeros((), device=device)
+        return fresh, torch.rand((6, 4, player.noise_width()), generator=gen, device=device), torch.full(
+            (), 0.3, device=device)
+
+    collect = make_dreamer_collector(venv, 6, [5], False, make_device_preprocess(["rgb"]), clip_rewards=True,
+                                     random_actions=random_phase)
+    return collect, (player, pstate, carry), draws, (pstate, carry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ppo CartPole-v1", "ppo Pendulum-v1", "ppo pixeltoy", "dreamer policy",
+                                  "dreamer random"])
+def test_graphed_collectors_equal_eager_bit_for_bit(cuda_device, case):
+    """A collector registered with the plan (`adopt=True`: the graph reads
+    and writes the carry's own tensors) against the same calls made
+    eagerly from the same carry and draws: every trajectory, episode dict
+    and the final carry (and the player's state) bit for bit over three
+    rollouts, each after the first a replay, no fallback."""
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.envs.device.core import tree_state_dict
+
+    results = {}
+    for graphed in (False, True):
+        kind, arg = case.split()
+        fn, fixed, draws, state = (_ppo_collector_case(arg, cuda_device) if kind == "ppo"
+                                   else _dreamer_collector_case(arg == "random", cuda_device))
+        plan = CompilePlan(device=cuda_device)
+        collect = plan.register("anakin_rollout", fn, adopt=True) if graphed else fn
+        gen = torch.Generator(device=cuda_device).manual_seed(2)
+        outs = []
+        for _ in range(3):
+            traj, ep = collect(*fixed, *draws(gen))
+            outs += [traj[k].clone() for k in sorted(traj)] + [ep[k].clone() for k in sorted(ep)]
+        torch.cuda.synchronize()
+        outs += [v.clone() for _, v in sorted(tree_state_dict(state).items())]
+        results[graphed] = outs
+        if graphed:
+            entry = plan.stats()["entries"]["anakin_rollout"]
+            assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+    assert len(results[False]) == len(results[True])
+    assert all(torch.equal(a, b) for a, b in zip(results[False], results[True]))
+
+
+@pytest.mark.cuda
+def test_ppo_and_dreamer_v3_jax_backend_on_the_card(cuda_device, tmp_path):
+    """`ppo` and `dreamer_v3 --env_backend jax` without `--device` run on the
+    card: every rollout or chunk after the first a replay of its
+    "anakin_rollout" entry, no fallback."""
+    import json
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    def done(name):
+        with open(tmp_path / name / "metrics.jsonl") as fh:
+            return [json.loads(line) for line in fh if '"event": "done"' in line][-1]
+
+    ppo.main(["--env_id", "CartPole-v1", "--env_backend", "jax", "--num_envs", "64", "--rollout_steps", "16",
+              "--per_rank_batch_size", "256", "--update_epochs", "2", "--total_steps", str(3 * 64 * 16),
+              "--root_dir", str(tmp_path), "--run_name", "ppo"])
+    rec = done("ppo")
+    entry = rec["compile_stats"]["entries"]["anakin_rollout"]
+    assert rec["device"].startswith("cuda") and rec["updates"] == 3 and entry["aot_calls"] == 2
+    assert entry["fallbacks"] == 0 and rec["anakin"]["Anakin/rollouts"] == 3
+    dv3.main(["--env_id", "pixeltoy", "--env_backend", "jax", "--num_envs", "4", "--cnn_channels_multiplier", "2",
+              "--dense_units", "16", "--hidden_size", "16", "--recurrent_state_size", "16", "--stochastic_size", "4",
+              "--discrete_size", "4", "--per_rank_batch_size", "2", "--per_rank_sequence_length", "4", "--horizon",
+              "3", "--learning_starts", "16", "--total_steps", "48", "--train_every", "8", "--buffer_size", "64",
+              "--root_dir", str(tmp_path), "--run_name", "dv3"])
+    rec = done("dv3")
+    stats = rec["compile_stats"]["entries"]
+    assert rec["device"].startswith("cuda") and rec["gradient_steps"] == 5 and rec["compile"]["Compile/aot_fallbacks"] == 0
+    assert stats["anakin_rollout"]["aot_calls"] == 3 and stats["anakin_rollout_random"]["aot_calls"] == 1

@@ -49,6 +49,9 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import sheeprl_tpu_torch.ops.quant, sheeprl_tpu_torch.ops.kernels.int8_trunk\n"
         "import sheeprl_tpu_torch.ops.kernels.symlog, sheeprl_tpu_torch.envs.pendulum\n"
         "import sheeprl_tpu_torch.algos.sac.agent, sheeprl_tpu_torch.algos.sac.args\n"
+        "import sheeprl_tpu_torch.envs.device, sheeprl_tpu_torch.envs.device.rollout\n"
+        "import sheeprl_tpu_torch.envs.device.host, sheeprl_tpu_torch.parallel.anakin\n"
+        "import sheeprl_tpu_torch.algos.ppo.ppo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sheeprl_tpu', 'gymnasium', 'cv2'))\n"
         "assert not bad, bad\n"

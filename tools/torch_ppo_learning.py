@@ -9,6 +9,7 @@ and the host wall of the training and the evaluation.
 
     python tools/torch_ppo_learning.py --device cpu --seeds 5 6 7 [--out DIR] [--eager] [--adam plain]
     python tools/torch_ppo_learning.py --package reference --seeds 5 6 7
+    python tools/torch_ppo_learning.py --env_backend jax [--package reference] --seeds 5 6 7
 
 The port runs `sheeprl_tpu_torch ppo` and `ppo --eval_only` on its own
 CartPole; the reference runs `sheeprl_tpu`'s `ppo` on the CPU with
@@ -21,6 +22,12 @@ port's optimizer before its steps became CUDA graphs and before it took
 optax's arithmetic (`ops/optim.py:Adam`); a capture refuses it, so the
 steps then run eagerly. That is the arithmetic of the port's PPO before
 the graphs, on the CPU and on the card.
+
+`--env_backend jax` trains both packages on their device envs (the port's
+batched CartPole on the run's device, a rollout one graph replay; the
+reference's pure-JAX CartPole in one `lax.scan` on the CPU); the
+evaluation stays on the host CartPole (the port's, or gymnasium's) at
+seeds 1000-1009.
 """
 
 from __future__ import annotations
@@ -64,10 +71,11 @@ def plain_adams() -> None:
     eager_plans()
 
 
-def port_returns(seed: int, device: str, out: str) -> list[float]:
+def port_returns(seed: int, device: str, out: str, env_backend: str = "host") -> list[float]:
     from sheeprl_tpu_torch.cli import run
 
-    run(["ppo", *RECIPE, "--seed", str(seed), "--device", device, "--root_dir", out, "--run_name", f"learn_{seed}"])
+    run(["ppo", *RECIPE, "--seed", str(seed), "--device", device, "--env_backend", env_backend, "--root_dir", out,
+         "--run_name", f"learn_{seed}"])
     ckpt = os.path.join(out, f"learn_{seed}", "checkpoints", f"ckpt_{FINAL_UPDATE}")
     run(["ppo", "--eval_only", "--checkpoint_path", ckpt, "--test_episodes", str(EVAL_EPISODES), "--seed",
          str(EVAL_SEED), "--device", device, "--root_dir", out, "--run_name", f"eval_{seed}"])
@@ -75,8 +83,9 @@ def port_returns(seed: int, device: str, out: str) -> list[float]:
         return [json.loads(line) for line in fh][-1]["test_returns"]
 
 
-def reference_returns(seed: int, out: str) -> list[float]:
-    """The reference's test body (test_learning.py:26-73) at `seed`."""
+def reference_returns(seed: int, out: str, env_backend: str = "host") -> list[float]:
+    """The reference's test body (test_learning.py:26-73) at `seed`, its
+    envs on the host or (`jax`) its pure-JAX CartPole."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -91,8 +100,8 @@ def reference_returns(seed: int, out: str) -> list[float]:
     from sheeprl_tpu.utils.checkpoint import latest_checkpoint, load_checkpoint
     from sheeprl_tpu.utils.registry import tasks
 
-    tasks["ppo"]([*RECIPE, "--seed", str(seed), "--num_devices", "1", "--sync_env", "--root_dir", out,
-                  "--run_name", f"ref_{seed}"])
+    tasks["ppo"]([*RECIPE, "--seed", str(seed), "--num_devices", "1", "--sync_env", "--env_backend", env_backend,
+                  "--root_dir", out, "--run_name", f"ref_{seed}"])
     ckpt = latest_checkpoint(os.path.join(out, f"ref_{seed}", "checkpoints"))
     env = gym.make("CartPole-v1")
     template = PPOAgent.init(jax.random.PRNGKey(0), [2], {"state": env.observation_space}, [], ["state"],
@@ -125,6 +134,8 @@ def main() -> int:
     parser.add_argument("--eager", action="store_true", help="the port's steps called directly, not graphed")
     parser.add_argument("--adam", choices=("port", "plain"), default="port",
                         help="PPO's Adam: the port's (optax's arithmetic), or PyTorch's default (eager)")
+    parser.add_argument("--env_backend", choices=("host", "jax"), default="host",
+                        help="the training envs: host, or the device envs (both packages)")
     opts = parser.parse_args()
     sys.path.insert(0, HERE)
     import numpy as np
@@ -136,11 +147,11 @@ def main() -> int:
     for seed in opts.seeds:
         t0 = time.perf_counter()
         if opts.package == "port":
-            returns = port_returns(seed, opts.device, opts.out)
+            returns = port_returns(seed, opts.device, opts.out, opts.env_backend)
         else:
-            returns = reference_returns(seed, opts.out)
+            returns = reference_returns(seed, opts.out, opts.env_backend)
         print(json.dumps({"package": opts.package, "seed": seed, "eager": opts.eager or opts.adam == "plain",
-                          "adam": opts.adam,
+                          "adam": opts.adam, "env_backend": opts.env_backend,
                           "device": opts.device if opts.package == "port" else "cpu",
                           "mean_return": float(np.mean(returns)), "returns": returns,
                           "seconds": time.perf_counter() - t0}), flush=True)
