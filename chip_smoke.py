@@ -150,9 +150,32 @@ the final line:
      `--eval_only` over its checkpoint on the host twin; each collector's
      replay against its eager self (PPO's at the recipe's shape, DreamerV3's
      player and random chunks), timed both ways. The kernels line's
-     `anakin_launches` are this phase's device counts.
+     `anakin_launches` are this phase's device counts;
+ 14. continuous: DreamerV3 with continuous actions (the truncated-normal
+     actor, its loss differentiated through the 15 imagined steps). (a)
+     `dreamer_v3 --env_id continuous_dummy --cnn_keys rgb` with phase 6's
+     widths, run and launch counts a gradient and a player step, 0
+     fallbacks; one full-width gradient step on the card against the same
+     step on the CPU from the same state and draws (the actor on SGD at lr
+     1 behind its clip, so its parameter change is minus its clipped
+     gradient, the world model held still, built without the Hafner
+     initialization so that the gradient comes through imagination): the 13
+     metrics at rtol 1e-3, the actor's gradient leaf by leaf at 1e-4 of the
+     leaf's largest magnitude; the graphed step timed; (b) `serve --algo
+     dreamer_v3 --ckpt` of the run's last checkpoint, phase 4's 1,024
+     requests from 8 sessions, `--max_batch 8`: float rows in [-1, 1],
+     every answer equal to its rung's direct call (each dispatched batch
+     rebuilt from the responses' dispatch and offset), p50, p99, qps, a
+     graphed rung-8 step timed; (c) `--eval_only` over it and the greedy
+     best-of-100 test episodes (`utils.py:test`, a fresh [100, 1, A] draw a
+     step), 1 GRU and 4 conv launches a step; (d) `dreamer_v3 --env_id
+     Pendulum-v1 --mlp_keys state --env_backend jax` at the default widths
+     (16 envs, chunks of 4, 10 gradient steps; 79 residual GRU and 3
+     two_hot launches a gradient step, 1 GRU a player step), the player
+     chunk's replay against its eager self. The kernels line's
+     `continuous_launches` are (a)'s device counts.
 
-Every path of phases 4, 6-10, 12 and 13 runs graphed through the CLIs
+Every path of phases 4, 6-10 and 12-14 runs graphed through the CLIs
 (`compile/plan.py`: serve captures every rung at startup, the trainers
 each step at its first call), and each phase fails on a fallback. A
 replay runs no Python, so its kernels move no wrapper's counter: each
@@ -3415,20 +3438,21 @@ def anakin_graph_cases(torch, device, ckpt: str) -> list[dict]:
     return reports
 
 
-def check_anakin_launches(tag: str, launches: dict, wrapper: dict, done: dict, chunk: int) -> dict:
+def check_anakin_launches(tag: str, launches: dict, wrapper: dict, done: dict, chunk: int,
+                          per_gradient: dict = PER_GRADIENT_STEP, per_player: dict = PER_PLAYER_STEP) -> dict:
     """A jax-backend DreamerV3 run's counts: on the device `expected_launches`
     (a collection chunk's player steps count as player steps); each graph's
     launches a replay its step's own (a chunk: `chunk` player steps; the
     random chunk none); the wrappers' counters their eager calls, captures
     and the test episodes' eager player steps. Raises otherwise. -> the
     expected device counts."""
-    per_call = {"train_step": PER_GRADIENT_STEP, "anakin_rollout": {k: chunk * n for k, n in PER_PLAYER_STEP.items()},
+    per_call = {"train_step": per_gradient, "anakin_rollout": {k: chunk * n for k, n in per_player.items()},
                 "anakin_rollout_random": {}}
     entries = done["compile_stats"]["entries"]
     check_per_replay(entries, per_call, tag)
-    expected = expected_launches(launches, PER_GRADIENT_STEP, PER_PLAYER_STEP, done)
+    expected = expected_launches(launches, per_gradient, per_player, done)
     tests = sum(done["test_player_steps"])
-    wrapper_want = wrapper_expected(entries, wrapper, {k: n * tests for k, n in PER_PLAYER_STEP.items()})
+    wrapper_want = wrapper_expected(entries, wrapper, {k: n * tests for k, n in per_player.items()})
     if launches != expected:
         raise RuntimeError(f"{tag}: launch counts on the device {launches} != {expected} for "
                            f"{done['gradient_steps']} gradient steps and {done['player_steps']} player steps")
@@ -3580,6 +3604,424 @@ def anakin_phase(torch, np, F, run, device, smi: str, report: dict) -> dict:
     lap("collectors graphed vs eager")
     out["seconds"] = parts
     log("[anakin] the phase's parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; {sum(parts.values()):.1f} in all")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: DreamerV3 with continuous actions
+# ---------------------------------------------------------------------------
+
+# (a) phase 6's model, batch and run on continuous_dummy pixels (2 actions,
+# the truncated-normal actor), f32: 64 random steps, then 8 player steps and
+# 10 gradient steps; the last step's checkpoint is served in (b) and
+# evaluated in (c). The kernels' counts a step are phase 6's
+CONT_ACTIONS = 2
+CONT_TRAIN_ARGV = ["dreamer_v3", "--env_id", "continuous_dummy", "--cnn_keys", "rgb", "--num_envs", "1",
+                   "--buffer_size", "256", "--learning_starts", str(TRAIN_STARTS), "--train_every", "1",
+                   "--pretrain_steps", str(PRETRAIN), "--total_steps", str(TRAIN_STEPS)]
+# the actor's gradient, card against CPU: each leaf's largest gap over the
+# leaf's largest magnitude
+CONT_GRAD_TOL = 1e-4
+CONT_EVAL_EPISODES = 2
+# (d) phase 13's run (16 envs, chunks of 4 steps, 10 gradient steps) on the
+# device Pendulum's 3-vector at the default widths, one action. In f32 the
+# RSSM's step weights (3.93 M) are past kernel 5's guard: the scan runs
+# kernel 2, and no conv runs
+CONT_PENDULUM_ARGV = ["dreamer_v3", "--env_id", "Pendulum-v1", "--mlp_keys", "state", "--env_backend", "jax",
+                      "--num_envs", str(ANAKIN_DV3_ENVS), "--train_every", str(ANAKIN_DV3_CHUNK * ANAKIN_DV3_ENVS),
+                      "--learning_starts", "1024", "--total_steps", str(ANAKIN_DV3_STEPS * ANAKIN_DV3_ENVS),
+                      "--buffer_size", str(ANAKIN_DV3_STEPS * ANAKIN_DV3_ENVS)]
+VECTOR_PER_GRADIENT_STEP = {"layernorm_gru_cell_residuals": 79, "conv_ln_silu_residuals": 0, "deconv_ln_silu": 0,
+                            "two_hot_log_prob": 3, "fused_rssm_step": 0}
+VECTOR_PER_PLAYER_STEP = {"layernorm_gru_cell": 1, "conv_ln_silu": 0}
+
+
+def _continuous_setup(torch, np, device, sgd_actor: bool):
+    """Phase 6's full-width model with the truncated-normal actor (2
+    actions), built by the package's own functions, one [T, B] pixel batch
+    (its actions uniform in [-1, 1]) and the step's draws (made on the CPU),
+    all from fixed seeds; with `sgd_actor` the actor steps by SGD at lr 1
+    behind the reference's clip, so its parameter change is minus its
+    clipped gradient, the world model by SGD at lr 0 (imagination then runs
+    the same world model on both devices), and the model is built without the Hafner
+    initialization: its zeroed critic and reward heads would pass no
+    gradient back through the imagined values, leaving only the entropy
+    bonus's."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.moments import Moments
+
+    args = DreamerV3Args(hafner_initialization=not sgd_actor)
+    wm, actor, critic, target = build_models(torch.Generator().manual_seed(0), [CONT_ACTIONS], True, args,
+                                             {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}, ["rgb"], [])
+    for m in (wm, actor, critic, target):
+        m.to(device)
+    world_opt, actor_opt, critic_opt = dv3.make_optimizers(args, wm, actor, critic)
+    if sgd_actor:
+        actor_opt = torch.optim.SGD(actor.parameters(), lr=1.0)
+        # the world model held still: Adam's first step moves a parameter by
+        # ~lr * sign(g), and where g is near 0 the two devices' signs can
+        # differ, which would hand imagination two world models
+        world_opt = torch.optim.SGD(wm.parameters(), lr=0.0)
+    state = dv3.DV3TrainState(wm, actor, critic, target, world_opt, actor_opt, critic_opt,
+                              Moments(args.moments_decay, args.moment_max, device=device))
+    T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+    rng = np.random.default_rng(0)
+    dones = np.zeros((T, B, 1), np.float32)
+    is_first = np.zeros((T, B, 1), np.float32)
+    dones[4::5, ::3], is_first[5::5, ::3] = 1.0, 1.0  # dummy-env episodes end every fifth step
+    batch = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8),
+             "actions": rng.uniform(-1.0, 1.0, (T, B, CONT_ACTIONS)).astype(np.float32),
+             "rewards": rng.normal(size=(T, B, 1)).astype(np.float32), "dones": dones, "is_first": is_first}
+    data = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    noise = dv3.draw_noise(args, T, B, [CONT_ACTIONS], torch.Generator().manual_seed(1), "cpu", True)
+    return args, state, data, {k: v.to(device) for k, v in noise.items()}
+
+
+def continuous_card_cpu_check(torch, np, device) -> dict:
+    """One full-width continuous gradient step on the card against the same
+    step on the CPU, from the same state, batch and draws, the actor on SGD
+    at lr 1 behind its clip and the world model held still
+    (`_continuous_setup`): the 13 metrics at TRAIN_METRIC_RTOL /
+    TRAIN_METRIC_ATOL, and the actor's gradient (its parameter change) leaf
+    by leaf at CONT_GRAD_TOL of the leaf's largest magnitude on the CPU.
+    -> the check's numbers (raises nothing)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    sides = {}
+    for dev in (device, torch.device("cpu")):
+        args, state, data, noise = _continuous_setup(torch, np, dev, sgd_actor=True)
+        start = {k: p.detach().cpu().clone() for k, p in state.actor.named_parameters()}
+        step = dv3.make_train_step(args, ["rgb"], [], [CONT_ACTIONS], True)
+        t0 = time.perf_counter()
+        metrics = step(state, data, 1.0, noise)
+        seconds = time.perf_counter() - t0
+        grads = {k: start[k] - p.detach().cpu() for k, p in state.actor.named_parameters()}
+        sides[dev.type] = (metrics, grads, seconds)
+    (card, g_card, s_card), (cpu, g_cpu, s_cpu) = sides["cuda"], sides["cpu"]
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    bad = [k for k in cpu if abs(card[k] - cpu[k]) > TRAIN_METRIC_ATOL + TRAIN_METRIC_RTOL * abs(cpu[k])]
+    gaps = {k: float((g_card[k] - g_cpu[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30) for k in g_cpu}
+    moved = {k: float(g_cpu[k].abs().max()) for k in g_cpu}
+    return dict(card=card, cpu=cpu, metric_rel=rel, metric_bad=bad, grad_gap=gaps, grad_max=moved,
+                card_seconds=s_card, cpu_seconds=s_cpu)
+
+
+def continuous_step_timing(torch, np, device, steps: int = 3) -> dict:
+    """The graphed continuous gradient step at full width (the actor on its
+    Adam, as in the run): `time_calls` over its replays (host wall, device
+    time and launches by torch.profiler, the port's kernels a replay)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+
+    args, state, data, noise = _continuous_setup(torch, np, device, sgd_actor=False)
+    plan = CompilePlan(device="cuda")
+    step = dv3.make_train_step(args, ["rgb"], [], [CONT_ACTIONS], True, plan=plan).device_step
+    tau = torch.full((), args.critic_tau, device=device)
+    step(state, data, tau, noise)  # eager; time_calls' first call captures
+    out = time_calls(torch, lambda: step(state, data, tau, noise), steps)
+    entry = plan.stats()["entries"]["train_step"]
+    out.update(launches_per_replay=entry["launches_per_replay"], fallbacks=entry["fallbacks"],
+               capture_seconds=entry["compile_seconds"], pool_bytes=entry["peak_bytes"])
+    return out
+
+
+def dv3_rung_check(torch, np, plans, answers, ckpt: str, device) -> dict:
+    """Every served answer of a DreamerV3 serve against its rung's direct
+    call, bit for bit: each dispatched batch rebuilt from the responses'
+    dispatch number and row offset (the batcher's padding rows carry the
+    init state and zero obs), the sessions' rows threaded in dispatch order
+    from the direct calls' own states (a reset or a new session starts
+    from the init row, as `DV3ServePolicy.run` does), each batch stepped
+    eagerly at its rung by the checkpoint's player with the server's noise.
+    -> {rung: [rows compared, rows equal]}."""
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    policy, player, _ = build_policy(ServeArgs(algo="dreamer_v3", ckpt=ckpt, device=str(device)), device)
+    init = policy.init_row(-1, player)
+    dispatches: dict[int, list] = {}
+    for sid, steps in plans.items():
+        for (obs, kwargs), (res, meta) in zip(steps, answers[sid]):
+            dispatches.setdefault(meta["dispatch"], []).append((meta, sid, bool(kwargs.get("reset")), obs, res))
+    sessions: dict[str, dict] = {}
+    out: dict[int, list] = {}
+    with torch.inference_mode():
+        for d in sorted(dispatches):
+            entries = dispatches[d]
+            rung = entries[0][0]["rung"]
+            rows = [init] * rung
+            pixels = np.zeros((rung, 64, 64, 3), np.uint8)
+            for meta, sid, reset, obs, _ in entries:
+                rows[meta["offset"]] = init if reset or sid not in sessions else sessions[sid]
+                pixels[meta["offset"]] = obs["rgb"][0]
+            state = {k: torch.stack([r[k] for r in rows]) for k in init}
+            new, acts = policy.step(player, state, {"rgb": torch.from_numpy(pixels).to(device)})
+            acts = acts.float().cpu().numpy()
+            for meta, sid, _, _, res in entries:
+                sessions[sid] = {k: v[meta["offset"]].clone() for k, v in new.items()}
+                tally = out.setdefault(rung, [0, 0])
+                tally[0] += 1
+                tally[1] += bool(np.array_equal(res["actions"], acts[meta["offset"]:meta["offset"] + 1]))
+    return {r: out[r] for r in sorted(out)}
+
+
+def continuous_serve(torch, np, run, ServeClient, ckpt: str, device) -> dict:
+    """(b): `serve --algo dreamer_v3 --ckpt` of the continuous run's last
+    checkpoint through the CLI, 1,024 timed requests from 8 closed-loop
+    sessions (phase 4's plans), `--max_batch 8`, kernel 1 and 3's counts set
+    to 0 just before: every answer a float row in [-1, 1], every dispatch a
+    graph replay, 1 GRU and 4 conv launches a step on the device, every
+    answer equal to its rung's direct call; p50, p99, qps; then a rung-8
+    step captured in a CUDA graph and timed. Raises on any failure."""
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    root = os.path.join(OUT_DIR, "continuous_serve_logs")
+    shutil.rmtree(root, ignore_errors=True)  # a stale serve_address would be dialled
+    gru.layernorm_gru_cell.launches = cnn.conv_ln_silu.launches = 0
+    plans, warm = dv3_serve_plans(np)
+    with DeviceLaunches(torch, ("layernorm_gru_cell", "conv_ln_silu")) as ran:
+        answers, latencies, wall, warmups, gc_info = drive_serve(
+            np, run, ServeClient, root, ["--algo", "dreamer_v3", "--ckpt", ckpt, "--max_batch", "8", "--ladder",
+                                         "auto", "--deadline_ms", "0"], plans, warm)
+    launches = ran.counts
+    wrapper = {"layernorm_gru_cell": gru.layernorm_gru_cell.launches, "conv_ln_silu": cnn.conv_ln_silu.launches}
+    with open(os.path.join(root, "serve", "telemetry.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    gauges = [r for r in records if r.get("event") == "interval"][-1]["metrics"]
+    dispatches, served = int(gauges["Serve/dispatches"]), int(gauges["Serve/served_total"])
+    summary = compile_summary(os.path.join(root, "serve"))
+    calls, replays, fallbacks = graph_calls(summary)
+    rows = [res["actions"] for v in answers.values() for res, _ in v]
+    floats = all(a.dtype == np.float32 and a.shape == (1, CONT_ACTIONS) and np.isfinite(a).all()
+                 and np.abs(a).max() <= 1.0 for a in rows)
+    if len(rows) != SERVE_SESSIONS * SERVE_PER_SESSION or served != SERVE_SESSIONS * (SERVE_PER_SESSION + 1) \
+            or not floats:
+        raise RuntimeError("the continuous serve did not answer every request with a float action row in [-1, 1]")
+    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays != dispatches:
+        raise RuntimeError(f"continuous serve: {replays} replays for {dispatches} dispatches, {fallbacks} fallbacks")
+    check_per_replay(summary["entries"], {n: PER_PLAYER_STEP for n in summary["entries"]}, "continuous-serve")
+    if launches != {"layernorm_gru_cell": calls, "conv_ln_silu": 4 * calls}:
+        raise RuntimeError(f"continuous serve: launch counts on the device {launches} != 1x / 4x the {calls} steps")
+    if wrapper != wrapper_expected(summary["entries"], wrapper) or 0 in wrapper.values():
+        raise RuntimeError(f"continuous serve: the wrappers counted {wrapper}")
+    tally = dv3_rung_check(torch, np, plans, answers, ckpt, device)
+    if any(n != eq for n, eq in tally.values()) or sum(n for n, _ in tally.values()) != len(rows):
+        raise RuntimeError(f"served continuous answers differ from their rungs' direct calls: {tally}")
+    lat = sorted(latencies)
+    p50, p99 = lat[len(lat) // 2], lat[min(int(0.99 * len(lat)), len(lat) - 1)]
+    # a rung-8 step of the served player as one CUDA graph, timed
+    policy, player, _ = build_policy(ServeArgs(algo="dreamer_v3", ckpt=ckpt, device=str(device)), device)
+    init = policy.init_row(-1, player)
+    rng = np.random.default_rng(3)
+    with torch.inference_mode():
+        state = {k: torch.stack([v] * 8) for k, v in init.items()}
+        obs = {"rgb": torch.from_numpy(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)).to(device)}
+        rung8 = time_calls(torch, graphed(torch, lambda: policy.step(player, state, obs)), 20)
+    return dict(answers=len(rows), dispatches=dispatches, launches=launches, wrapper_launches=wrapper,
+                rung_checks=tally, p50_ms=p50, p99_ms=p99, qps=len(rows) / wall, wall_s=wall, warmup_ms=warmups,
+                gc=gc_info, server_gauges=gauges, rung8_graphed=rung8,
+                dispatches_by_rung={k: gauges[k] for k in gauges if k.startswith("Serve/dispatches_b")})
+
+
+def greedy_episodes(torch, ckpt: str, device, root: str, episodes: int = CONT_EVAL_EPISODES) -> dict:
+    """(c): the greedy test episodes of `utils.py:test` (`sample_actions=False`:
+    the likeliest of 100 samples, a fresh [100, 1, A] draw each step from
+    the seeded generator) with the checkpoint's player, at seeds seed + i,
+    kernel 1 and 3's launches counted on the device: 1 and 4 a step.
+    Raises otherwise."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+    from sheeprl_tpu_torch.utils.evaluation import parse_run_args
+    from sheeprl_tpu_torch.utils.logger import create_logger
+
+    _, player, _ = build_policy(ServeArgs(algo="dreamer_v3", ckpt=ckpt, device=str(device)), device)
+    args = parse_run_args(DreamerV3Args, ["--checkpoint_path", ckpt, "--root_dir", root, "--run_name", "greedy"])
+    logger, _ = create_logger(args, "dreamer_v3")
+    seed, returns, steps = args.seed, [], []
+    gru.layernorm_gru_cell.launches = cnn.conv_ln_silu.launches = 0
+    t0 = time.perf_counter()
+    with DeviceLaunches(torch, ("layernorm_gru_cell", "conv_ln_silu")) as ran:
+        for i in range(episodes):
+            args.seed = seed + i
+            ret, n = test(player, logger, args, ["rgb"], sample_actions=False)
+            returns.append(ret)
+            steps.append(n)
+    ms = (time.perf_counter() - t0) * 1e3
+    want = {"layernorm_gru_cell": sum(steps), "conv_ln_silu": 4 * sum(steps)}
+    wrapper = {"layernorm_gru_cell": gru.layernorm_gru_cell.launches, "conv_ln_silu": cnn.conv_ln_silu.launches}
+    if ran.counts != want or wrapper != want:
+        raise RuntimeError(f"greedy episodes: launches on the device {ran.counts}, by the wrappers {wrapper} != {want}")
+    return dict(returns=returns, player_steps=steps, ms=ms, launches=ran.counts)
+
+
+def pendulum_chunk_case(torch, device) -> dict:
+    """(d): DreamerV3's player chunk on the device Pendulum (4 steps of 16
+    envs, the truncated-normal actor at the default widths) replayed
+    against its eager self (`graph_case`, the carry adopted), timed both
+    ways."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import make_device_preprocess
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+    from sheeprl_tpu_torch.envs.device.core import tree_state_dict
+    from sheeprl_tpu_torch.envs.device.rollout import DreamerCollectorCarry, make_dreamer_collector
+
+    def build():
+        venv = VecDeviceEnv(make_device_env("Pendulum-v1"), ANAKIN_DV3_ENVS, device)
+        args = DreamerV3Args()
+        wm, actor, _, _ = build_models(torch.Generator().manual_seed(0), [1], True, args,
+                                       venv.single_observation_space.spaces, [], ["state"])
+        player = PlayerDV3(wm.encoder, wm.rssm, actor, actions_dim=[1], stochastic_size=args.stochastic_size,
+                           discrete_size=args.discrete_size, recurrent_state_size=args.recurrent_state_size,
+                           is_continuous=True).to(device)
+        with torch.no_grad():
+            pstate = player.init_states(ANAKIN_DV3_ENVS)
+        carry = DreamerCollectorCarry.reset(venv, torch.Generator(device=device).manual_seed(6))
+        gen = torch.Generator(device=device).manual_seed(7)
+        calls = [(player, pstate, carry, venv.draw_resets(gen, ANAKIN_DV3_CHUNK),
+                  torch.rand((ANAKIN_DV3_CHUNK, ANAKIN_DV3_ENVS, player.noise_width()), generator=gen, device=device),
+                  torch.full((), expl, device=device)) for expl in (0.3, 0.0, 0.1)]
+        fn = make_dreamer_collector(venv, ANAKIN_DV3_CHUNK, [1], True, make_device_preprocess([]))
+        return fn, calls, lambda: tree_state_dict((pstate, carry))
+
+    return graph_case(torch, "anakin_rollout dreamer_v3 continuous Pendulum-v1 T4 N16", build, 30, (1e-4, 1e-4),
+                      adopt=True)
+
+
+def continuous_phase(torch, np, run, ServeClient, device, smi: str, report: dict) -> dict:
+    """Phase 14: DreamerV3 with continuous actions. (a) `dreamer_v3` on
+    continuous_dummy pixels at phase 6's widths and run through the CLI
+    (exact launch counts a gradient and a player step, 0 fallbacks), one
+    full-width gradient step on the card against the CPU's, the graphed
+    step timed; (b) `serve --ckpt` of its last checkpoint, every answer
+    against its rung's direct call; (c) `--eval_only` over it and the
+    greedy best-of-100 test episodes, launches counted; (d) `dreamer_v3
+    --env_id Pendulum-v1 --env_backend jax` at default widths, the player
+    chunk's replay against its eager self. Raises on any failure. -> the
+    phase's report."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
+
+    out: dict = {"smi": smi}
+    parts: dict[str, float] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - clock[0]
+        clock[0] = now
+
+    root = os.path.join(OUT_DIR, "continuous_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    # -- (a) training on continuous_dummy pixels -----------------------------
+    t0 = time.perf_counter()
+    launches, records, done, wrapper = drive_train(torch, run, root, CONT_TRAIN_ARGV, "pixels")
+    run_s = time.perf_counter() - t0
+    finite = all(math.isfinite(r[k]) for r in records for k in METRICS)
+    moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+    step_ms = statistics.median(done["train_step_ms"][1:])
+    log(f"[continuous] {smi}: {' '.join(CONT_TRAIN_ARGV)}: {done['gradient_steps']} gradient steps, "
+        f"{done['player_steps']} player steps, {done['env_steps']} env steps in {run_s:.1f} s; losses finite: "
+        f"{finite}; parameter change (L2) {moved}; launches on the device {launches}, by the wrappers {wrapper}")
+    log(f"[continuous] host wall per gradient step: median {step_ms:.2f} ms over {len(done['train_step_ms']) - 1} "
+        f"steps (first {done['train_step_ms'][0]:.1f} ms; phase 6 on discrete actions: "
+        f"{report['train']['step_ms_median']:.2f}); last losses " + ", ".join(
+            f"{k.split('/')[1]}={records[-1][k]:.4g}" for k in METRICS if k.startswith("Loss/"))
+        + f"; {fmt_tests(done)}")
+    log(f"[continuous] graphs: {check_graphs(done, 'continuous')}")
+    if done["gradient_steps"] < 8 or not finite or min(moved.values()) <= 0:
+        raise RuntimeError("the continuous run took fewer than 8 gradient steps, lost finiteness or moved nothing")
+    expected = check_train_launches("continuous", launches, wrapper, PER_GRADIENT_STEP, PER_PLAYER_STEP, done)
+    out["train"] = dict(argv=CONT_TRAIN_ARGV, seconds=run_s, done=done, records=records, launches=launches,
+                        wrapper_launches=wrapper, expected=expected, step_ms_median=step_ms)
+    lap("(a) training run")
+    check = continuous_card_cpu_check(torch, np, device)
+    log("[continuous] one full-width gradient step on the card vs the CPU, the actor on SGD at lr 1 behind its clip "
+        f"(card {check['card_seconds']:.2f} s, CPU {check['cpu_seconds']:.2f} s; metric tolerance rtol "
+        f"{TRAIN_METRIC_RTOL:g} atol {TRAIN_METRIC_ATOL:g}): " + ", ".join(
+            f"{k.split('/')[1]} {check['card'][k]:.6g}/{check['cpu'][k]:.6g}" for k in METRICS)
+        + f"; the actor's gradient, each leaf's gap over its largest magnitude (tol {CONT_GRAD_TOL:g}): "
+        + ", ".join(f"{k} {v:.2e} (of {check['grad_max'][k]:.3g})" for k, v in check["grad_gap"].items()))
+    out["card_cpu"] = check
+    if check["metric_bad"] or max(check["grad_gap"].values()) > CONT_GRAD_TOL:
+        raise RuntimeError(f"the continuous gradient step on the card disagrees with the CPU's: "
+                           f"{check['metric_bad']} {check['grad_gap']}")
+    if min(check["grad_max"].values()) <= 0:
+        raise RuntimeError(f"no gradient reached an actor leaf: {check['grad_max']}")
+    lap("(a) card vs CPU step")
+    timing = continuous_step_timing(torch, np, device)
+    log(f"[continuous-profile] the graphed gradient step: {timing['wall_ms']:.2f} ms host, {timing['device_ms']:.2f} "
+        f"ms device (span {timing['span_ms']:.2f}) in {timing['launches']:.0f} launches, busy {timing['busy']:.3f}; "
+        f"capture {timing['capture_seconds']:.2f} s, pool {(timing['pool_bytes'] or 0) / 1e6:.1f} MB; the port's "
+        f"kernels a replay {timing['port_launches']}")
+    want = {k: n for k, n in PER_GRADIENT_STEP.items() if n}
+    if timing["fallbacks"] or timing["port_launches"] != want:
+        raise RuntimeError(f"the graphed continuous step fell back or ran {timing['port_launches']} != {want}")
+    out["step_timing"] = timing
+    lap("(a) graphed step timed")
+    ckpt = done["checkpoints"][-1]["path"]
+    # -- (b) serving its checkpoint --------------------------------------------
+    srv = continuous_serve(torch, np, run, ServeClient, ckpt, device)
+    g8 = srv["rung8_graphed"]
+    log(f"[continuous-serve] serve --algo dreamer_v3 --ckpt .../{os.path.basename(ckpt)} --max_batch 8: "
+        f"{srv['answers']} float answers in {srv['dispatches']} dispatches ({srv['dispatches_by_rung']}); client "
+        f"latency p50={srv['p50_ms']:.3f} ms p99={srv['p99_ms']:.3f} ms, {srv['qps']:.1f} qps over "
+        f"{srv['wall_s']:.2f} s; launches on the device {srv['launches']}, by the wrappers {srv['wrapper_launches']}; "
+        f"every answer equal to its rung's direct call, by rung {srv['rung_checks']}; a rung-8 step graphed "
+        f"{g8['wall_ms']:.4f} ms host, {g8['device_ms']:.4f} ms device in {g8['launches']:.0f} launches")
+    out["serve"] = srv
+    lap("(b) serve")
+    # -- (c) evaluation ----------------------------------------------------------
+    ev_launches, _, ev, ev_wrapper = drive_train(torch, run, os.path.join(root, "eval"),
+                                                 ("dreamer_v3", "--eval_only", "--checkpoint_path", ckpt,
+                                                  "--test_episodes", str(CONT_EVAL_EPISODES)), "eval")
+    if ev["gradient_steps"] != 0 or len(ev["test_returns"]) != CONT_EVAL_EPISODES:
+        raise RuntimeError(f"the continuous evaluation trained or played the wrong episodes: {ev}")
+    check_train_launches("continuous-eval", ev_launches, ev_wrapper, {}, PER_PLAYER_STEP, ev)
+    greedy = greedy_episodes(torch, ckpt, device, os.path.join(root, "eval"))
+    log(f"[continuous-eval] dreamer_v3 --eval_only --checkpoint_path .../{os.path.basename(ckpt)} --test_episodes "
+        f"{CONT_EVAL_EPISODES}: {fmt_tests(ev)}; launches on the device {ev_launches}; greedy best-of-100 episodes "
+        f"(utils.py:test, sample_actions=False): returns {greedy['returns']}, {greedy['player_steps']} player steps "
+        f"in {greedy['ms']:.1f} ms, launches on the device {greedy['launches']}")
+    out["eval"] = dict(done=ev, launches=ev_launches, greedy=greedy)
+    lap("(c) evaluation")
+    # -- (d) the device Pendulum ------------------------------------------------
+    t0 = time.perf_counter()
+    p_launches, p_records, pend, p_wrapper = drive_train(torch, run, root, CONT_PENDULUM_ARGV, "pendulum")
+    pend_s = time.perf_counter() - t0
+    finite = all(math.isfinite(r[k]) for r in p_records for k in METRICS)
+    moved = {m: pend[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+    chunk_ms = statistics.median(pend["anakin_chunk_ms"][1:])
+    log(f"[continuous-pendulum] {' '.join(CONT_PENDULUM_ARGV)}: chunk {pend['anakin_chunk']}, "
+        f"{pend['gradient_steps']} gradient steps, {pend['player_steps']} player steps, {pend['env_steps']} env "
+        f"steps in {pend_s:.1f} s; losses finite: {finite}; parameter change {moved}; a player chunk's host wall "
+        f"(draws, replay, add_direct, the pull) median {chunk_ms:.3f} ms; gradient step median "
+        f"{statistics.median(pend['train_step_ms'][1:]):.2f} ms; {fmt_tests(pend)}; launches on the device "
+        f"{p_launches}, by the wrappers {p_wrapper}; graphs: " + check_graphs(
+            pend, "continuous-pendulum", {"train_step": pend["gradient_steps"],
+                                          "anakin_rollout": ANAKIN_DV3_PLAYER_CHUNKS,
+                                          "anakin_rollout_random": ANAKIN_DV3_RANDOM_CHUNKS}))
+    if (pend["gradient_steps"] != ANAKIN_DV3_GRADIENT_STEPS or pend["player_steps"] != ANAKIN_DV3_PLAYER_CHUNKS
+            * ANAKIN_DV3_CHUNK or not finite or min(moved.values()) <= 0):
+        raise RuntimeError(f"the continuous Pendulum run took {pend['gradient_steps']} gradient steps, "
+                           f"{pend['player_steps']} player steps, lost finiteness or moved nothing")
+    p_expected = check_anakin_launches("continuous-pendulum", p_launches, p_wrapper, pend, ANAKIN_DV3_CHUNK,
+                                       VECTOR_PER_GRADIENT_STEP, VECTOR_PER_PLAYER_STEP)
+    lap("(d) Pendulum run")
+    chunk = pendulum_chunk_case(torch, device)
+    out["pendulum"] = dict(argv=CONT_PENDULUM_ARGV, seconds=pend_s, done=pend, launches=p_launches,
+                           wrapper_launches=p_wrapper, expected=p_expected, chunk_ms_median=chunk_ms, graph=chunk)
+    lap("(d) chunk graphed vs eager")
+    out["seconds"] = parts
+    log("[continuous] the phase's parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
         + f"; {sum(parts.values()):.1f} in all")
     return out
 
@@ -3859,6 +4301,10 @@ def main() -> int:
     GC.next_phase("13 anakin")
     report["anakin"] = anakin_phase(torch, np, F, run, torch.device("cuda"), smi, report)
 
+    # -- phase 14: DreamerV3 with continuous actions ---------------------------
+    GC.next_phase("14 continuous")
+    report["continuous"] = continuous_phase(torch, np, run, ServeClient, torch.device("cuda"), smi, report)
+
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])
     edges = DeviceLaunches.WINDOWS
@@ -3944,6 +4390,16 @@ def main() -> int:
                                                           "layernorm_gru_cell_residuals", "conv_ln_silu_residuals",
                                                           "deconv_ln_silu", "two_hot_log_prob")):
         raise RuntimeError(f"a kernel of phase 13's path was not launched there: {anakin_launches}")
+    # phase 14's path: DreamerV3 with continuous actions on continuous_dummy
+    # pixels, kernels 1 and 3 in each player step, 2, 3-res, 4 and 7 in the
+    # gradient step, counted on the device over that run
+    continuous_launches = report["continuous"]["train"]["launches"]
+    for k in kernels:
+        k["continuous_launches"] = continuous_launches.get(k["name"], 0)
+    if any(continuous_launches.get(name, 0) == 0 for name in ("layernorm_gru_cell", "conv_ln_silu",
+                                                              "layernorm_gru_cell_residuals", "conv_ln_silu_residuals",
+                                                              "deconv_ln_silu", "two_hot_log_prob")):
+        raise RuntimeError(f"a kernel of phase 14's path was not launched there: {continuous_launches}")
     # every kernel but symlog_symexp lies on a path, and that run must have launched it
     if any(k["launches"] == 0 or k["wrapper_launches"] == 0 for k in kernels if k["name"] != "symlog_symexp"):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")

@@ -38,6 +38,10 @@ class DreamerV2Args(StandardArgs):
     kl_regularizer: float = Arg(default=1.0, help="the scale factor for the kl divergence")
     continue_scale_factor: float = Arg(default=1.0, help="the scale factor for the continue loss")
     actor_ent_coef: float = Arg(default=1e-4, help="the entropy coefficient for the actor loss")
+    actor_init_std: float = Arg(
+        default=0.0, help="the amount to sum to the input of the std function of the actions"
+    )
+    actor_min_std: float = Arg(default=0.1, help="the minimum standard deviation for the actions")
     critic_target_network_update_freq: int = Arg(default=100, help="target critic update frequency")
     stochastic_size: int = Arg(default=32, help="the dimension of the stochastic state")
     discrete_size: int = Arg(default=32, help="the dimension of the discrete state")

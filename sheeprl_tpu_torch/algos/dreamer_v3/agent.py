@@ -1,11 +1,12 @@
 """DreamerV3 agent (the port of sheeprl_tpu/algos/dreamer_v3/agent.py): the
 encoders and decoders, the RSSM (dynamic learning over a sequence and
-imagination), the world model, the discrete-action actor, the
-environment-interaction `PlayerDV3`, and `build_models`.
+imagination), the world model, the actor (discrete or continuous actions),
+the environment-interaction `PlayerDV3`, and `build_models`.
 
-Randomness is explicit: every sample takes injected Gumbel noise (the
-parity tests feed the reference's own draw) or a `torch.Generator`; the
-reference threads `jax.random` keys instead. Convolutions are NHWC, as in
+Randomness is explicit: every sample takes injected noise (Gumbels, or the
+uniforms a continuous draw maps; the parity tests feed the reference's own
+draw) or a `torch.Generator`; the reference threads `jax.random` keys
+instead. Convolutions are NHWC, as in
 the reference.
 """
 
@@ -23,11 +24,21 @@ from ...nn.blocks import CNN, MLP, DeCNN
 from ...nn.inits import init_xavier
 from ...nn.layers import ConvTranspose2d, LayerNorm, Linear
 from ...nn.recurrent import LayerNormGRUCell
-from ...ops.distributions import OneHotCategorical, gumbel_noise, unimix_logits
+from ...ops.distributions import (
+    Independent,
+    Normal,
+    OneHotCategorical,
+    TanhNormal,
+    TruncatedNormal,
+    gumbel_noise,
+    standard_normal,
+    unimix_logits,
+)
 from ...ops.kernels.rssm import fused_rssm_step, fused_rssm_supported
 from ...ops.math import symlog
 
 __all__ = [
+    "BEST_OF",
     "Actor",
     "CNNDecoder",
     "CNNEncoder",
@@ -44,6 +55,11 @@ __all__ = [
     "compute_stochastic_state",
     "exploration_actions",
 ]
+
+
+# the samples a continuous actor draws in evaluation, keeping the likeliest
+# (the reference's agent.py:670-674)
+BEST_OF = 100
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -374,12 +390,20 @@ class WorldModel(tnn.Module):
 
 
 class Actor(tnn.Module):
-    """DreamerV3 policy head for discrete actions: MLP trunk + one head per
-    discrete action space, unimix one-hot categoricals. Continuous control
-    (the reference's best-of-100 truncated-normal draw) is not ported."""
+    """DreamerV3 policy head: an MLP trunk, then one head per discrete action
+    space (unimix one-hot categoricals) or, for continuous control, one head
+    of 2 * sum(actions_dim) read as (mean, std) (the reference's
+    agent.py:556-680): `trunc_normal`, the default for "auto"
+    (TruncatedNormal(tanh(mean), 2 sigmoid((std + init_std) / 2) +
+    min_std, -1, 1)), `tanh_normal` (TanhNormal(5 tanh(mean / 5),
+    softplus(std + init_std) + min_std)) or `normal`. Training takes one
+    straight-through (discrete) or reparameterized (continuous) sample;
+    evaluation the mode (discrete) or the likeliest of `BEST_OF` samples
+    (continuous). A continuous sample takes its uniforms as an argument
+    (floats in [0, 1), `ops/distributions.py`); nothing is drawn inside."""
 
     def __init__(self, latent_state_size: int, actions_dim: Sequence[int], is_continuous: bool, *,
-                 dense_units: int = 512,
+                 init_std: float = 0.0, min_std: float = 0.1, dense_units: int = 512,
                  dense_act: str = "silu", mlp_layers: int = 2, distribution: str = "auto",
                  layer_norm: bool = True, unimix: float = 0.01,
                  generator: torch.Generator | None = None):
@@ -387,30 +411,66 @@ class Actor(tnn.Module):
         distribution = distribution.lower()
         if distribution not in ("auto", "normal", "tanh_normal", "discrete", "trunc_normal"):
             raise ValueError(f"unknown actor distribution {distribution!r}")
-        if is_continuous or distribution not in ("auto", "discrete"):
-            raise NotImplementedError("continuous-action actors are not ported yet")
+        if distribution == "discrete" and is_continuous:
+            raise ValueError("discrete distribution chosen but action space is continuous")
+        if distribution == "auto":
+            distribution = "trunc_normal" if is_continuous else "discrete"
         self.actions_dim = tuple(int(d) for d in actions_dim)
-        self.is_continuous = False
+        self.is_continuous = bool(is_continuous)
+        self.distribution = distribution
+        self.init_std = float(init_std)
+        self.min_std = float(min_std)
         self.unimix = unimix
         self.model = MLP(
             latent_state_size, [dense_units] * mlp_layers, act=dense_act, layer_norm=layer_norm,
             use_bias=not layer_norm, norm_eps=1e-3, generator=generator,
         )
-        self.heads = tnn.ModuleList(Linear(dense_units, d, generator=generator) for d in self.actions_dim)
+        widths = [2 * sum(self.actions_dim)] if self.is_continuous else self.actions_dim
+        self.heads = tnn.ModuleList(Linear(dense_units, d, generator=generator) for d in widths)
 
-    def dists(self, state: torch.Tensor) -> tuple[OneHotCategorical, ...]:
+    def dists(self, state: torch.Tensor) -> tuple:
         x = self.model(state)
         # distribution math runs in f32, whatever the trunk's dtype
-        return tuple(
-            OneHotCategorical(unimix_logits(head(x).float(), self.unimix)) for head in self.heads
-        )
+        pre = [head(x).float() for head in self.heads]
+        if self.is_continuous:
+            mean, std = pre[0].chunk(2, dim=-1)
+            if self.distribution == "tanh_normal":
+                return (TanhNormal(5.0 * torch.tanh(mean / 5.0), F.softplus(std + self.init_std) + self.min_std),)
+            if self.distribution == "normal":
+                return (Independent(Normal(mean, std), 1),)
+            std = 2.0 * torch.sigmoid((std + self.init_std) / 2.0) + self.min_std
+            one = torch.ones_like(mean)
+            return (Independent(TruncatedNormal(torch.tanh(mean), std, -one, one), 1),)
+        return tuple(OneHotCategorical(unimix_logits(logits, self.unimix)) for logits in pre)
+
+    def _sample(self, dist, uniforms: torch.Tensor) -> torch.Tensor:
+        """A continuous actor's reparameterized draw from the floats
+        `uniforms` (leading sample axes, then [..., A])."""
+        if self.distribution == "tanh_normal":
+            return dist.sample(uniforms)
+        if self.distribution == "normal":
+            return dist.base.loc + dist.base.scale * standard_normal(uniforms)
+        return dist.base.sample(uniforms)
 
     def forward(self, state: torch.Tensor, is_training: bool = True,
-                gumbels: Sequence[torch.Tensor] | None = None):
-        """-> (actions tuple, distributions tuple): straight-through draws in
-        training (with `gumbels`, one per head, when given), the mode in
-        evaluation."""
+                gumbels: Sequence[torch.Tensor] | None = None, uniforms: torch.Tensor | None = None):
+        """-> (actions tuple, distributions tuple). Discrete heads: straight-
+        through draws in training (with `gumbels`, one per head, when given),
+        the mode in evaluation. Continuous: in training one sample from
+        `uniforms` [N, A]; in evaluation `BEST_OF` samples from `uniforms`
+        [BEST_OF, N, A], of which each row keeps the one with the largest
+        log-probability (summed over the action axis)."""
         dists = self.dists(state)
+        if self.is_continuous:
+            if uniforms is None:
+                raise ValueError("a continuous actor samples from given uniforms")
+            d = dists[0]
+            samples = self._sample(d, uniforms)
+            if is_training:
+                return (samples,), dists
+            best = torch.argmax(d.log_prob(samples), dim=0)  # [N]
+            index = best[None, :, None].expand(1, *samples.shape[1:])
+            return (torch.gather(samples, 0, index)[0],), dists
         if is_training:
             gumbels = gumbels if gumbels is not None else [None] * len(dists)
             actions = tuple(d.rsample(g) for d, g in zip(dists, gumbels))
@@ -430,24 +490,22 @@ class PlayerState:
 
 def exploration_actions(
     actions: tuple[torch.Tensor, ...], is_continuous: bool, expl_amount,
-    generator: torch.Generator | None = None, noise: Sequence[tuple[torch.Tensor, torch.Tensor]] | None = None,
+    generator: torch.Generator | None = None, noise=None,
 ) -> torch.Tensor:
-    """Add exploration noise and concatenate the per-head actions: clipped
-    Gaussian noise for continuous control (none at an amount of 0), an
-    epsilon-uniform one-hot swap per discrete head. A discrete head takes
-    its draws from `noise` (uniform [N] for the swapped-in index, uniform
-    [N] for the swap), else from `generator`, and every row takes the same
-    arithmetic whatever the amount (no branch on it, so `expl_amount` may
-    be a device scalar and a CUDA graph of the step serves every amount, 0
-    included)."""
+    """Add exploration noise and concatenate the per-head actions: for
+    continuous control `clip(a + expl_amount * n, -1, 1)` with `noise` the
+    standard normals `n` ([N, A]) when given, else drawn from `generator`
+    (the reference's agent.py:755-758); an epsilon-uniform one-hot swap per
+    discrete head, which takes its draws from `noise` (per head, uniform [N]
+    for the swapped-in index and uniform [N] for the swap), else from
+    `generator`. Every row takes the same arithmetic whatever the amount (no
+    branch on it, so `expl_amount` may be a device scalar and a CUDA graph
+    of the step serves every amount, 0 included)."""
     if is_continuous:
-        if noise is not None:
-            raise NotImplementedError("continuous exploration with given noise is not ported")
         cat = torch.cat(actions, dim=-1)
-        if expl_amount <= 0.0:
-            return cat
-        gauss = torch.randn(cat.shape, generator=generator, device=cat.device, dtype=cat.dtype)
-        return torch.clamp(cat + expl_amount * gauss, -1.0, 1.0)
+        if noise is None:
+            noise = torch.randn(cat.shape, generator=generator, device=cat.device, dtype=cat.dtype)
+        return torch.clamp(cat + expl_amount * noise, -1.0, 1.0)
     if noise is None:
         noise = [tuple(torch.rand((2, *act.shape[:-1]), generator=generator, device=act.device)) for act in actions]
     out = []
@@ -522,26 +580,38 @@ class PlayerDV3(tnn.Module):
         return recurrent, stochastic, torch.cat([stochastic, recurrent], dim=-1)
 
     def step(self, state: PlayerState, obs: dict, gumbel: torch.Tensor | None = None,
-             generator: torch.Generator | None = None) -> tuple[PlayerState, torch.Tensor]:
-        """One greedy action step: the actor's mode, no exploration (the
-        served step, and the test episodes' greedy play). The posterior is
-        sampled with `gumbel` ([N, S, D]) when given, else with noise drawn
-        from `generator`. Sampled actions take `noisy_step`.
-        Returns (new_state, actions [N, sum(actions_dim)])."""
+             generator: torch.Generator | None = None,
+             uniforms: torch.Tensor | None = None) -> tuple[PlayerState, torch.Tensor]:
+        """One greedy action step, no exploration (the served step, and the
+        test episodes' greedy play): a discrete actor's mode, or a
+        continuous actor's likeliest of `BEST_OF` samples drawn from
+        `uniforms` ([BEST_OF, N, A] floats in [0, 1)) and clipped to
+        [-1, 1], as the reference's zero-amount exploration clips. The
+        posterior is sampled with `gumbel` ([N, S, D]) when given; whatever
+        is not given is drawn from `generator`, the posterior's noise first.
+        Sampled actions take `noisy_step`. Returns (new_state, actions [N,
+        sum(actions_dim)])."""
         dt = _dtype(self.compute_dtype)
+        rows = state.recurrent_state.shape[0]
         if gumbel is None:
-            rows = state.recurrent_state.shape[0]
             gumbel = gumbel_noise((rows, self.stochastic_size, self.discrete_size), generator, self.device)
+        if self.is_continuous and uniforms is None:
+            uniforms = torch.rand((BEST_OF, rows, sum(self.actions_dim)), generator=generator, device=self.device)
         recurrent, stochastic, latent = self._posterior(state, obs, gumbel)
-        actions, _ = self.actor(latent, is_training=False)
+        actions, _ = self.actor(latent, is_training=False, uniforms=uniforms)
         cat = torch.cat(actions, dim=-1)
+        if self.is_continuous:
+            cat = torch.clamp(cat, -1.0, 1.0)
         return PlayerState(actions=cat.to(dt), recurrent_state=recurrent, stochastic_state=stochastic), cat
 
     def noise_width(self) -> int:
         """The uniform draws a row of `noisy_step` takes: the posterior's
-        S*D Gumbels, one Gumbel a discrete action, and two exploration
-        draws a head."""
-        return self.stochastic_size * self.discrete_size + sum(self.actions_dim) + 2 * len(self.actions_dim)
+        S*D Gumbels, then for discrete heads one Gumbel an action and two
+        exploration draws a head, for continuous actions the actor's A
+        uniforms and A exploration draws."""
+        a = sum(self.actions_dim)
+        tail = 2 * a if self.is_continuous else a + 2 * len(self.actions_dim)
+        return self.stochastic_size * self.discrete_size + tail
 
     def draw_noise(self, n: int, generator: torch.Generator, device) -> torch.Tensor:
         """One `noisy_step`'s randomness for `n` rows: uniform [n, noise_width] in one draw."""
@@ -551,18 +621,24 @@ class PlayerDV3(tnn.Module):
                    expl_amount: torch.Tensor) -> tuple[PlayerState, torch.Tensor]:
         """A step with sampled actions and all its randomness given, so it
         can be replayed as one CUDA graph: `uniform` from `draw_noise` (the
-        posterior's Gumbels, the actor's Gumbel-max draws, then the
-        exploration draws of each head) and `expl_amount` a device scalar
-        (the training loop's decaying amount; 0 in the test episodes that
-        sample). Returns (new_state, actions [N, sum(actions_dim)])."""
+        posterior's Gumbels; then the actor's Gumbel-max draws and each
+        discrete head's exploration draws, or the continuous actor's
+        uniforms [N, A] and the exploration's normals [N, A] as uniforms,
+        `ops/distributions.py:standard_normal`) and `expl_amount` a device
+        scalar (the training loop's decaying amount; 0 in the test episodes
+        that sample). Returns (new_state, actions [N, sum(actions_dim)])."""
         dt = _dtype(self.compute_dtype)
         rows, sd, a = uniform.shape[0], self.stochastic_size * self.discrete_size, sum(self.actions_dim)
         gumbel = _gumbel(uniform[:, :sd]).reshape(rows, self.stochastic_size, self.discrete_size)
         recurrent, stochastic, latent = self._posterior(state, obs, gumbel)
-        head_gumbels = torch.split(_gumbel(uniform[:, sd:sd + a]), list(self.actions_dim), dim=-1)
-        actions, _ = self.actor(latent, is_training=True, gumbels=head_gumbels)
-        draws = uniform[:, sd + a:]
-        noise = [(draws[:, 2 * i], draws[:, 2 * i + 1]) for i in range(len(self.actions_dim))]
+        if self.is_continuous:
+            actions, _ = self.actor(latent, is_training=True, uniforms=uniform[:, sd:sd + a])
+            noise = standard_normal(uniform[:, sd + a:sd + 2 * a])
+        else:
+            head_gumbels = torch.split(_gumbel(uniform[:, sd:sd + a]), list(self.actions_dim), dim=-1)
+            actions, _ = self.actor(latent, is_training=True, gumbels=head_gumbels)
+            draws = uniform[:, sd + a:]
+            noise = [(draws[:, 2 * i], draws[:, 2 * i + 1]) for i in range(len(self.actions_dim))]
         cat = exploration_actions(actions, self.is_continuous, expl_amount, noise=noise)
         return PlayerState(actions=cat.to(dt), recurrent_state=recurrent, stochastic_state=stochastic), cat
 
@@ -645,8 +721,8 @@ def build_models(
         continue_model=MLP(latent_state_size, hidden, 1, **mlp_kwargs),
     )
     actor = Actor(
-        latent_state_size, actions_dim, is_continuous, dense_units=args.dense_units,
-        dense_act=args.dense_act,
+        latent_state_size, actions_dim, is_continuous, init_std=args.actor_init_std,
+        min_std=args.actor_min_std, dense_units=args.dense_units, dense_act=args.dense_act,
         mlp_layers=args.mlp_layers, distribution=args.actor_distribution,
         layer_norm=args.layer_norm, unimix=args.unimix, generator=g,
     )

@@ -56,7 +56,11 @@ is pulled once a chunk. A checkpoint is also written at the loop's last
 chunk. The carry is not checkpointed (nor is it in the reference): a
 resume starts from fresh envs.
 
-Continuous actions and the gymnasium env backends are not ported.
+Continuous actions (a Box action space: `continuous_dummy`, Pendulum-v1,
+on either env backend) train the truncated-normal actor (`--actor_distribution
+auto`) through imagination (`make_train_step`); the warm-up draws the
+box's own samples, the ring stores the float actions and the envs take
+them as they are. The gymnasium env backends are not ported.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ from ...ops.distributions import (
     MSEDistribution,
     OneHotCategorical,
     SymlogDistribution,
+    TanhNormal,
     TwoHotEncodingDistribution,
     gumbel_noise,
 )
@@ -167,16 +172,24 @@ def _grads(loss: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]
 
 
 def draw_noise(args: DreamerV3Args, seq_len: int, batch: int, actions_dim: Sequence[int],
-               generator: torch.Generator, device) -> dict:
-    """The Gumbel draws of one gradient step: `post` [T, B, S, D] for the
-    posteriors of the dynamic-learning loop, `img_prior` [H, T*B, S, D] for
-    the imagined priors, `img_actions` one [H+1, T*B, A_i] per action head."""
+               generator: torch.Generator, device, is_continuous: bool = False) -> dict:
+    """The draws of one gradient step: the Gumbels `post` [T, B, S, D] for the
+    posteriors of the dynamic-learning loop and `img_prior` [H, T*B, S, D]
+    for the imagined priors; `img_actions`, the imagined actions' draws:
+    Gumbels, one [H+1, T*B, A_i] per discrete head, or for a continuous
+    actor one tensor [H+1, T*B, A] of uniform floats in [0, 1), which the
+    actor maps into (eps, 1 - eps) as the reference's draw
+    (`ops/distributions.py:open_uniform`)."""
     s, d, h, n = args.stochastic_size, args.discrete_size, args.horizon, seq_len * batch
-    return {
+    noise = {
         "post": gumbel_noise((seq_len, batch, s, d), generator, device),
         "img_prior": gumbel_noise((h, n, s, d), generator, device),
-        "img_actions": [gumbel_noise((h + 1, n, a), generator, device) for a in actions_dim],
     }
+    if is_continuous:
+        noise["img_actions"] = torch.rand((h + 1, n, int(sum(actions_dim))), generator=generator, device=device)
+    else:
+        noise["img_actions"] = [gumbel_noise((h + 1, n, a), generator, device) for a in actions_dim]
+    return noise
 
 
 def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequence[str],
@@ -189,14 +202,22 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
     weight of the target critic (0 leaves it as it is), `noise` the draws of
     `draw_noise`. The metrics are the reference's 13, as a dict of floats.
 
+    For a continuous actor the imagined actions are reparameterized samples
+    and the actor's objective is the normalized advantage itself, so its
+    gradient runs back through the critic's and reward head's values, the
+    H imagined steps (the RSSM's recurrent model, kernel 2's backward, the
+    transition head and its straight-through prior) and the actor's
+    samples to the actor's parameters; the world model and the critic are
+    frozen for it. A discrete actor's objective is `log_prob *
+    sg(advantage)`. The entropy bonus is the actor's entropy, zero for a
+    `tanh_normal` actor, which has none (the reference's `_policy_entropy`).
+
     The step has two parts. The device part, `train_step.device_step(state,
     data, tau, noise) -> the 13 metrics as one f32 tensor`, takes `tau` as a
     device scalar and holds the world, actor and critic steps and their
     three Adams; with `plan` it is registered there as "train_step" (with
     the `example` thunk), so on the card it runs as one CUDA graph. The host
     part makes the scalar and pulls the metrics (`.cpu().tolist()`)."""
-    if is_continuous:
-        raise NotImplementedError("continuous-action training is not ported yet")
     # the forwards run in the compute dtype; parameters stay f32 (every
     # layer casts its weights to its input's dtype), heads return to f32
     dt = compute_dtype(args.precision)
@@ -244,16 +265,22 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         prior = posteriors.transpose(0, 1).reshape(T * B, stoch_size)
         recurrent = recurrent_states.transpose(0, 1).reshape(T * B, args.recurrent_state_size)
         true_continue0 = (1.0 - data["dones"]).transpose(0, 1).reshape(1, T * B, 1)
+
+        def draw(h: int) -> dict:
+            if is_continuous:
+                return {"uniforms": noise["img_actions"][h]}
+            return {"gumbels": [g[h] for g in noise["img_actions"]]}
+
         latents, actions = [], []
         for h in range(horizon):
             latent = torch.cat([prior, recurrent], dim=-1)
-            acts, _ = actor(latent.detach(), gumbels=[g[h] for g in noise["img_actions"]])
+            acts, _ = actor(latent.detach(), **draw(h))
             action = torch.cat(acts, dim=-1).to(prior.dtype)
             prior, recurrent = wm.rssm.imagination(prior, recurrent, action, noise["img_prior"][h])
             latents.append(latent)
             actions.append(action)
         latent_h = torch.cat([prior, recurrent], dim=-1)
-        last_acts, _ = actor(latent_h.detach(), gumbels=[g[horizon] for g in noise["img_actions"]])
+        last_acts, _ = actor(latent_h.detach(), **draw(horizon))
         trajectories = torch.stack(latents + [latent_h])  # [H+1, T*B, L]
         imagined_actions = torch.stack(actions + [torch.cat(last_acts, dim=-1)])
 
@@ -269,10 +296,17 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         advantage = (lambda_values - offset) / invscale - (predicted_values[:-1] - offset) / invscale
 
         policies = actor.dists(trajectories.detach())
-        per_head = torch.split(imagined_actions.detach(), splits, dim=-1)
-        log_probs = sum(p.log_prob(a)[..., None] for p, a in zip(policies, per_head))
-        objective = log_probs[:-1] * advantage.detach()
-        entropy = args.actor_ent_coef * sum(p.entropy() for p in policies)[..., None][:-1]
+        if is_continuous:
+            # the gradient runs through the imagined trajectory
+            objective = advantage
+        else:
+            per_head = torch.split(imagined_actions.detach(), splits, dim=-1)
+            log_probs = sum(p.log_prob(a)[..., None] for p, a in zip(policies, per_head))
+            objective = log_probs[:-1] * advantage.detach()
+        if any(isinstance(p, TanhNormal) for p in policies):
+            entropy = torch.zeros_like(objective)
+        else:
+            entropy = args.actor_ent_coef * sum(p.entropy() for p in policies)[..., None][:-1]
         policy_loss = -(discount[:-1] * (objective + entropy)).mean()
         params = list(actor.parameters())
         norm = apply_gradients(params, _grads(policy_loss, params), state.actor_opt, args.actor_clip_gradients)
@@ -335,17 +369,33 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
     return train_step
 
 
-def _random_actions(rng: np.random.Generator, actions_dim: Sequence[int], n_envs: int) -> np.ndarray:
-    """Uniform one-hot actions per head, concatenated: [n_envs, sum(A)]."""
-    return np.concatenate(
-        [np.eye(a, dtype=np.float32)[rng.integers(0, a, n_envs)] for a in actions_dim], axis=-1
-    )
+def _random_actions(rng: np.random.Generator, action_space, actions_dim: Sequence[int], is_continuous: bool,
+                    n_envs: int) -> np.ndarray:
+    """The learning-starts warm-up's actions, `action_space.sample()` an env
+    (the reference's `_random_actions`): uniform one-hot actions per head,
+    concatenated, [n_envs, sum(A)]; for a Box, float32 [n_envs, A] drawn as
+    gymnasium draws a coordinate: uniform in [low, high] where both bounds
+    are finite (Pendulum-v1), a standard normal where neither is
+    (continuous_dummy)."""
+    if not is_continuous:
+        return np.concatenate(
+            [np.eye(a, dtype=np.float32)[rng.integers(0, a, n_envs)] for a in actions_dim], axis=-1
+        )
+    shape = (n_envs, int(sum(actions_dim)))
+    low = np.broadcast_to(np.asarray(action_space.low, np.float64).reshape(-1), shape[1:])
+    high = np.broadcast_to(np.asarray(action_space.high, np.float64).reshape(-1), shape[1:])
+    bounded = np.isfinite(low) & np.isfinite(high)
+    uniform = rng.uniform(np.where(bounded, low, 0.0), np.where(bounded, high, 1.0), size=shape)
+    return np.where(bounded, uniform, rng.normal(size=shape)).astype(np.float32)
 
 
-def _env_actions(one_hot: np.ndarray, actions_dim: Sequence[int]) -> list:
-    """[n_envs, sum(A)] one-hot rows -> one env action per env (an int, or a
-    list of ints for several heads)."""
-    heads = np.split(one_hot, np.cumsum(actions_dim)[:-1], axis=-1)
+def _env_actions(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: bool) -> list:
+    """[n_envs, sum(A)] action rows -> one env action per env: for discrete
+    heads the argmax (an int, or a list of ints for several heads), for
+    continuous actions the row itself (the reference passes them through)."""
+    if is_continuous:
+        return list(actions)
+    heads = np.split(actions, np.cumsum(actions_dim)[:-1], axis=-1)
     idx = np.stack([h.argmax(-1) for h in heads], axis=-1)
     return [int(r[0]) if len(actions_dim) == 1 else r.tolist() for r in idx]
 
@@ -391,8 +441,6 @@ def main(argv: Sequence[str] | None = None) -> None:
     cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
     obs_keys = [*cnn_keys, *mlp_keys]
     actions_dim, is_continuous = actions_dim_of(action_space)
-    if is_continuous:
-        raise NotImplementedError("continuous-action training is not ported yet")
 
     logger, run_dir = create_logger(args, "dreamer_v3")
 
@@ -446,7 +494,8 @@ def main(argv: Sequence[str] | None = None) -> None:
         data = obs_zeros(observation_space.spaces, obs_keys, (T, B), device)
         data["actions"] = torch.zeros((T, B, int(sum(actions_dim))), device=device)
         data.update({k: torch.zeros((T, B, 1), device=device) for k in ("rewards", "dones", "is_first")})
-        noise = draw_noise(args, T, B, actions_dim, torch.Generator(device=device).manual_seed(0), device)
+        noise = draw_noise(args, T, B, actions_dim, torch.Generator(device=device).manual_seed(0), device,
+                           is_continuous)
         return state, data, torch.ones((), device=device), noise
 
     train_step = make_train_step(args, cnn_keys, mlp_keys, actions_dim, is_continuous, plan=plan,
@@ -551,7 +600,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                 chunk_ms.append((time.perf_counter() - t0) * 1e3)
         else:
             if global_step <= learning_starts:
-                actions = _random_actions(rng, actions_dim, n_envs)
+                actions = _random_actions(rng, action_space, actions_dim, is_continuous, n_envs)
             else:
                 with torch.inference_mode():
                     dev_obs = {k: torch.from_numpy(step_data[k]).to(device) for k in obs_keys}
@@ -566,7 +615,7 @@ def main(argv: Sequence[str] | None = None) -> None:
             dones = np.zeros(n_envs, np.float32)
             rewards = np.zeros(n_envs, np.float32)
             final_obs: dict[int, dict] = {}
-            for i, (env, a) in enumerate(zip(envs, _env_actions(actions, actions_dim))):
+            for i, (env, a) in enumerate(zip(envs, _env_actions(actions, actions_dim, is_continuous))):
                 o, r, term, trunc, _ = env.step(a)
                 rewards[i], dones[i] = r, float(term or trunc)
                 ep_return[i] += r
@@ -619,7 +668,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                 data = {k: v[i] if torch.is_tensor(v) else torch.from_numpy(v[i]).to(device) for k, v in local.items()}
                 t1 = time.perf_counter()
                 noise = draw_noise(args, args.per_rank_sequence_length, args.per_rank_batch_size,
-                                   actions_dim, noise_gen, device)
+                                   actions_dim, noise_gen, device, is_continuous)
                 rows.append(train_step(state, data, tau, noise))
                 step_ms.append((time.perf_counter() - t1) * 1e3)
                 gradient_steps += 1

@@ -34,8 +34,12 @@ def test(player, logger, args, cnn_keys, sample_actions: bool = False) -> tuple[
     `player.init_states(1)`, and log `Test/cumulative_reward`. Actions are
     the actor's samples when `sample_actions` (the reference's final test
     passes True: `noisy_step` with uniform draws from a generator seeded by
-    `args.seed` and an exploration amount of 0), else its mode (`step`,
-    the posterior drawn from that generator). A `--dry_run` episode ends after one step.
+    `args.seed` and an exploration amount of 0), else the greedy step
+    (`step`: a discrete actor's mode, or a continuous actor's likeliest of
+    `BEST_OF` samples, with the posterior's Gumbels and, for a continuous
+    actor, a fresh [BEST_OF, 1, A] draw of uniforms each step from that
+    generator, as the reference splits its key at every step). A
+    `--dry_run` episode ends after one step.
     -> (the episode's return, its player steps)."""
     env = make_dict_env(args.env_id, args.seed, rank=0, args=args, prefix="test")()
     device = player.device

@@ -1,14 +1,21 @@
 """The distributions of sheeprl_tpu/ops/distributions.py that DreamerV3 and
 PPO sample from and train with: the one-hot categorical of the stochastic
-state and the actors, Normal (PPO's continuous actions), Bernoulli (the
-continue head), the DreamerV3 trio Symlog / MSE / TwoHotEncoding, and the
-categorical KL.
+state and the actors, Normal (PPO's continuous actions), the truncated
+normal and the tanh-squashed normal (DreamerV3's continuous actors),
+Bernoulli (the continue head), the DreamerV3 trio Symlog / MSE /
+TwoHotEncoding, and the categorical KL.
 
 Sampling takes either injected Gumbel noise (the parity tests feed the
 reference's own draw) or an explicit `torch.Generator`: a one-hot sample is
 `one_hot(argmax(logits + gumbel))`, the same Gumbel-max construction as
-`jax.random.categorical`. `TwoHotEncodingDistribution.log_prob` goes through
-the two-hot kernel (`ops/kernels/two_hot.py`) for every tensor."""
+`jax.random.categorical`. A continuous sample takes its uniforms: floats
+`u` in [0, 1), as `torch.rand` and `jax.random.uniform` give them, mapped
+as JAX maps its own floats (`open_uniform`: `uniform(minval=eps,
+maxval=1-eps)`, the truncated normal's draw; `standard_normal`:
+`jax.random.normal`'s `sqrt(2) erfinv(u)`), so a parity test that feeds
+the reference's floats gets the reference's draw.
+`TwoHotEncodingDistribution.log_prob` goes through the two-hot kernel
+(`ops/kernels/two_hot.py`) for every tensor."""
 
 from __future__ import annotations
 
@@ -22,12 +29,30 @@ from .math import symexp, symlog
 
 __all__ = [
     "Bernoulli", "Independent", "MSEDistribution", "Normal", "OneHotCategorical", "SymlogDistribution",
-    "TwoHotEncodingDistribution", "gumbel_noise", "kl_categorical", "unimix_logits",
+    "TanhNormal", "TruncatedNormal", "TruncatedStandardNormal", "TwoHotEncodingDistribution", "gumbel_noise",
+    "kl_categorical", "open_uniform", "standard_normal", "unimix_logits",
 ]
 
 
 _LOG_SQRT_2PI = 0.5 * math.log(2 * math.pi)
 _LOG_SQRT_2PI_E = 0.5 * math.log(2 * math.pi * math.e)
+_EPS32 = float(torch.finfo(torch.float32).eps)
+# jax.random.normal's lower bound: the float32 after -1 towards 0
+_NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+
+
+def open_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Floats `u` in [0, 1) -> uniforms in [eps, 1 - eps), as
+    `jax.random.uniform(minval=eps, maxval=1-eps)` maps its floats:
+    `max(eps, u * (1 - 2 eps) + eps)` in f32 (eps of float32)."""
+    return torch.clamp_min(u.float() * (1.0 - 2.0 * _EPS32) + _EPS32, _EPS32)
+
+
+def standard_normal(u: torch.Tensor) -> torch.Tensor:
+    """Floats `u` in [0, 1) -> standard normal draws, as `jax.random.normal`
+    maps its floats: `sqrt(2) * erfinv(max(lo, u * 2 + lo))`, lo the float32
+    after -1."""
+    return math.sqrt(2.0) * torch.erfinv(torch.clamp_min(u.float() * 2.0 + _NORMAL_LO, _NORMAL_LO))
 
 
 def _sum_last(x: torch.Tensor, ndims: int) -> torch.Tensor:
@@ -160,6 +185,121 @@ class Independent:
     @property
     def mode(self) -> torch.Tensor:
         return self.base.mode
+
+
+class TanhNormal:
+    """tanh(Normal(loc, scale)) with the analytic log-det-Jacobian
+    correction; the event axis is the last (log_probs summed over it). No
+    entropy, as in the reference (`ops/distributions.py:95-137`)."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
+        self.loc = loc
+        self.scale = scale
+
+    def sample(self, u: torch.Tensor) -> torch.Tensor:
+        """A reparameterized draw from the floats `u` (shaped like the sample)."""
+        return torch.tanh(self.loc + self.scale * standard_normal(u))
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        # f32 throughout: in bf16 the clip bound 1 - 1e-6 rounds to exactly
+        # 1.0 and atanh(1.0) = inf would poison the loss
+        value = value.float()
+        eps = 1e-6
+        x = torch.atanh(torch.clamp(value, -1.0 + eps, 1.0 - eps))
+        base_lp = -0.5 * torch.square((x - self.loc) / self.scale) - torch.log(self.scale) - _LOG_SQRT_2PI
+        # log(1 - tanh(x)^2) = 2 * (log 2 - x - softplus(-2x)), numerically stable
+        correction = 2.0 * (math.log(2.0) - x - F.softplus(-2.0 * x))
+        return (base_lp - correction).sum(dim=-1)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.loc)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return torch.tanh(self.loc)
+
+
+class TruncatedStandardNormal:
+    """The standard normal truncated to [a, b] (the reference's
+    `ops/distributions.py:139-191`): the normalizer Z is clamped at f32's
+    eps and the cdf clipped to [0, 1], as there."""
+
+    def __init__(self, a: torch.Tensor, b: torch.Tensor):
+        self.a = a
+        self.b = b
+
+    @staticmethod
+    def _little_phi(x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(-0.5 * torch.square(x)) / math.sqrt(2 * math.pi)
+
+    @staticmethod
+    def _big_phi(x: torch.Tensor) -> torch.Tensor:
+        return 0.5 * (1.0 + torch.special.erf(x / math.sqrt(2.0)))
+
+    @staticmethod
+    def _inv_big_phi(x: torch.Tensor) -> torch.Tensor:
+        # the one deviation from the reference: erfinv's argument is kept
+        # inside (-1, 1). Where Phi(a) + p Z rounds to 1 in float32 (loc near
+        # -1, a small scale, p near 1 - eps) erfinv(1) = inf; the reference's
+        # compiled product-and-sum rounds once and stays finite there
+        return math.sqrt(2.0) * torch.erfinv(torch.clamp(2.0 * x - 1.0, _NORMAL_LO, -_NORMAL_LO))
+
+    def _z(self) -> torch.Tensor:
+        return torch.clamp_min(self._big_phi(self.b) - self._big_phi(self.a), _EPS32)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return -_LOG_SQRT_2PI - torch.log(self._z()) - 0.5 * torch.square(x)
+
+    def cdf(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp((self._big_phi(x) - self._big_phi(self.a)) / self._z(), 0.0, 1.0)
+
+    def icdf(self, p: torch.Tensor) -> torch.Tensor:
+        return self._inv_big_phi(self._big_phi(self.a) + p * self._z())
+
+    def sample(self, u: torch.Tensor) -> torch.Tensor:
+        """A reparameterized draw from the floats `u` in [0, 1) (shaped like
+        the sample: leading sample axes, then the batch): the icdf of
+        `open_uniform(u)`, the reference's draw of its floats."""
+        return self.icdf(open_uniform(u))
+
+    def entropy(self) -> torch.Tensor:
+        z = self._z()
+        phi_a, phi_b = self._little_phi(self.a), self._little_phi(self.b)
+        lpbb = (phi_b * self.b - phi_a * self.a) / z
+        return _LOG_SQRT_2PI_E + torch.log(z) - 0.5 * lpbb
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return -(self._little_phi(self.b) - self._little_phi(self.a)) / self._z()
+
+
+class TruncatedNormal:
+    """Normal(loc, scale) truncated to [low, high] (the reference's
+    `ops/distributions.py:194-222`), over `TruncatedStandardNormal`."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: torch.Tensor, high: torch.Tensor):
+        self.loc, self.scale, self.low, self.high = loc, scale, low, high
+
+    def _std(self) -> TruncatedStandardNormal:
+        return TruncatedStandardNormal((self.low - self.loc) / self.scale, (self.high - self.loc) / self.scale)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return self._std().log_prob((x - self.loc) / self.scale) - torch.log(self.scale)
+
+    def sample(self, u: torch.Tensor) -> torch.Tensor:
+        return self._std().sample(u) * self.scale + self.loc
+
+    def entropy(self) -> torch.Tensor:
+        return self._std().entropy() + torch.log(self.scale)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self._std().mean * self.scale + self.loc
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.minimum(torch.maximum(self.loc, self.low), self.high)
 
 
 class Bernoulli:

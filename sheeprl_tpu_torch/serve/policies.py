@@ -13,18 +13,21 @@ RELOAD moves the server to another checkpoint of the same config.
     `SACActor.get_greedy_actions` (tanh of the mean, no sampling), so a
     served action equals a direct call on the same params;
   - `dreamer_v3` (`DV3ServePolicy`, `_build_dv3`): the player steps in
-    greedy mode (mode actions, zero exploration). Its recurrent PlayerState
+    greedy mode (`PlayerDV3.step`: a discrete actor's mode, a continuous
+    actor's likeliest of 100 samples, zero exploration; the answer is the
+    one-hot or float action row). Its recurrent PlayerState
     lives SERVER-side in a per-session table on the device: a request
     carries a `session` id (plus an optional `reset` flag), the adapter
     gathers the session's state row into the batch, steps, and scatters the
     updated row back. Requests are single-row.
 
 The DreamerV3 posterior is still a sample, as in the reference's served
-step. The reference draws it with a constant key, so a row's draw depends
-on its place in the batch; the port instead draws one Gumbel noise row from
-`--seed` when the server starts and gives it to every row, so a served
-answer depends only on (params, session state, obs) and equals a direct
-`PlayerDV3.step` with that noise.
+step, and so are a continuous actor's 100 candidates. The reference draws
+them with a constant key, so a row's draw depends on its place in the
+batch; the port instead draws one Gumbel noise row, and for a continuous
+actor one [100, A] set of uniforms, from `--seed` when the server starts
+and gives them to every row, so a served answer depends only on (params,
+session state, obs) and equals a direct `PlayerDV3.step` with that noise.
 """
 
 from __future__ import annotations
@@ -156,13 +159,14 @@ class DV3ServePolicy:
     session_cap = 1024  # sessions kept; the oldest is evicted first
 
     def __init__(self, obs_space: dict, cnn_keys, mlp_keys, device: torch.device,
-                 gumbel: torch.Tensor):
+                 gumbel: torch.Tensor, uniforms: torch.Tensor | None = None):
         from ..algos.dreamer_v3.utils import make_device_preprocess
 
         self.obs_space = obs_space
         self.obs_keys = [*cnn_keys, *mlp_keys]
         self.device = device
         self.gumbel = gumbel  # [S, D], shared by every row
+        self.uniforms = uniforms  # [BEST_OF, A] for a continuous actor, shared by every row
         self._sessions: dict[str, dict[str, torch.Tensor]] = {}
         self._init_cache: tuple[int, dict[str, torch.Tensor]] | None = None
         self._prep = make_device_preprocess(cnn_keys)
@@ -178,7 +182,8 @@ class DV3ServePolicy:
             stochastic_state=state["stochastic"],
         )
         rows = st.recurrent_state.shape[0]
-        new_st, acts = player.step(st, self._prep(obs), gumbel=self.gumbel.expand(rows, -1, -1))
+        uniforms = None if self.uniforms is None else self.uniforms[:, None].expand(-1, rows, -1)
+        new_st, acts = player.step(st, self._prep(obs), gumbel=self.gumbel.expand(rows, -1, -1), uniforms=uniforms)
         return {
             "actions": new_st.actions,
             "recurrent": new_st.recurrent_state,
@@ -251,7 +256,7 @@ class DV3ServePolicy:
 
 
 def _build_dv3(args, device: torch.device):
-    from ..algos.dreamer_v3.agent import PlayerDV3, build_models
+    from ..algos.dreamer_v3.agent import BEST_OF, PlayerDV3, build_models
     from ..algos.dreamer_v3.args import DreamerV3Args
     from ..algos.ppo.ppo import actions_dim_of, validate_obs_keys
     from ..ops.distributions import gumbel_noise
@@ -278,6 +283,9 @@ def _build_dv3(args, device: torch.device):
         compute_dtype=targs.precision,
     ).to(device).eval()
     gumbel = gumbel_noise((targs.stochastic_size, targs.discrete_size), generator).to(device)
+    uniforms = None
+    if is_continuous:  # drawn after the posterior's noise, so a discrete model's stream is unchanged
+        uniforms = torch.rand((BEST_OF, int(sum(actions_dim))), generator=generator).to(device)
 
     def loader(path: str) -> PlayerDV3:
         """A new player from the checkpoint's `world_model` (its encoder and
@@ -292,5 +300,5 @@ def _build_dv3(args, device: torch.device):
         return fresh.eval()
 
     params = loader(args.ckpt) if args.ckpt else player
-    policy = DV3ServePolicy(observation_space.spaces, cnn_keys, mlp_keys, device, gumbel)
+    policy = DV3ServePolicy(observation_space.spaces, cnn_keys, mlp_keys, device, gumbel, uniforms)
     return policy, params, loader

@@ -49,7 +49,7 @@ from ..ops.precision import compute_dtype
 
 __all__ = ["QuantState", "action_divergence"]
 
-DV3_NOT_PORTED = "--quant int8 for dreamer_v3 is not yet ported (ROADMAP Queue A item 2)"
+DV3_NOT_PORTED = "--quant int8 for dreamer_v3 is not yet ported (ROADMAP Queue A item 4)"
 
 _CALIB_BATCHES = 4
 _CALIB_ROWS = 64

@@ -143,8 +143,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     start_t = time.monotonic()
     try:
         address = server.start()
-        with open(os.path.join(log_dir, ADDRESS_FILE), "w") as fh:
+        # written whole, then renamed into place: a client that polls for
+        # the file never reads it half-written
+        path = os.path.join(log_dir, ADDRESS_FILE)
+        with open(path + ".tmp", "w") as fh:
             fh.write(address + "\n")
+        os.replace(path + ".tmp", path)
         print(f"sheepserve: serving {args.algo} v{store.version} on {device} at {address}", flush=True)
         telem.event(
             "serve.start", address=address, algo=args.algo, rungs=rungs,

@@ -502,10 +502,16 @@ def test_dreamer_v3_jax_env_backend_trains_and_checkpoints(tmp_path, env_id):
 
 
 def test_dreamer_v3_jax_backend_refuses_continuous_actions(tmp_path):
+    """The refusal is gone: continuous actions in DreamerV3 are ported, and
+    the jax backend trains on Pendulum-v1 with float actions in its device
+    ring (tests/test_torch_dv3_continuous.py holds its collector against
+    the reference's)."""
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
 
-    with pytest.raises(NotImplementedError, match="continuous-action training is not ported yet"):
-        dreamer_v3.main([*DV3_TINY, "--env_id", "Pendulum-v1", "--env_backend", "jax", "--root_dir", str(tmp_path)])
+    dreamer_v3.main([*DV3_TINY, "--env_id", "Pendulum-v1", "--mlp_keys", "state", "--env_backend", "jax",
+                     "--root_dir", str(tmp_path), "--run_name", "r"])
+    done = _records(tmp_path / "r" / "metrics.jsonl")[-1]
+    assert done["env_backend"] == "jax" and done["gradient_steps"] == 5 and done["player_steps"] == 8
 
 
 def _use_static_plans(monkeypatch) -> None:

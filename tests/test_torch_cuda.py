@@ -15,7 +15,12 @@ on the card; each kernel captured in a CUDA graph and replayed equal to its
 eager launch (kernel 5's cooperative launch, kernels 1/2's programmatic
 dependent launch and kernel 6's cluster launch among them), a graphed
 DreamerV3 run resumed on the CPU, and a graphed `serve --ckpt` with a
-RELOAD and sessions that keep their rows. Marked `cuda`: they skip
+RELOAD and sessions that keep their rows; for continuous actions in
+DreamerV3, the GRU's input gradients with frozen weights at B = 1,024
+(imagination's backward) against the plain version's autograd, and the
+continuous gradient step, served rung and device-Pendulum player chunk
+each replayed as a graph against their eager or direct selves. Marked
+`cuda`: they skip
 without a CUDA device. The file imports neither jax nor the reference, so
 it also runs on a machine that has neither:
 
@@ -1388,3 +1393,194 @@ def test_ppo_and_dreamer_v3_jax_backend_on_the_card(cuda_device, tmp_path):
     stats = rec["compile_stats"]["entries"]
     assert rec["device"].startswith("cuda") and rec["gradient_steps"] == 5 and rec["compile"]["Compile/aot_fallbacks"] == 0
     assert stats["anakin_rollout"]["aot_calls"] == 3 and stats["anakin_rollout_random"]["aot_calls"] == 1
+
+
+# ---------------------------------------------------------------------------
+# DreamerV3 with continuous actions on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_gru_input_gradients_with_frozen_weights_match_plain_autograd(cuda_device):
+    """Imagination's backward, where a continuous actor's loss reaches the
+    RSSM's recurrent step through the actions: `_LayerNormGRU.backward`'s
+    dx/dh branch with w, scale and offset frozen, at B = 1,024 and
+    DreamerV3's full width (Dx = 512 from the recurrent MLP, H = 512),
+    after the residual kernel's forward, against autograd through the
+    plain version; each gradient to 1e-4 of its largest magnitude, and no
+    weight gradient formed."""
+    gen = torch.Generator().manual_seed(3)
+    batch, dx, hidden = 1024, 512, 512
+    x = _rand(gen, batch, dx).to(cuda_device).requires_grad_()
+    h = torch.tanh(_rand(gen, batch, hidden)).to(cuda_device).requires_grad_()
+    w = _rand(gen, 3 * hidden, dx + hidden, scale=(dx + hidden) ** -0.5).to(cuda_device)
+    scale = (1.0 + _rand(gen, 3 * hidden, scale=0.1)).to(cuda_device)
+    offset = _rand(gen, 3 * hidden, scale=0.1).to(cuda_device)
+    g = _rand(gen, batch, hidden).to(cuda_device)
+    before = gru.layernorm_gru_cell_residuals.launches
+    out = gru.layernorm_gru_cell(x, h, w, scale, offset, 1e-5)
+    assert out.grad_fn is not None and gru.layernorm_gru_cell_residuals.launches == before + 1
+    got = torch.autograd.grad(out, (x, h), g)
+    xp, hp = x.detach().clone().requires_grad_(), h.detach().clone().requires_grad_()
+    want = torch.autograd.grad(gru.layernorm_gru_cell_plain(xp, hp, w, scale, offset, 1e-5), (xp, hp), g)
+    for name, a, b in zip(("dx", "dh"), got, want):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max(), name
+    assert w.grad is None and scale.grad is None and offset.grad is None
+
+
+TINY_CONTINUOUS = dict(dense_units=16, hidden_size=16, recurrent_state_size=16, stochastic_size=4, discrete_size=4,
+                       mlp_layers=2, per_rank_batch_size=2, per_rank_sequence_length=4, horizon=3, bins=15)
+
+
+def _continuous_train_case(device):
+    """A tiny continuous DreamerV3 on Pendulum-v1's 3-vector (no convs, so
+    that two eager runs agree bit for bit): its state on `device` and three
+    calls' batches and draws."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.moments import Moments
+
+    args = DreamerV3Args(**TINY_CONTINUOUS)
+    models = build_models(torch.Generator().manual_seed(0), [1], True, args,
+                          {"state": spaces.Box(-float("inf"), float("inf"), (3,))}, [], ["state"])
+    for m in models:
+        m.to(device)
+    state = dv3.DV3TrainState(*models, *dv3.make_optimizers(args, *models[:3]), Moments(device=device))
+    gen = torch.Generator().manual_seed(1)
+    T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+    calls = []
+    for tau in (1.0, 0.02, 0.02):
+        data = {"state": torch.randn(T, B, 3, generator=gen), "actions": torch.rand(T, B, 1, generator=gen) * 2 - 1,
+                "rewards": torch.randn(T, B, 1, generator=gen), "dones": torch.zeros(T, B, 1),
+                "is_first": torch.zeros(T, B, 1)}
+        data["dones"][1, 0], data["is_first"][2, 0] = 1.0, 1.0
+        noise = dv3.draw_noise(args, T, B, [1], gen, "cpu", True)
+        noise = {k: v.to(device) for k, v in noise.items()}
+        calls.append(({k: v.to(device) for k, v in data.items()}, torch.full((), tau, device=device), noise))
+    return args, state, calls
+
+
+@pytest.mark.cuda
+def test_graphed_continuous_train_step_equals_eager_bit_for_bit(cuda_device):
+    """The continuous gradient step (the actor's loss through the imagined
+    steps, kernel 2's backward on the dx/dh branch) registered with the plan
+    against the same three calls made eagerly from the same state: the
+    metrics, every parameter, Adam moment and the return normaliser bit for
+    bit, no fallback."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+
+    results = {}
+    for graphed in (False, True):
+        args, state, calls = _continuous_train_case(cuda_device)
+        plan = CompilePlan(device=cuda_device) if graphed else None
+        step = dv3.make_train_step(args, [], ["state"], [1], True, plan=plan).device_step
+        outs = [step(state, data, tau, noise).clone() for data, tau, noise in calls]
+        torch.cuda.synchronize()
+        params = [t.detach().clone() for m in (state.world_model, state.actor, state.critic, state.target_critic)
+                  for t in m.state_dict().values()]
+        moments = [t.clone() for opt in (state.world_opt, state.actor_opt, state.critic_opt)
+                   for st in opt.state.values() for t in st.values()]
+        results[graphed] = outs + params + moments + [state.moments.low.clone(), state.moments.high.clone()]
+        if graphed:
+            entry = plan.stats()["entries"]["train_step"]
+            assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+    assert torch.isfinite(results[False][0]).all() and len(results[False]) == len(results[True])
+    assert [i for i, (a, b) in enumerate(zip(results[False], results[True])) if not torch.equal(a, b)] == []
+
+
+@pytest.mark.cuda
+def test_graphed_continuous_serve_answers_as_the_direct_step(cuda_device, tmp_path):
+    """`serve` of a tiny continuous DreamerV3 (continuous_dummy pixels) on
+    the card: each dispatch a graph replay of its rung, each answer a float
+    row equal to a direct `PlayerDV3.step` with the server's best-of-100
+    uniforms, bit for bit."""
+    import json
+    import os
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.client import ServeClient
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    model = ("--env_id continuous_dummy --cnn_keys rgb --cnn_channels_multiplier 2 --dense_units 16 --hidden_size 16 "
+             "--recurrent_state_size 16 --stochastic_size 4 --discrete_size 4")
+    rng = np.random.default_rng(0)
+    obs = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(8)]
+    addr, t, failures = _serve_thread(["--model_argv", model, "--max_batch", "2", "--serve_requests", "8"],
+                                      str(tmp_path / "serve"))
+    with ServeClient(addr) as client:
+        answers = [client.request({"rgb": o}, session="ab"[i % 2])[0]["actions"] for i, o in enumerate(obs)]
+    t.join(120)
+    assert not failures and not t.is_alive()
+    policy, player, _ = build_policy(ServeArgs(model_argv=model), cuda_device)
+    states = {}
+    for i, o in enumerate(obs):
+        sid = "ab"[i % 2]
+        states.setdefault(sid, {k: v[None] for k, v in policy.init_row(1, player).items()})
+        with torch.inference_mode():
+            states[sid], acts = policy.step(player, states[sid], {"rgb": torch.from_numpy(o).to(cuda_device)})
+        assert answers[i].dtype == np.float32 and answers[i].shape == (1, 2)
+        assert np.array_equal(answers[i], acts.float().cpu().numpy()), i
+    with open(os.path.join(tmp_path, "serve", "s", "telemetry.jsonl")) as fh:
+        gauges = [json.loads(line) for line in fh if '"interval"' in line][-1]["metrics"]
+    assert gauges["Compile/aot_calls"] >= 8 and gauges["Compile/aot_fallbacks"] == 0
+
+
+def _pendulum_collector_case(device):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import make_device_preprocess
+    from sheeprl_tpu_torch.envs.device import VecDeviceEnv, make_device_env
+    from sheeprl_tpu_torch.envs.device.rollout import DreamerCollectorCarry, make_dreamer_collector
+
+    venv = VecDeviceEnv(make_device_env("Pendulum-v1", max_episode_steps=5), 16, device)
+    args = DreamerV3Args(**TINY_CONTINUOUS)
+    wm, actor, _, _ = build_models(torch.Generator().manual_seed(0), [1], True, args,
+                                   venv.single_observation_space.spaces, [], ["state"])
+    player = PlayerDV3(wm.encoder, wm.rssm, actor, actions_dim=[1], stochastic_size=4, discrete_size=4,
+                       recurrent_state_size=16, is_continuous=True).to(device)
+    with torch.no_grad():
+        pstate = player.init_states(16)
+    carry = DreamerCollectorCarry.reset(venv, torch.Generator(device=device).manual_seed(1))
+
+    def draws(gen):
+        return (venv.draw_resets(gen, 4), torch.rand((4, 16, player.noise_width()), generator=gen, device=device),
+                torch.full((), 0.3, device=device))
+
+    collect = make_dreamer_collector(venv, 4, [1], True, make_device_preprocess([]))
+    return collect, (player, pstate, carry), draws, (pstate, carry)
+
+
+@pytest.mark.cuda
+def test_graphed_pendulum_player_chunk_equals_eager_bit_for_bit(cuda_device):
+    """DreamerV3's player chunk on the device Pendulum (4 steps of 16 envs,
+    the truncated-normal actor's samples and the exploration's normals
+    among the chunk's uniforms) registered with the plan (`adopt=True`)
+    against the same chunks made eagerly: every trajectory, episode dict,
+    the carry and the player's state bit for bit over three chunks, no
+    fallback."""
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.envs.device.core import tree_state_dict
+
+    results = {}
+    for graphed in (False, True):
+        fn, fixed, draws, state = _pendulum_collector_case(cuda_device)
+        plan = CompilePlan(device=cuda_device)
+        collect = plan.register("anakin_rollout", fn, adopt=True) if graphed else fn
+        gen = torch.Generator(device=cuda_device).manual_seed(2)
+        outs = []
+        for _ in range(3):
+            traj, ep = collect(*fixed, *draws(gen))
+            outs += [traj[k].clone() for k in sorted(traj)] + [ep[k].clone() for k in sorted(ep)]
+        torch.cuda.synchronize()
+        outs += [v.clone() for _, v in sorted(tree_state_dict(state).items())]
+        results[graphed] = outs
+        if graphed:
+            entry = plan.stats()["entries"]["anakin_rollout"]
+            assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+    assert len(results[False]) == len(results[True])
+    assert all(torch.equal(a, b) for a, b in zip(results[False], results[True]))
