@@ -173,11 +173,36 @@ the final line:
      (16 envs, chunks of 4, 10 gradient steps; 79 residual GRU and 3
      two_hot launches a gradient step, 1 GRU a player step), the player
      chunk's replay against its eager self. The kernels line's
-     `continuous_launches` are (a)'s device counts.
+     `continuous_launches` are (a)'s device counts;
+ 15. tier: the rest of the serving tier. (a) `serve --algo dreamer_v3
+     --quant int8 --ckpt` of phase 6's last checkpoint at full width,
+     phase 4's 1,024 requests from 8 sessions: each rung's decision (f32
+     and int8 ms, divergence, bound, winner), kernels 1 and 3 counted on
+     the device over the whole serve (the calibration's 4 steps, each
+     rung's 3 decision graphs, the ladder's probes, every rung call), 0
+     fallbacks, every answer equal to its rung's direct call (the twin's
+     at an int8 rung), the twin's graphed rung-8 step against its eager
+     self bit for bit and against the plain versions (gaps printed), the
+     twin's and the f32 player's rung-8 steps timed; (a') the same serve
+     with (a)'s decisions read back pinned to int8 (its `serve_quant.json`
+     copied with `winner` int8): the twin's graph serves every rung, every
+     answer equal to the twin's direct call; (b) `--ladder auto`
+     sized (each rung's probed peak against the budget), then restarted
+     under SHEEPRL_TPU_SERVE_MEM_MB between rung 4's and rung 8's peaks:
+     rung 8 refused, the peaks read from the cache; (c) SAC `--ladder 1,8`
+     with 4-row requests: the re-tier adds rung 4, a graph after its first
+     dispatch, every answer equal to the direct call; (d) `--reload_poll_s`
+     from the step-68 checkpoint: the poller reloads the newest valid one;
+     (e) on (d)'s server a PROFILE window whose chrome trace holds kernels 1
+     and 3, an overlapping frame refused, a span for every request. The
+     kernels line's `tier_launches` are (a)'s and (a')'s device counts.
 
-Every path of phases 4, 6-10 and 12-14 runs graphed through the CLIs
+Every path of phases 4, 6-10 and 12-15 runs graphed through the CLIs
 (`compile/plan.py`: serve captures every rung at startup, the trainers
-each step at its first call), and each phase fails on a fallback. A
+each step at its first call), and each phase fails on a fallback. A serve
+first probes each rung with one eager step (the ladder's sizing), and a
+re-tiered rung's first dispatch is its warm-up and capture: each serve's
+counts include both (`serve_extras`). A
 replay runs no Python, so its kernels move no wrapper's counter: each
 run's exact launch counts are the device's, a torch.profiler window
 (`DeviceLaunches`) around the run counting each port kernel by its name
@@ -1277,6 +1302,25 @@ def graph_calls(summary: dict, prefix: str = "policy_b", rungs=None) -> tuple[in
             sum(e["fallbacks"] for e in entries))
 
 
+def serve_extras(run_dir: str, summary: dict) -> dict:
+    """What a serve run ran besides its rungs' startup captures and their
+    replays: the ladder's probes (one eager step a rung sized by a call,
+    not read back from `serve_ladder.json`; at startup and in a re-tier)
+    and each re-tiered rung's first dispatch (its warm-up, eager, then its
+    capture). -> {probes, retiered, first_calls}."""
+    with open(os.path.join(run_dir, "telemetry.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if '"serve.ladder"' in line or '"serve.retier"' in line]
+    probes = sum(r.get("reason", "").endswith("(probe)") for r in records)
+    retiered = [r["rung"] for r in records if r["event"] == "serve.retier" and r["accepted"]]
+    first = sum(summary["entries"].get(f"policy_b{r}", {}).get("eager_calls", 0) for r in retiered)
+    return dict(probes=probes, retiered=retiered, first_calls=first)
+
+
+def dv3_steps(n: int) -> dict:
+    """Kernels 1 and 3's launches in `n` DreamerV3 player steps on pixels."""
+    return {"layernorm_gru_cell": n, "conv_ln_silu": 4 * n}
+
+
 def check_graphs(done: dict, tag: str, steps: dict | None = None) -> str:
     """A training run's "done" record: no fallback, each graphed entry
     called once a step of its kind (`steps`, by entry; DreamerV3's gradient
@@ -1971,7 +2015,8 @@ def sac_serve(torch, np, run, ServeClient, device, argv, tag) -> dict:
     rungs, int8_rungs = start["rungs"], set(start["int8_rungs"])
     gauges = [r for r in records if r.get("event") == "interval"][-1]["metrics"]
     decisions = quant_decisions(run_dir, tag)
-    dispatches = {r: int(gauges[f"Serve/dispatches_b{r}"]) for r in rungs}
+    dispatches = {int(k[len("Serve/dispatches_b"):]): int(v) for k, v in gauges.items()
+                  if k.startswith("Serve/dispatches_b")}  # a re-tiered rung's too
     int8_dispatches = sum(n for r, n in dispatches.items() if r in int8_rungs)
     # each rung's decision: 1 eager call and 3 replays of its graphed int8
     # candidate; then every call of an int8 rung's graph (a warm-up at
@@ -1980,13 +2025,14 @@ def sac_serve(torch, np, run, ServeClient, device, argv, tag) -> dict:
     summary = compile_summary(run_dir)
     int8_calls, _, _ = graph_calls(summary, rungs=int8_rungs)
     calls, replays, fallbacks = graph_calls(summary)
+    extra = serve_extras(run_dir, summary)
     expected = 4 * len(rungs) + int8_calls
     wrapper_want = 2 * len(rungs) + wrapper_expected(summary["entries"], ("fused_int8_trunk",))["fused_int8_trunk"]
     check_per_replay({n: e for n, e in summary["entries"].items() if int(n[len("policy_b"):]) in int8_rungs},
                      {f"policy_b{r}": {"fused_int8_trunk": 1} for r in int8_rungs}, tag)
     log(f"[{tag}] graphs: {replays} replays for {sum(dispatches.values())} dispatches, {calls - replays} warm-ups, "
         f"fallbacks {fallbacks}")
-    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays != sum(dispatches.values()):
+    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays + extra["first_calls"] != sum(dispatches.values()):
         raise RuntimeError(f"the {tag} serve's dispatches were not all graph replays: {summary['entries']}")
     n_answers = sum(len(v) for v in answers.values())
     total = SERVE_SESSIONS * (SERVE_PER_SESSION + 1)
@@ -2199,8 +2245,9 @@ def dv3_ckpt_serve(torch, np, run, ServeClient, device, first: str, second: str)
     summary = compile_summary(os.path.join(root, "serve"))
     calls, replays, fallbacks = graph_calls(summary)
     check_per_replay(summary["entries"], {n: PER_PLAYER_STEP for n in summary["entries"]}, "ckpt-serve")
-    wrapper_want = wrapper_expected(summary["entries"], wrapper)
-    if fallbacks or replays != dispatches:
+    extra = serve_extras(os.path.join(root, "serve"), summary)
+    wrapper_want = wrapper_expected(summary["entries"], wrapper, dv3_steps(extra["probes"]))
+    if fallbacks or replays + extra["first_calls"] != dispatches:
         raise RuntimeError(f"--ckpt serve: {replays} replays for {dispatches} dispatches, {fallbacks} fallbacks")
     # the same checkpoints loaded directly, stepped one row at a time
     policy, player1, loader = build_policy(ServeArgs(algo="dreamer_v3", ckpt=first, device=str(device)), device)
@@ -2228,8 +2275,9 @@ def dv3_ckpt_serve(torch, np, run, ServeClient, device, first: str, second: str)
         raise RuntimeError(f"reload gauges {gauges['Serve/reloads']} / {gauges['Serve/reload_failures']}")
     if not all(equal):
         raise RuntimeError("served DreamerV3 answers differ from direct steps of the loaded params")
-    if launches != {"layernorm_gru_cell": calls, "conv_ln_silu": 4 * calls} or dispatches == 0:
-        raise RuntimeError(f"--ckpt serve launch counts on the device {launches} != 1x / 4x the {calls} steps")
+    if launches != dv3_steps(calls + extra["probes"]) or dispatches == 0:
+        raise RuntimeError(f"--ckpt serve launch counts on the device {launches} != 1x / 4x the {calls} steps and "
+                           f"{extra['probes']} ladder probes")
     if wrapper != wrapper_want:
         raise RuntimeError(f"--ckpt serve: the wrappers counted {wrapper}, their warm-ups and captures {wrapper_want}")
     return dict(first=first, second=second, reload=good, bad_reload=bad, launches=launches, wrapper_launches=wrapper,
@@ -2329,7 +2377,8 @@ def sac_ckpt_serve(torch, np, run, ServeClient, device, trained: str | None = No
     summary = compile_summary(os.path.join(root, "serve"))
     int8_calls, _, _ = graph_calls(summary, rungs=int8_rungs)
     _, replays, fallbacks = graph_calls(summary)
-    if fallbacks or replays != int(gauges["Serve/dispatches"]):
+    extra = serve_extras(os.path.join(root, "serve"), summary)
+    if fallbacks or replays + extra["first_calls"] != int(gauges["Serve/dispatches"]):
         raise RuntimeError(f"SAC --ckpt serve: {replays} replays for {gauges['Serve/dispatches']} dispatches")
     expected = 4 * len(rungs) + int8_calls
     wrapper_want = 2 * len(rungs) + wrapper_expected(summary["entries"], ("fused_int8_trunk",))["fused_int8_trunk"]
@@ -3729,19 +3778,21 @@ def continuous_step_timing(torch, np, device, steps: int = 3) -> dict:
     return out
 
 
-def dv3_rung_check(torch, np, plans, answers, ckpt: str, device) -> dict:
+def dv3_rung_check(torch, np, plans, answers, ckpt: str, device, int8_rungs=()) -> dict:
     """Every served answer of a DreamerV3 serve against its rung's direct
     call, bit for bit: each dispatched batch rebuilt from the responses'
     dispatch number and row offset (the batcher's padding rows carry the
     init state and zero obs), the sessions' rows threaded in dispatch order
     from the direct calls' own states (a reset or a new session starts
     from the init row, as `DV3ServePolicy.run` does), each batch stepped
-    eagerly at its rung by the checkpoint's player with the server's noise.
-    -> {rung: [rows compared, rows equal]}."""
+    eagerly at its rung by the checkpoint's player with the server's noise,
+    at an int8 rung by its quantized twin (from the scales the serve
+    persisted beside the checkpoint). -> {rung: [rows compared, rows equal]}."""
     from sheeprl_tpu_torch.serve.args import ServeArgs
     from sheeprl_tpu_torch.serve.policies import build_policy
 
     policy, player, _ = build_policy(ServeArgs(algo="dreamer_v3", ckpt=ckpt, device=str(device)), device)
+    twin = dv3_twin(policy, player, ckpt) if int8_rungs else None
     init = policy.init_row(-1, player)
     dispatches: dict[int, list] = {}
     for sid, steps in plans.items():
@@ -3759,7 +3810,8 @@ def dv3_rung_check(torch, np, plans, answers, ckpt: str, device) -> dict:
                 rows[meta["offset"]] = init if reset or sid not in sessions else sessions[sid]
                 pixels[meta["offset"]] = obs["rgb"][0]
             state = {k: torch.stack([r[k] for r in rows]) for k in init}
-            new, acts = policy.step(player, state, {"rgb": torch.from_numpy(pixels).to(device)})
+            params = twin if rung in int8_rungs else player
+            new, acts = policy.step(params, state, {"rgb": torch.from_numpy(pixels).to(device)})
             acts = acts.float().cpu().numpy()
             for meta, sid, _, _, res in entries:
                 sessions[sid] = {k: v[meta["offset"]].clone() for k, v in new.items()}
@@ -3797,18 +3849,20 @@ def continuous_serve(torch, np, run, ServeClient, ckpt: str, device) -> dict:
     dispatches, served = int(gauges["Serve/dispatches"]), int(gauges["Serve/served_total"])
     summary = compile_summary(os.path.join(root, "serve"))
     calls, replays, fallbacks = graph_calls(summary)
+    extra = serve_extras(os.path.join(root, "serve"), summary)
     rows = [res["actions"] for v in answers.values() for res, _ in v]
     floats = all(a.dtype == np.float32 and a.shape == (1, CONT_ACTIONS) and np.isfinite(a).all()
                  and np.abs(a).max() <= 1.0 for a in rows)
     if len(rows) != SERVE_SESSIONS * SERVE_PER_SESSION or served != SERVE_SESSIONS * (SERVE_PER_SESSION + 1) \
             or not floats:
         raise RuntimeError("the continuous serve did not answer every request with a float action row in [-1, 1]")
-    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays != dispatches:
+    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays + extra["first_calls"] != dispatches:
         raise RuntimeError(f"continuous serve: {replays} replays for {dispatches} dispatches, {fallbacks} fallbacks")
     check_per_replay(summary["entries"], {n: PER_PLAYER_STEP for n in summary["entries"]}, "continuous-serve")
-    if launches != {"layernorm_gru_cell": calls, "conv_ln_silu": 4 * calls}:
-        raise RuntimeError(f"continuous serve: launch counts on the device {launches} != 1x / 4x the {calls} steps")
-    if wrapper != wrapper_expected(summary["entries"], wrapper) or 0 in wrapper.values():
+    if launches != dv3_steps(calls + extra["probes"]):
+        raise RuntimeError(f"continuous serve: launch counts on the device {launches} != 1x / 4x the {calls} steps "
+                           f"and {extra['probes']} ladder probes")
+    if wrapper != wrapper_expected(summary["entries"], wrapper, dv3_steps(extra["probes"])) or 0 in wrapper.values():
         raise RuntimeError(f"continuous serve: the wrappers counted {wrapper}")
     tally = dv3_rung_check(torch, np, plans, answers, ckpt, device)
     if any(n != eq for n, eq in tally.values()) or sum(n for n, _ in tally.values()) != len(rows):
@@ -4026,6 +4080,454 @@ def continuous_phase(torch, np, run, ServeClient, device, smi: str, report: dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the serving tier
+# ---------------------------------------------------------------------------
+
+# (a) phase 6's last checkpoint served with --quant int8 at full width,
+# phase 4's 1,024 requests from 8 sessions; (b) the ladder sized from
+# measured peaks, then a budget between rung 4's and rung 8's; (c) SAC with
+# --ladder 1,8 and 4-row requests until the re-tier adds rung 4; (d) the
+# resumed run's checkpoint directory polled from its step-68 checkpoint;
+# (e) PROFILE frames and request spans on (d)'s server
+TIER_ARGV = ["--algo", "dreamer_v3", "--quant", "int8", "--max_batch", "8", "--ladder", "auto", "--deadline_ms", "0"]
+TIER_RETIER_REQUESTS, TIER_RETIER_ROWS = 240, 4
+TIER_POLL_REQUESTS, TIER_POLL_S, TIER_PROFILE_S = 40, 0.2, 1.0
+# decide's calls a rung: its warm-up graph's first call, then each of the
+# two candidates' first call and REPEATS replays; each graph's first call
+# runs eagerly and is captured
+TIER_DECIDE_GRAPHS = 3
+
+
+def dv3_twin(policy, player, ckpt: str):
+    """The int8 twin of `player` from the scales a `--quant int8` serve of
+    `ckpt` persisted beside it (`QuantState` reads them back)."""
+    import types
+
+    from sheeprl_tpu_torch.serve.quant import QuantState
+
+    qs = QuantState(policy, types.SimpleNamespace(quant_bound=0.05, seed=0, ckpt=ckpt), os.path.join(OUT_DIR, "twin"))
+    twin = qs.params_for(1, player)
+    if not qs.available or twin is player:
+        raise RuntimeError(f"no int8 twin from the scales beside {ckpt}")
+    return twin
+
+
+def _records_of(run_dir: str) -> list[dict]:
+    with open(os.path.join(run_dir, "telemetry.jsonl")) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def tier_int8_serve(torch, np, run, ServeClient, ckpt: str, device) -> dict:
+    """(a): `serve --algo dreamer_v3 --quant int8 --ckpt` at full width
+    through the CLI, kernels 1 and 3's counts set to 0 just before and the
+    device's counted over the whole run: the scales' calibration (4 steps of
+    64 rows), each rung's decision (`TIER_DECIDE_GRAPHS` graphs, 1 + 2 x (1
+    + REPEATS) steps), the ladder's probes, the rungs' warm-ups and every
+    dispatch's replay. Every answer equal to its rung's direct call (the
+    twin's at an int8 rung); then the twin's rung-8 step graphed against
+    its eager self bit for bit and against the plain versions, and the
+    twin's and the f32 player's graphed rung-8 steps timed. Raises on any
+    failure. -> the check's report."""
+    import sheeprl_tpu_torch.nn.blocks as blocks_mod
+    import sheeprl_tpu_torch.nn.recurrent as recurrent_mod
+    from sheeprl_tpu_torch.compile.decisions import REPEATS
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.ops import quant as q
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+    from sheeprl_tpu_torch.serve.quant import _CALIB_BATCHES
+
+    root = os.path.join(OUT_DIR, "tier_int8_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(q.scales_path(ckpt)):  # scales of an earlier run would skip the calibration
+        os.remove(q.scales_path(ckpt))
+    gru.layernorm_gru_cell.launches = cnn.conv_ln_silu.launches = 0
+    plans, warm = dv3_serve_plans(np)
+    with DeviceLaunches(torch, ("layernorm_gru_cell", "conv_ln_silu")) as ran:
+        answers, latencies, wall, warmups, gc_info = drive_serve(np, run, ServeClient, root, [*TIER_ARGV, "--ckpt", ckpt],
+                                                                 plans, warm)
+    launches = ran.counts
+    wrapper = {"layernorm_gru_cell": gru.layernorm_gru_cell.launches, "conv_ln_silu": cnn.conv_ln_silu.launches}
+    run_dir = os.path.join(root, "serve")
+    records = _records_of(run_dir)
+    start = next(r for r in records if r.get("event") == "serve.start")
+    rungs, int8_rungs = start["rungs"], set(start["int8_rungs"])
+    sources = [(r["source"], r["version"]) for r in records if r.get("event") == "serve.quant_scales"]
+    scales = q.load_scales(q.scales_path(ckpt)) or {}
+    gauges = [r for r in records if r.get("event") == "interval"][-1]["metrics"]
+    dispatches, served = int(gauges["Serve/dispatches"]), int(gauges["Serve/served_total"])
+    decisions = quant_decisions(run_dir, "tier")
+    summary = compile_summary(run_dir)
+    calls, replays, fallbacks = graph_calls(summary)
+    extra = serve_extras(run_dir, summary)
+    fallback_events = [r for r in records if r.get("event") == "compile.fallback"]
+    calib = _CALIB_BATCHES if sources == [("calibrated", 1)] else 0
+    decide = len(rungs) * (1 + 2 * (1 + REPEATS))
+    want = dv3_steps(calib + decide + extra["probes"] + calls)
+    wrapper_want = wrapper_expected(summary["entries"], wrapper,
+                                    dv3_steps(calib + extra["probes"] + 2 * TIER_DECIDE_GRAPHS * len(rungs)))
+    log(f"[tier] serve {' '.join(TIER_ARGV)} --ckpt .../{os.path.basename(ckpt)}: rungs {rungs}, int8 rungs "
+        f"{sorted(int8_rungs)}; scales {sources} ({len(scales)} Linears: {sorted(scales)}); {served} served in "
+        f"{dispatches} dispatches ({ {k: v for k, v in gauges.items() if k.startswith('Serve/dispatches_b')} }); "
+        f"launches on the device {launches} (want {want}: {calib} calibration steps + {decide} decision steps + "
+        f"{extra['probes']} ladder probes + {calls} rung calls), by the wrappers {wrapper} (want {wrapper_want}); "
+        f"graphs {replays} replays + {calls - replays} warm-ups, fallbacks {fallbacks} (+{len(fallback_events)} "
+        f"in the decisions), re-tiered rungs {extra['retiered']}")
+    if served != SERVE_SESSIONS * (SERVE_PER_SESSION + 1) or sources != [("calibrated", 1)] or not scales:
+        raise RuntimeError(f"the int8 serve did not calibrate once or did not answer every request: {sources}")
+    if len(decisions) != len(rungs) or gauges["Serve/quant_enabled"] != 1.0 or gauges["Serve/quant_fused"] != 0.0:
+        raise RuntimeError(f"the int8 ladder did not decide every rung: {sorted(decisions)} {gauges}")
+    if fallbacks or fallback_events or gauges["Compile/aot_fallbacks"] != 0 \
+            or replays + extra["first_calls"] != dispatches:
+        raise RuntimeError(f"int8 serve: {replays} replays for {dispatches} dispatches, fallbacks {fallbacks} "
+                           f"{fallback_events}")
+    check_per_replay(summary["entries"], {n: PER_PLAYER_STEP for n in summary["entries"]}, "tier")
+    if launches != want or wrapper != wrapper_want or 0 in launches.values():
+        raise RuntimeError(f"int8 serve: launches on the device {launches} != {want}, or by the wrappers {wrapper} "
+                           f"!= {wrapper_want}")
+    tally = dv3_rung_check(torch, np, plans, answers, ckpt, device, int8_rungs)
+    n_answers = SERVE_SESSIONS * SERVE_PER_SESSION
+    if any(n != eq for n, eq in tally.values()) or sum(n for n, _ in tally.values()) != n_answers:
+        raise RuntimeError(f"served int8 answers differ from their rungs' direct calls: {tally}")
+    lat = sorted(latencies)
+    p50, p99 = lat[len(lat) // 2], lat[min(int(0.99 * len(lat)), len(lat) - 1)]
+    # the twin's rung-8 step: graphed vs eager, vs the plain versions, timed
+    policy, player, _ = build_policy(ServeArgs(algo="dreamer_v3", ckpt=ckpt, device=str(device)), device)
+    twin = dv3_twin(policy, player, ckpt)
+    init = policy.init_row(-1, player)
+    rng = np.random.default_rng(15)
+    with torch.inference_mode():
+        state = {k: torch.stack([v] * 8) for k, v in init.items()}
+        obs = {"rgb": torch.from_numpy(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)).to(device)}
+        eager = policy.step(twin, state, obs)
+        runner = CompilePlan(device=device).register("tier_int8_b8", lambda *a: policy.step(*a))
+        runner(twin, state, obs)
+        replay = runner(twin, state, obs)
+        same = _tree_equal(torch, eager, replay)
+        saved = (recurrent_mod.layernorm_gru_cell, blocks_mod.conv_ln_silu)
+        recurrent_mod.layernorm_gru_cell, blocks_mod.conv_ln_silu = gru.layernorm_gru_cell_plain, cnn.conv_ln_silu_plain
+        try:
+            plain = policy.step(twin, state, obs)
+        finally:
+            recurrent_mod.layernorm_gru_cell, blocks_mod.conv_ln_silu = saved
+        gaps = {k: float((eager[0][k] - plain[0][k]).abs().max()) for k in ("recurrent", "stochastic")}
+        acts_equal = bool(torch.equal(eager[1], plain[1]))
+        t_int8 = time_calls(torch, graphed(torch, lambda: policy.step(twin, state, obs)), 20)
+        t_f32 = time_calls(torch, graphed(torch, lambda: policy.step(player, state, obs)), 20)
+    log(f"[tier] every answer equal to its rung's direct call, by rung {tally}; p50={p50:.3f} ms p99={p99:.3f} ms, "
+        f"{n_answers / wall:.1f} qps; the twin's rung-8 step graphed vs eager bit for bit: {not same} "
+        f"({same[:4]}); vs the plain versions on the card: recurrent max_abs {gaps['recurrent']:.3e}, stochastic "
+        f"max_abs {gaps['stochastic']:.3e}, actions equal {acts_equal}; graphed rung-8 step: int8 twin "
+        f"{t_int8['wall_ms']:.4f} ms host, {t_int8['device_ms']:.4f} ms device in {t_int8['launches']:.0f} launches "
+        f"(port {t_int8['port_launches']}); f32 player {t_f32['wall_ms']:.4f} ms host, {t_f32['device_ms']:.4f} ms "
+        f"device in {t_f32['launches']:.0f} launches")
+    if same:
+        raise RuntimeError(f"the int8 twin's graphed rung-8 step differs from its eager self at {same}")
+    if t_int8["port_launches"] != {k: float(n) for k, n in PER_PLAYER_STEP.items()}:
+        raise RuntimeError(f"the twin's rung-8 step ran {t_int8['port_launches']} of the port's kernels")
+    return dict(rungs=rungs, int8_rungs=sorted(int8_rungs), sources=sources, linears=sorted(scales),
+                decisions=decisions, launches=launches, wrapper_launches=wrapper, expected=want, extras=extra,
+                dispatches=dispatches, rung_checks=tally, p50_ms=p50, p99_ms=p99, qps=n_answers / wall, wall_s=wall,
+                warmup_ms=warmups, gc=gc_info, server_gauges=gauges, plain_gaps=gaps, plain_actions_equal=acts_equal,
+                rung8_int8=t_int8, rung8_f32=t_f32)
+
+
+def tier_int8_pinned(torch, np, run, ServeClient, ckpt: str, device, decided: str) -> dict:
+    """(a'): (a)'s serve again with its decisions pinned to int8: each
+    rung's record of (a)'s `serve_quant.json` copied with `winner` int8
+    into a fresh run directory (with (a)'s `serve_ladder.json`), so the
+    serve reads every decision and peak back, loads (a)'s persisted scales
+    and serves the int8 twin at every rung, each rung the twin's graph.
+    Kernels 1 and 3 counted on the device (only the rung calls: no probe,
+    no calibration, no decision runs), every answer equal to the twin's
+    direct call at its rung. Raises on any failure. -> the check's report."""
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+
+    root = os.path.join(OUT_DIR, "tier_int8_pinned_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir = os.path.join(root, "serve")
+    os.makedirs(run_dir)
+    with open(os.path.join(decided, "serve_quant.json")) as fh:
+        store = json.load(fh)
+    for rec in store.values():
+        rec.update(winner="int8", accepted=True)
+    with open(os.path.join(run_dir, "serve_quant.json"), "w") as fh:
+        json.dump(store, fh)
+    shutil.copy(os.path.join(decided, "serve_ladder.json"), run_dir)
+    gru.layernorm_gru_cell.launches = cnn.conv_ln_silu.launches = 0
+    plans, warm = dv3_serve_plans(np)
+    with DeviceLaunches(torch, ("layernorm_gru_cell", "conv_ln_silu")) as ran:
+        answers, latencies, wall, _, _ = drive_serve(np, run, ServeClient, root, [*TIER_ARGV, "--ckpt", ckpt],
+                                                     plans, warm)
+    launches = ran.counts
+    wrapper = {"layernorm_gru_cell": gru.layernorm_gru_cell.launches, "conv_ln_silu": cnn.conv_ln_silu.launches}
+    records = _records_of(run_dir)
+    start = next(r for r in records if r.get("event") == "serve.start")
+    rungs, int8_rungs = start["rungs"], set(start["int8_rungs"])
+    sources = [(r["source"], r["version"]) for r in records if r.get("event") == "serve.quant_scales"]
+    decided_from = {r["rung"]: r["source"] for r in records if r.get("event") == "serve.quant_rung"}
+    gauges = [r for r in records if r.get("event") == "interval"][-1]["metrics"]
+    dispatches = int(gauges["Serve/dispatches"])
+    summary = compile_summary(run_dir)
+    calls, replays, fallbacks = graph_calls(summary)
+    extra = serve_extras(run_dir, summary)
+    want = dv3_steps(calls + extra["probes"])
+    tally = dv3_rung_check(torch, np, plans, answers, ckpt, device, int8_rungs)
+    lat = sorted(latencies)
+    p50, p99 = lat[len(lat) // 2], lat[min(int(0.99 * len(lat)), len(lat) - 1)]
+    n_answers = SERVE_SESSIONS * SERVE_PER_SESSION
+    log(f"[tier-int8] the same serve, decisions pinned to int8: int8 rungs {sorted(int8_rungs)} of {rungs}, "
+        f"decisions from {decided_from}, scales {sources}; {dispatches} dispatches "
+        f"({ {k: v for k, v in gauges.items() if k.startswith('Serve/dispatches_b')} }); launches on the device "
+        f"{launches} (want {want}: {calls} rung calls + {extra['probes']} probes), by the wrappers {wrapper}; "
+        f"graphs {replays} replays + {calls - replays} warm-ups, fallbacks {fallbacks}; every answer equal to the "
+        f"twin's direct call, by rung {tally}; p50={p50:.3f} ms p99={p99:.3f} ms, {n_answers / wall:.1f} qps")
+    if int8_rungs != set(rungs) or set(decided_from.values()) != {"cache"} or sources != [("persisted", 1)]:
+        raise RuntimeError(f"the pinned serve did not serve the twin at every rung from (a)'s records: "
+                           f"{sorted(int8_rungs)} {decided_from} {sources}")
+    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays + extra["first_calls"] != dispatches:
+        raise RuntimeError(f"pinned int8 serve: {replays} replays for {dispatches} dispatches, {fallbacks} fallbacks")
+    check_per_replay(summary["entries"], {n: PER_PLAYER_STEP for n in summary["entries"]}, "tier-int8")
+    if launches != want or wrapper != wrapper_expected(summary["entries"], wrapper, dv3_steps(extra["probes"])):
+        raise RuntimeError(f"pinned int8 serve: launches on the device {launches} != {want}, or the wrappers {wrapper}")
+    if any(n != eq for n, eq in tally.values()) or sum(n for n, _ in tally.values()) != n_answers:
+        raise RuntimeError(f"served int8 answers differ from the twin's direct calls: {tally}")
+    return dict(int8_rungs=sorted(int8_rungs), launches=launches, wrapper_launches=wrapper, expected=want,
+                extras=extra, dispatches=dispatches, rung_checks=tally, p50_ms=p50, p99_ms=p99,
+                qps=n_answers / wall, server_gauges=gauges)
+
+
+def run_in_thread(run, argv) -> None:
+    """`run(argv)` to its end in a thread of its own, as every serve of this
+    script runs (a serve on the main thread would install its signal
+    handlers in this process). Raises what it raised."""
+    failures: list[BaseException] = []
+
+    def _run():
+        try:
+            run(argv)
+        except BaseException as err:  # re-raised below
+            failures.append(err)
+
+    t = threading.Thread(target=_run, name="chip-smoke-run", daemon=True)
+    t.start()
+    t.join(timeout=600)
+    if failures or t.is_alive():
+        raise RuntimeError(f"{' '.join(argv[:3])} failed or did not finish: {failures!r}")
+
+
+def tier_ladder(run, ckpt: str) -> dict:
+    """(b): `serve --ladder auto --dry_run` of the checkpoint at full width:
+    each rung probed once (its source and peak against the 512 MiB budget);
+    then a restart in the same directory with SHEEPRL_TPU_SERVE_MEM_MB
+    between rung 4's and rung 8's peaks, which reads every peak back from
+    `serve_ladder.json` and refuses rung 8 alone. Raises on any failure."""
+    from sheeprl_tpu_torch.serve.ladder import serve_mem_budget_bytes
+
+    root = os.path.join(OUT_DIR, "tier_ladder_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["serve", "--algo", "dreamer_v3", "--ckpt", ckpt, "--max_batch", "8", "--ladder", "auto", "--dry_run",
+            "--root_dir", root, "--run_name", "serve"]
+    budget = serve_mem_budget_bytes()
+    t0 = time.perf_counter()
+    run_in_thread(run, argv)
+    first_s = time.perf_counter() - t0
+    first = [r for r in _records_of(os.path.join(root, "serve")) if r.get("event") == "serve.ladder"]
+    peaks = {r["rung"]: r["peak_bytes"] for r in first}
+    if [(r["rung"], r["accepted"], r["source"]) for r in first] != [(r, True, "probe") for r in (1, 2, 4, 8)] \
+            or not all(r["reason"].endswith("(probe)") for r in first) or not 0 < peaks[4] < peaks[8]:
+        raise RuntimeError(f"the ladder's first sizing: {first}")
+    mb = (peaks[4] + peaks[8]) / 2 / 2**20
+    os.environ["SHEEPRL_TPU_SERVE_MEM_MB"] = repr(mb)
+    try:
+        t0 = time.perf_counter()
+        run_in_thread(run, argv)
+        second_s = time.perf_counter() - t0
+    finally:
+        del os.environ["SHEEPRL_TPU_SERVE_MEM_MB"]
+    records = _records_of(os.path.join(root, "serve"))
+    second = [r for r in records if r.get("event") == "serve.ladder"][len(first):]
+    starts = [r["rungs"] for r in records if r.get("event") == "serve.start"]
+    log(f"[tier-ladder] serve --ladder auto --ckpt .../{os.path.basename(ckpt)} --dry_run ({first_s:.1f} s): "
+        + ", ".join(f"rung {r['rung']} {r['source']} peak {r['peak_bytes'] / 2**20:.3f} MiB" for r in first)
+        + f" against the {budget / 2**20:.0f} MiB budget; restarted with SHEEPRL_TPU_SERVE_MEM_MB={mb:.3f} "
+        f"({second_s:.1f} s): " + ", ".join(f"rung {r['rung']} {'kept' if r['accepted'] else 'refused'} "
+                                            f"({r['reason']})" for r in second) + f"; rungs served {starts}")
+    if [(r["rung"], r["accepted"]) for r in second] != [(1, True), (2, True), (4, True), (8, False)] \
+            or not all(r["reason"].endswith("(probe cache)") for r in second) or starts != [[1, 2, 4, 8], [1, 2, 4]]:
+        raise RuntimeError(f"the restart under a budget between rungs 4 and 8 did not refuse rung 8 alone from the "
+                           f"cache: {second} {starts}")
+    return dict(budget_bytes=budget, first=first, restricted_mb=mb, second=second, rungs_served=starts,
+                seconds=[first_s, second_s])
+
+
+def tier_retier(torch, np, run, ServeClient, device) -> dict:
+    """(c): `serve --algo sac --ladder 1,8` at SAC's default width, one
+    client sending 4-row requests: the re-tier sizes and adds rung 4, which
+    is captured at its first dispatch and replayed after; every answer
+    equals the direct call at its rung. Raises on any failure."""
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    root = os.path.join(OUT_DIR, "tier_retier_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    n = TIER_RETIER_REQUESTS
+    address, server, failures = serve_in_thread(
+        run, ["--algo", "sac", "--ladder", "1,8", "--max_batch", "8", "--deadline_ms", "0", "--serve_requests",
+              str(n)], root, "chip-smoke-retier")
+    rng = np.random.default_rng(6)
+    answers = []
+    with ServeClient(address) as client:
+        for _ in range(n):
+            obs = rng.standard_normal((TIER_RETIER_ROWS, SAC_OBS_DIM)).astype(np.float32)
+            res, meta = client.request({"obs": obs})
+            answers.append((obs, res["actions"], meta["rung"]))
+            time.sleep(0.01)
+    server.join(timeout=120)
+    if failures or server.is_alive():
+        raise RuntimeError(f"the re-tier serve failed: {failures!r}")
+    run_dir = os.path.join(root, "serve")
+    records = _records_of(run_dir)
+    retiers = [r for r in records if r.get("event") in ("serve.retier", "serve.retier_error")]
+    summary = compile_summary(run_dir)
+    entry = summary["entries"].get(f"policy_b{TIER_RETIER_ROWS}", {})
+    rungs = [rung for _, _, rung in answers]
+    at4 = sum(r == TIER_RETIER_ROWS for r in rungs)
+    policy, actor, _ = build_policy(ServeArgs(algo="sac", device=str(device)), device)
+    equal = []
+    with torch.inference_mode():
+        for obs, got, rung in answers:
+            x = np.zeros((rung, SAC_OBS_DIM), np.float32)
+            x[:len(obs)] = obs
+            want = policy.step(actor, torch.from_numpy(x).to(device)).cpu().numpy()[:len(obs)]
+            equal.append(bool(np.array_equal(got, want)))
+    log(f"[tier-retier] serve --algo sac --ladder 1,8, {n} requests of {TIER_RETIER_ROWS} rows: {retiers}; "
+        f"{at4} answered at rung {TIER_RETIER_ROWS} (first at request {rungs.index(TIER_RETIER_ROWS) if at4 else None}); "
+        f"its graph: {entry}; answers equal to the direct call: {sum(equal)}/{len(equal)}")
+    if len(retiers) != 1 or retiers[0]["event"] != "serve.retier" or retiers[0]["rung"] != TIER_RETIER_ROWS \
+            or not retiers[0]["accepted"]:
+        raise RuntimeError(f"the re-tier did not add rung {TIER_RETIER_ROWS} once: {retiers}")
+    if at4 < 10 or not entry.get("compiled") or entry["fallbacks"] or entry["eager_calls"] != 1 \
+            or entry["aot_calls"] != at4 - 1 or not all(equal):
+        raise RuntimeError(f"rung {TIER_RETIER_ROWS} was not served as a graph, or answers differ: {entry} {at4}")
+    return dict(retier=retiers[0], answered_at_new_rung=at4, entry=entry, answers_equal=sum(equal))
+
+
+def tier_poll_and_profile(torch, np, run, ServeClient, first: str, latest: str, device) -> dict:
+    """(d) and (e): `serve --algo dreamer_v3 --ckpt <first> --reload_poll_s`
+    at full width over the resumed run's checkpoint directory, whose newest
+    valid checkpoint is `latest`: the poller reloads it (version 2), every
+    answer (a fresh session each) equal to a direct step of its version's
+    player. Halfway, a PROFILE frame opens a window, requests run inside
+    it, a second frame is refused; the window's chrome trace holds the
+    port's kernels; every served request left a span, parented on the
+    client's span id, its id echoed. Raises on any failure."""
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+    from sheeprl_tpu_torch.telemetry.trace import profile_window
+
+    root = os.path.join(OUT_DIR, "tier_poll_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    n = TIER_POLL_REQUESTS
+    address, server, failures = serve_in_thread(
+        run, ["--algo", "dreamer_v3", "--ckpt", first, "--reload_poll_s", str(TIER_POLL_S), "--max_batch", "8",
+              "--deadline_ms", "0", "--serve_requests", str(n)], root, "chip-smoke-poll")
+    rng = np.random.default_rng(16)
+    obs = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(n)]
+    answers = []
+    with ServeClient(address) as client:
+        for i, o in enumerate(obs):
+            if i == n // 2:
+                reply = client.profile(seconds=TIER_PROFILE_S)
+            res, meta = client.request({"rgb": o}, session=f"p{i}")
+            answers.append((res["actions"], meta))
+            if i == n // 2 + 4:
+                refused = client.profile(seconds=TIER_PROFILE_S)
+            time.sleep(0.05)
+        deadline = time.monotonic() + 60
+        while profile_window().active and time.monotonic() < deadline:
+            time.sleep(0.05)
+    server.join(timeout=120)
+    if failures or server.is_alive():
+        raise RuntimeError(f"the polling serve failed: {failures!r}")
+    records = _records_of(os.path.join(root, "serve"))
+    reloads = [(r["ok"], r["version"], r["path"]) for r in records if r.get("event") == "serve.reload"]
+    versions = [meta["version"] for _, meta in answers]
+    policy, player1, loader = build_policy(ServeArgs(algo="dreamer_v3", ckpt=first, device=str(device)), device)
+    players = {1: player1, 2: loader(latest)}
+    equal = []
+    with torch.inference_mode():
+        for o, (got, meta) in zip(obs, answers):
+            player = players[meta["version"]]
+            state = {k: v[None] for k, v in policy.init_row(-meta["version"], player).items()}
+            _, acts = policy.step(player, state, {"rgb": torch.from_numpy(o).to(device)})
+            equal.append(bool(np.array_equal(got, acts.float().cpu().numpy())))
+    log(f"[tier-poll] serve --ckpt .../{os.path.basename(first)} --reload_poll_s {TIER_POLL_S}: reloads {reloads}; "
+        f"versions {versions[0]} ... {versions[-1]} (first at version 2: request "
+        f"{versions.index(2) if 2 in versions else None}); answers equal to direct steps of their version's player: "
+        f"{sum(equal)}/{len(equal)}")
+    if reloads != [(True, 2, os.path.abspath(latest))] or versions != sorted(versions) or versions[-1] != 2 \
+            or versions[0] != 1 or not all(equal):
+        raise RuntimeError(f"the poller did not move the server to {latest} once: {reloads} {versions} {equal}")
+    # (e) the profile window and the spans
+    with open(reply["trace"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    port = {}
+    for e in kernels:
+        name = port_kernel(e.get("name", ""))
+        if name:
+            port[name] = port.get(name, 0) + 1
+    stops = [r for r in records if r.get("event") == "profile.window.stop"]
+    spans = {r["span"]: r for r in records if r.get("event") == "span"}
+    echoed = [meta.get("span") for _, meta in answers]
+    served_spans = [spans.get(sid) for sid in echoed]
+    log(f"[tier-profile] PROFILE {TIER_PROFILE_S} s: {reply}; the overlapping one: {refused}; its trace "
+        f"{len(events)} events, {len(kernels)} kernels, the port's {port}; stop {stops}; spans {len(spans)} for "
+        f"{len(answers)} answers, each served request's span echoed: {sum(s is not None for s in served_spans)}, "
+        f"parented on the client's: {sum(bool(s and s['parent']) for s in served_spans)}, a decomposition "
+        f"(queue/pad/dispatch/slice/send ms) e.g. "
+        + str({k: served_spans[0][k] for k in ('queue_ms', 'pad_ms', 'dispatch_ms', 'slice_ms', 'send_ms')}
+              if served_spans and served_spans[0] else None))
+    if not reply["ok"] or not reply.get("cuda") or refused["ok"] or "already open" not in refused["error"]:
+        raise RuntimeError(f"the PROFILE frames: {reply} {refused}")
+    if not port.get("layernorm_gru_cell") or not port.get("conv_ln_silu") or len(stops) != 1 or stops[0]["error"]:
+        raise RuntimeError(f"the profile window's trace holds no port kernel, or did not stop cleanly: {port} {stops}")
+    if len(spans) != n or any(s is None or s["outcome"] != "served" or not s["parent"] for s in served_spans):
+        raise RuntimeError(f"not every served request left its span: {len(spans)} spans for {n} requests")
+    return dict(reloads=reloads, versions=versions, answers_equal=sum(equal), profile=reply, refused=refused,
+                trace_kernels=len(kernels), trace_port_kernels=port, spans=len(spans),
+                span_example={k: served_spans[0][k] for k in ("queue_ms", "pad_ms", "dispatch_ms", "slice_ms",
+                                                               "send_ms", "dur_ms")})
+
+
+def tier_phase(torch, np, run, ServeClient, device, train_root: str, smi: str) -> dict:
+    """Phase 15: the rest of the serving tier on the card, (a) to (e) as
+    above. Raises on any failure. -> the phase's report."""
+    out: dict = {"smi": smi}
+    parts: dict[str, float] = {}
+    ckpt_dir = os.path.join(train_root, "train", "checkpoints")
+    latest = os.path.join(ckpt_dir, f"ckpt_{TRAIN_STEPS}")
+    for name, fn in (
+        ("int8", lambda: tier_int8_serve(torch, np, run, ServeClient, latest, device)),
+        ("int8_pinned", lambda: tier_int8_pinned(torch, np, run, ServeClient, latest, device,
+                                                 os.path.join(OUT_DIR, "tier_int8_logs", "serve"))),
+        ("ladder", lambda: tier_ladder(run, latest)),
+        ("retier", lambda: tier_retier(torch, np, run, ServeClient, device)),
+        ("poll", lambda: tier_poll_and_profile(torch, np, run, ServeClient, os.path.join(ckpt_dir, f"ckpt_{RESUME_STEP}"),
+                                               latest, device)),
+    ):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        parts[name] = time.perf_counter() - t0
+    out["seconds"] = parts
+    log(f"[tier] {smi}: the phase's parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; {sum(parts.values()):.1f} in all")
+    return out
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one card")
@@ -4173,21 +4675,23 @@ def main() -> int:
     )
     summary = compile_summary(os.path.join(root_dir, "serve"))
     calls, replays, fallbacks = graph_calls(summary)
-    wrapper_want = wrapper_expected(summary["entries"], serve_wrapper)
+    extra = serve_extras(os.path.join(root_dir, "serve"), summary)
+    wrapper_want = wrapper_expected(summary["entries"], serve_wrapper, dv3_steps(extra["probes"]))
     log(f"[slice] {n_answers} answers from {len(answers)} sessions, {served} served in {dispatches} "
         f"dispatches; all one-hot: {one_hot}; launches on the device {launches}, by the wrappers {serve_wrapper} "
-        f"(warm-ups and captures); graphs: {replays} replays + "
+        f"(warm-ups, captures and {extra['probes']} ladder probes; re-tiered rungs {extra['retiered']}); graphs: "
+        f"{replays} replays + "
         f"{calls - replays} warm-ups at startup, fallbacks {fallbacks}, Compile/aot_calls "
         f"{gauges['Compile/aot_calls']:.0f}, capture seconds "
         + ", ".join(f"{n} {e['compile_seconds']:.3f} ({(e['peak_bytes'] or 0) / 1e6:.2f} MB)"
                     for n, e in summary["entries"].items()))
     if n_answers != SERVE_SESSIONS * SERVE_PER_SESSION or served != total or not one_hot:
         raise RuntimeError("the served slice did not answer every request with a one-hot action")
-    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays != dispatches:
+    if fallbacks or gauges["Compile/aot_fallbacks"] != 0 or replays + extra["first_calls"] != dispatches:
         raise RuntimeError(f"not every dispatch was a graph replay: {replays} replays, {dispatches} dispatches, "
                            f"{fallbacks} fallbacks")
     check_per_replay(summary["entries"], {n: PER_PLAYER_STEP for n in summary["entries"]}, "slice")
-    if launches != {"layernorm_gru_cell": calls, "conv_ln_silu": 4 * calls}:
+    if launches != dv3_steps(calls + extra["probes"]):
         raise RuntimeError(f"launch counts on the device {launches} != 1x / 4x the {calls} steps ({replays} "
                            f"replays, {calls - replays} warm-ups)")
     if serve_wrapper != wrapper_want or 0 in serve_wrapper.values():
@@ -4305,6 +4809,10 @@ def main() -> int:
     GC.next_phase("14 continuous")
     report["continuous"] = continuous_phase(torch, np, run, ServeClient, torch.device("cuda"), smi, report)
 
+    # -- phase 15: the rest of the serving tier ----------------------------------
+    GC.next_phase("15 tier")
+    report["tier"] = tier_phase(torch, np, run, ServeClient, torch.device("cuda"), train_root, smi)
+
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])
     edges = DeviceLaunches.WINDOWS
@@ -4400,6 +4908,15 @@ def main() -> int:
                                                               "layernorm_gru_cell_residuals", "conv_ln_silu_residuals",
                                                               "deconv_ln_silu", "two_hot_log_prob")):
         raise RuntimeError(f"a kernel of phase 14's path was not launched there: {continuous_launches}")
+    # phase 15's path: DreamerV3 served with --quant int8, kernels 1 and 3 in
+    # the calibration, the decisions' graphs and every rung's graph, f32 and
+    # (pinned) int8, counted on the device over those two serves
+    tier_launches = {k: n + report["tier"]["int8_pinned"]["launches"].get(k, 0)
+                     for k, n in report["tier"]["int8"]["launches"].items()}
+    for k in kernels:
+        k["tier_launches"] = tier_launches.get(k["name"], 0)
+    if any(tier_launches.get(name, 0) == 0 for name in ("layernorm_gru_cell", "conv_ln_silu")):
+        raise RuntimeError(f"a kernel of phase 15's path was not launched there: {tier_launches}")
     # every kernel but symlog_symexp lies on a path, and that run must have launched it
     if any(k["launches"] == 0 or k["wrapper_launches"] == 0 for k in kernels if k["name"] != "symlog_symexp"):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")

@@ -1,5 +1,6 @@
-"""Measured decisions (the port of sheeprl_tpu/compile/decisions.py:226-575,
-the part `serve/quant.py:accept_rungs` needs).
+"""Measured decisions (the port of sheeprl_tpu/compile/decisions.py:226-575
+and :622-649, the parts `serve/quant.py:accept_rungs` and
+`serve/ladder.py:size_ladder` need).
 
 A decision times a ladder of candidates on one example and keeps a winner:
 
@@ -21,8 +22,12 @@ launch must stop the process, never leave the rungs quietly on f32.
 Decisions persist in a JSON store keyed by family, name, the example's
 shapes and dtypes, the torch version and the device's name, so a re-run on
 the same shapes and card reads the winner back. Time is the only
-objective: the reference's `bytes` objective, `decide_remat` and the
-legacy scan-unroll migration are not ported (ROADMAP Queue A item 2).
+objective: the reference's `bytes` objective and `decide_remat` come with
+`--remat` (ROADMAP Queue A item 5); the legacy scan-unroll migration is
+not ported.
+
+`measured_probe` memoizes one measurement (the serve ladder's peak bytes)
+in the same store, under the same key as a decision on that example.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ __all__ = [
     "decide",
     "decision_key",
     "load_cache",
+    "measured_probe",
     "tree_leaves",
 ]
 
@@ -279,3 +285,31 @@ def _pick_winner(labels: list[str], reports: dict[str, CandidateReport]) -> str:
     order. The baseline always survives."""
     eligible = [lbl for lbl in labels if reports[lbl].bit_exact or reports[lbl].within_bound]
     return min(eligible, key=lambda lbl: (reports[lbl].exec_seconds, labels.index(lbl)))
+
+
+def measured_probe(
+    family: str,
+    name: str,
+    example: Sequence[Any],
+    measure: Callable[[], dict],
+    *,
+    store_path: str | None = None,
+    force: bool = False,
+) -> tuple[dict, str]:
+    """Memoize one expensive measurement in the decision store, keyed as a
+    decision on `example` would be (`decision_key`). Returns `(record,
+    source)` with source "measured" or "cache". The record must be JSON;
+    a record with an `error` is not stored, so the next call measures
+    again. The decision drawn from the record (the caller's, from the
+    current budget) is never stored: only the measurement is."""
+    key = decision_key(family, name, example)
+    if store_path and not force:
+        rec = load_cache(store_path).get(key)
+        if isinstance(rec, dict) and "probe" in rec:
+            return dict(rec["probe"]), "cache"
+    record = measure()
+    if store_path and not record.get("error"):
+        store = load_cache(store_path)
+        store[key] = {"family": family, "name": name, "key": key, "probe": record}
+        _save_cache(store_path, store)
+    return record, "measured"

@@ -18,6 +18,9 @@ a reference server and back:
     RESPONSE       u32 meta_len | meta_json | pack_tree action blob
     SHED           JSON {id, retry_after_ms, reason}: retry after the hint
     RELOAD         JSON {path}; reply JSON {ok, version, error}
+    PROFILE        JSON {seconds?, dir?}; reply PROFILE JSON {ok, dir?,
+                   trace?, seconds?, error?, pid}: a bounded on-demand
+                   torch.profiler window (`telemetry/trace.py`)
 
 Transport addresses serialize as `tcp:HOST:PORT` or `unix:PATH`.
 """
@@ -82,6 +85,10 @@ RESPONSE = register_kind(13, "response")
 SHED = register_kind(14, "shed")
 RELOAD = register_kind(15, "reload")
 # 16 = "health" is claimed by serve/server.py at import time.
+
+# open a bounded profiler window on a live process; registered here, where
+# the registry lives, so that telemetry/ needs no part of the flock
+PROFILE = register_kind(17, "profile")
 
 
 class FrameError(ConnectionError):

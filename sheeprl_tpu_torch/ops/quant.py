@@ -49,6 +49,7 @@ __all__ = [
     "map_linears",
     "linear_paths",
     "calibrate",
+    "calibrate_from_buffer",
     "quantize_linears",
     "save_scales",
     "load_scales",
@@ -192,6 +193,22 @@ def calibrate(module: tnn.Module, call: Callable[[tnn.Module, Any], Any],
         path: np.maximum(amax, _SCALE_FLOOR * _QMAX).astype(np.float32) / _QMAX
         for path, amax in record.items()
     }
+
+
+def calibrate_from_buffer(module: tnn.Module, call: Callable[[tnn.Module, Any], Any], buffer: Any, *,
+                          obs_key: str = "obs", n_batches: int = 4, batch_size: int = 64) -> dict[str, np.ndarray]:
+    """Calibration over the replay buffer's own sample path: `n_batches`
+    uniform draws of `batch_size` rows (`buffer.sample`, e.g.
+    `data/buffers.py:ReplayBuffer`), the `obs_key` column of each fed to
+    `calibrate` as an f32 tensor on the column's device. The draws follow
+    the buffer's seeded generator, so a buffer seeded alike gives the same
+    scales."""
+    batches = []
+    for _ in range(n_batches):
+        col = buffer.sample(batch_size)[obs_key]
+        batches.append(col.float() if isinstance(col, torch.Tensor)
+                       else torch.from_numpy(np.asarray(col, np.float32)))
+    return calibrate(module, call, batches)
 
 
 def quantize_linears(module: tnn.Module, scales: Mapping[str, Any]) -> tnn.Module:

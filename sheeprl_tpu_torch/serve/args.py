@@ -1,6 +1,4 @@
-"""Serving-tier config (the port of sheeprl_tpu/serve/args.py). `--quant
-int8` for dreamer_v3 is accepted by the parser and raises "not yet ported"
-at startup."""
+"""Serving-tier config (the port of sheeprl_tpu/serve/args.py)."""
 
 from __future__ import annotations
 
@@ -52,7 +50,17 @@ class ServeArgs(StandardArgs):
     ladder: str = Arg(
         default="auto",
         help="batch-ladder rungs: 'auto' = powers of two up to --max_batch, or "
-        "an explicit comma list like '1,2,8'",
+        "an explicit comma list like '1,2,8'; each rung is then sized against "
+        "the serving memory budget (SHEEPRL_TPU_SERVE_MEM_MB, default 512) from "
+        "its measured peak, memoized in <log_dir>/serve_ladder.json",
+    )
+    reload_poll_s: float = Arg(
+        default=0.0,
+        help=">0: watch the checkpoint directory of --ckpt every this many "
+        "seconds and hot-reload a newer valid checkpoint automatically "
+        "(clients can always trigger an explicit reload with a RELOAD "
+        "frame). Reloads are double-buffered: version N keeps serving "
+        "until N+1 is fully loaded, and keeps serving on a failed reload",
     )
     serve_requests: int = Arg(
         default=-1,
@@ -67,8 +75,8 @@ class ServeArgs(StandardArgs):
     )
     quant: str = Arg(
         default="off",
-        help="policy-inference quantization: 'int8' (sac only) calibrates "
-        "per-channel scales, builds an int8 variant of every ladder rung, and "
+        help="policy-inference quantization: 'int8' calibrates per-channel "
+        "scales, builds an int8 variant of every ladder rung, and "
         "accepts each rung by timing under the --quant_bound quality receipt: "
         "a rung whose divergence exceeds the bound is disqualified and keeps "
         "serving f32. 'off' (default) serves f32",
@@ -97,4 +105,6 @@ class ServeArgs(StandardArgs):
             raise ValueError(f"quant must be 'off' or 'int8', got {value!r}")
         if name == "quant_bound" and float(value) <= 0.0:
             raise ValueError(f"quant_bound must be > 0, got {value!r}")
+        if name == "reload_poll_s" and float(value) < 0.0:
+            raise ValueError(f"reload_poll_s must be >= 0, got {value!r}")
         super().__setattr__(name, value)

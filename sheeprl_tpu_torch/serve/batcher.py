@@ -44,6 +44,7 @@ class PendingRequest:
     __slots__ = (
         "obs", "meta", "rows", "enqueue_t", "deadline_t",
         "done", "result", "error", "rung", "version", "queue_ms", "dispatch", "offset",
+        "pad_ms", "dispatch_ms", "slice_ms",
     )
 
     def __init__(self, obs, meta, rows, enqueue_t, deadline_t):
@@ -60,6 +61,12 @@ class PendingRequest:
         self.offset = 0  # the request's first row in the dispatched batch
         self.version = 0
         self.queue_ms = 0.0
+        # where the request's latency went inside the batch it rode (each a
+        # cost of the whole batch): stacking and padding, the dispatch, the
+        # slicing of the results
+        self.pad_ms = 0.0
+        self.dispatch_ms = 0.0
+        self.slice_ms = 0.0
 
     def wait(self, timeout: float | None = None) -> dict[str, np.ndarray]:
         """Block until served; raises the typed error on shed/failure."""
@@ -145,6 +152,21 @@ class MicroBatcher:
             self._cond.notify_all()
         return pending
 
+    def set_rungs(self, rungs: list[int]) -> None:
+        """Occupancy-driven re-tier, expansion only: the new rung set holds
+        every current rung and keeps the largest, so no queued request loses
+        its rung and the max-rung contract (`OversizedRequest`) never moves
+        under a live client."""
+        new = sorted({int(r) for r in rungs})
+        with self._cond:
+            if not set(self.rungs) <= set(new):
+                raise ValueError(f"re-tier may only add rungs: {self.rungs} -> {new}")
+            if new[-1] != self.max_rung:
+                raise ValueError(f"re-tier must keep the max rung {self.max_rung}, got {new}")
+            for r in new:
+                self.dispatches_by_rung.setdefault(r, 0)
+            self.rungs = new
+
     # ---- dispatch side -----------------------------------------------------
     def start(self) -> None:
         if self._thread is not None:
@@ -225,8 +247,10 @@ class MicroBatcher:
         if not batch:
             return len(expired)
         rung = next(r for r in self.rungs if r >= rows)
+        t_pad = self._clock()
         stacked = _stack_pad([p.obs for p in batch], rows, rung)
         t0 = self._clock()
+        pad_ms = (t0 - t_pad) * 1000.0
         try:
             out, version = self._dispatch(stacked, batch, rung)
         except Exception as err:
@@ -238,17 +262,25 @@ class MicroBatcher:
             for p in batch:
                 p._complete(error=failure)
             return len(expired) + len(batch)
-        dispatch_ms = (self._clock() - t0) * 1000.0
+        t_slice = self._clock()
+        dispatch_ms = (t_slice - t0) * 1000.0
+        slices = []
         off = 0
         for p in batch:
+            p.offset = off
+            slices.append({k: v[off : off + p.rows] for k, v in out.items()})
+            off += p.rows
+        slice_ms = (self._clock() - t_slice) * 1000.0
+        for p, result in zip(batch, slices):
             p.rung = rung
             # only this dispatch thread writes the counter
             p.dispatch = self.dispatches + 1
-            p.offset = off
             p.version = version
             p.queue_ms = (t0 - p.enqueue_t) * 1000.0
-            p._complete(result={k: v[off : off + p.rows] for k, v in out.items()})
-            off += p.rows
+            p.pad_ms = pad_ms
+            p.dispatch_ms = dispatch_ms
+            p.slice_ms = slice_ms
+            p._complete(result=result)
         with self._cond:
             self.served += len(batch)
             self.rows_served += rows

@@ -1,5 +1,5 @@
 """Thin blocking client for the serving tier (the port of
-sheeprl_tpu/serve/client.py, without span tracing).
+sheeprl_tpu/serve/client.py).
 
 One socket, one in-flight request at a time (concurrency = many clients).
 Typed failures: a SHED frame raises `RequestShed` (read `.retry_after_ms`
@@ -15,6 +15,11 @@ a dead socket raises `ConnectionLost`.
 server's `retry_after_ms` hint before resending; a dead socket reconnects
 and resends the SAME request id, which the server answers from its dedupe
 map if it already executed it.
+
+With tracing on (`telemetry/trace.py`; SHEEPRL_TPU_TRACE=0 turns it off)
+each REQUEST's meta carries a fresh span id; the server's request span
+takes it as its parent and the RESPONSE meta carries the server's own.
+`profile(seconds)` asks the server for an on-demand profiler window.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Any
 import numpy as np
 
 from ..flock import wire
+from ..telemetry import trace as tracelib
 from .errors import ConnectionLost, OversizedRequest, RequestShed, ServeError
 from .server import HEALTH, PROTO_VERSION, pack_request, unpack_request
 
@@ -73,6 +79,8 @@ class ServeClient:
         dispatch failures, ConnectionLost for a dead socket."""
         budget = self._retries if retries is None else int(retries)
         meta: dict[str, Any] = {"id": f"{self._nonce}-{next(self._ids)}"}
+        if tracelib.trace_enabled():
+            meta["span"] = tracelib.new_span_id()
         if deadline_ms is not None:
             meta["deadline_ms"] = deadline_ms
         if session is not None:
@@ -132,6 +140,17 @@ class ServeClient:
         except (OSError, TimeoutError) as err:
             self._drop_socket()
             raise ConnectionLost(f"health probe failed: {err}") from err
+
+    def profile(self, seconds: float | None = None, out_dir: str | None = None) -> dict:
+        """PROFILE round-trip: a bounded profiler window in the server
+        process -> {ok, dir, trace, seconds, pid} or {ok: False, error}."""
+        req: dict[str, Any] = {}
+        if seconds is not None:
+            req["seconds"] = seconds
+        if out_dir is not None:
+            req["dir"] = out_dir
+        wire.send_json(self._sock, wire.PROFILE, req)
+        return wire.recv_json(self._sock, wire.PROFILE)
 
     def reload(self, path: str | None = None) -> dict:
         """Ask the server to hot-reload; returns its {ok, version, seconds, error}."""

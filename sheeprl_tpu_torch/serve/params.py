@@ -36,13 +36,16 @@ class ParamsStore:
         params: Any,
         source: str | None = None,
         telem: Any = None,
+        reload_lock: Any = None,
     ):
         self._loader = loader
         self._slot: tuple[int, Any] = (1, params)  # the atomic flip point
         self._source = source
         self._telem = telem
-        # one reload at a time; never held on the dispatch path
-        self._reload_lock = threading.Lock()
+        # one reload at a time; never held on the dispatch path. A caller's
+        # lock keeps reloads apart from its own work on the card too (serve's
+        # retier probes and captures)
+        self._reload_lock = reload_lock if reload_lock is not None else threading.Lock()
         # called after a successful flip with (version, params), still in
         # the reload thread: derived state (the quantized twin) rebuilds
         # here instead of stalling the first dispatch that needs it
@@ -55,6 +58,11 @@ class ParamsStore:
     @property
     def version(self) -> int:
         return self._slot[0]
+
+    @property
+    def source(self) -> str | None:
+        """The checkpoint the current version was loaded from."""
+        return self._source
 
     def current(self) -> tuple[int, Any]:
         """Lock-free snapshot read: (version, params)."""

@@ -11,6 +11,13 @@ calibration, quality-receipt rung acceptance, and quantized dispatch.
     faster AND its max action divergence on the held-out set stays within
     `--quant_bound`; past the bound it is disqualified and the rung keeps
     serving f32, so the ladder can be mixed;
+  - DreamerV3 calibrates through the served player step
+    (`DV3ServePolicy.step`) on seeded batches of (state rows, obs): the
+    state rows are the params' init row repeated, the obs synthetic (uniform
+    bytes for uint8 spaces, unit normals for float ones). Its int8 rungs
+    dispatch the quantized twin through `policy.step`: the GRU (kernel 1)
+    and the encoder's convs (kernel 3) run in the twin as in the f32
+    player, inside each rung's graph;
   - the SAC trunk dispatches through the fused kernel
     (`ops/kernels/int8_trunk.py:fused_int8_trunk`, `csrc/int8_trunk.cu`)
     when the trunk's structure matches (two biased ReLU QuantLinears, no
@@ -23,8 +30,16 @@ tensors' device (the kernel on CUDA, its plain version on the CPU), so
 `Serve/quant_fused` reads 1 on either device wherever the structure
 matches. The reference reads 0 off the TPU, where its gate is off.
 
-Only SAC is ported: `dreamer_v3 --quant int8` raises (ROADMAP Queue A
-item 2).
+Which Linears a DreamerV3 calibration records depends, in the reference,
+on its Pallas gate: with the gate on (the TPU path) the GRU cell takes its
+kernel branch, which reads `rssm.recurrent_model.rnn.proj.weight` and never
+calls the Linear, so that Linear gets no scale and stays f32 (10 scales at
+the default structure); with the gate off (its plain CPU path) the cell
+calls it and it is quantized too (11). The port's cell takes the kernel
+branch by structure on either device, so its calibration covers the gated
+reference's 10, and a `quant_scales.npz` the reference wrote on that path
+loads here unchanged (ROADMAP Queue C: a finding in the reference,
+mirrored, not fixed).
 
 A hot reload re-derives the scales for the new params version in the
 reload thread (the ParamsStore `on_reload` hook; `Serve/quant_rederives`
@@ -49,8 +64,6 @@ from ..ops.precision import compute_dtype
 
 __all__ = ["QuantState", "action_divergence"]
 
-DV3_NOT_PORTED = "--quant int8 for dreamer_v3 is not yet ported (ROADMAP Queue A item 4)"
-
 _CALIB_BATCHES = 4
 _CALIB_ROWS = 64
 # The reference's offset, kept for parity: its held-out draws are NOT new,
@@ -61,12 +74,23 @@ _HELD_OUT_SEED_OFFSET = 1
 
 def action_divergence(a: Any, b: Any) -> float:
     """Quality metric for `decide`: max elementwise |delta| over the two
-    step outputs (tensors, or lists / tuples / dicts of them)."""
+    step outputs (tensors, or lists / tuples / dicts of them: DreamerV3's
+    (state dict, actions), so the recurrent state counts)."""
     worst = 0.0
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         if x.numel():
             worst = max(worst, float((x.double() - y.double()).abs().max()))
     return worst
+
+
+def _synth_obs(space, rng: np.random.Generator, rows: int) -> np.ndarray:
+    """Seeded synthetic observations matching a space: uniform bytes for
+    image (uint8) spaces, unit normals for float vectors."""
+    shape = (rows,) + tuple(space.shape)
+    dt = np.dtype(space.dtype)
+    if dt == np.uint8:
+        return rng.integers(0, 256, size=shape, dtype=np.uint8)
+    return rng.standard_normal(shape).astype(dt)
 
 
 class QuantState:
@@ -93,24 +117,30 @@ class QuantState:
         self._fused = False
 
     # ---- calibration + quantization ---------------------------------------
-    def _calib_inputs(self, version: int, params, rows: int, seed: int) -> tuple[torch.Tensor]:
-        """One seeded batch of step inputs (minus params): SAC takes a bare
-        obs matrix on the policy's device."""
-        del version, params
-        if self.policy.algo != "sac":
-            raise NotImplementedError(DV3_NOT_PORTED)
+    def _calib_inputs(self, version: int, params, rows: int, seed: int) -> tuple:
+        """One seeded batch of step inputs (minus params) on the policy's
+        device: SAC takes a bare obs matrix, DreamerV3 (state rows, obs
+        dict), the rows its params' init row and the obs `_synth_obs`'s,
+        drawn in `obs_keys` order from one generator."""
         rng = np.random.default_rng(seed)
-        obs = rng.standard_normal((rows, self.policy.obs_dim)).astype(np.float32)
-        return (torch.from_numpy(obs).to(self.policy.device),)
+        device = self.policy.device
+        if self.policy.algo == "sac":
+            obs = rng.standard_normal((rows, self.policy.obs_dim)).astype(np.float32)
+            return (torch.from_numpy(obs).to(device),)
+        row = self.policy.init_row(version, params)
+        with torch.no_grad():
+            state = {k: torch.stack([v] * rows) for k, v in row.items()}
+        obs = {k: torch.from_numpy(_synth_obs(self.policy.obs_space[k], rng, rows)).to(device)
+               for k in self.policy.obs_keys}
+        return (state, obs)
 
     def _calibrate(self, version: int, params) -> dict[str, np.ndarray]:
         from ..ops import quant as q
 
-        batches = [
-            self._calib_inputs(version, params, _CALIB_ROWS, self.seed + i)[0]
-            for i in range(_CALIB_BATCHES)
-        ]
-        return q.calibrate(params, lambda m, obs: m.get_greedy_actions(obs), batches)
+        batches = [self._calib_inputs(version, params, _CALIB_ROWS, self.seed + i) for i in range(_CALIB_BATCHES)]
+        if self.policy.algo == "sac":
+            return q.calibrate(params, lambda m, b: m.get_greedy_actions(b[0]), batches)
+        return q.calibrate(params, lambda m, b: self.policy.step(m, *b), batches)
 
     def _scales_for(self, version: int, params) -> dict[str, np.ndarray] | None:
         """Persisted scales for the first version when available, freshly

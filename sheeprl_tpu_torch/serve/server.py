@@ -1,6 +1,5 @@
-"""Socket front of the serving tier (the port of sheeprl_tpu/serve/server.py,
-without its span tracing and on-demand profiling): FLK1 frames in,
-micro-batched dispatch in the middle, FLK1 frames out.
+"""Socket front of the serving tier (the port of sheeprl_tpu/serve/server.py):
+FLK1 frames in, micro-batched dispatch in the middle, FLK1 frames out.
 
 One accept thread plus one handler thread per client connection. A handler
 parses REQUEST frames, submits to the shared MicroBatcher, blocks on the
@@ -15,7 +14,17 @@ per-request event, and answers with exactly one frame per request:
 RELOAD frames trigger `ParamsStore.reload` in the handler thread. HELLO /
 WELCOME carries the serving contract: algo, ladder rungs, params version.
 HEALTH frames (kind 16) answer {ready, draining, version, queue_depth,
-completed}.
+completed}. PROFILE frames (kind 17), on a bare connection or within a
+session, open a bounded on-demand profiler window in the serving process
+(`telemetry/trace.py:handle_profile_frame`) and are answered with its
+reply {ok, dir, trace, seconds, pid} or a refusal {ok: false, error}.
+
+Each request is a span (`telemetry/trace.py:Tracer`, off under
+SHEEPRL_TPU_TRACE=0): its parent is the client's span id from the REQUEST
+meta, its own id is echoed in the RESPONSE meta, and it ends with its
+outcome: served (with the decomposition queue_ms, pad_ms, dispatch_ms,
+slice_ms and send_ms), shed, error or replay. A connection that fails is
+reported with the id and span of the last request it carried.
 
 String request ids are idempotent: a terminal answer (RESPONSE/ERROR, never
 SHED) is cached in a bounded dedupe map, so a client that reconnects and
@@ -77,6 +86,8 @@ class ServeServer:
         self.batcher = batcher
         self._bind = bind
         self._telem = telem
+        # the request spans' emitter; None without a telemetry (or with a stub)
+        self._tracer = getattr(telem, "tracer", None)
         self.address: str | None = None
         self._listener: socket.socket | None = None
         self._unix_path: str | None = None
@@ -181,9 +192,17 @@ class ServeServer:
         }
 
     def _serve_conn(self, conn: socket.socket) -> None:
+        # the connection's last request id and span: a failure of the
+        # connection is reported against the request it interrupted
+        last = {"rid": None, "span": None}
         try:
             frame = wire.recv_frame(conn)
-            if frame is None or frame[0] != wire.HELLO:
+            if frame is None:
+                return
+            if frame[0] == wire.PROFILE:
+                self._answer_profile(conn, frame[1])
+                return
+            if frame[0] != wire.HELLO:
                 return
             wire.send_json(conn, wire.WELCOME, self._hello_payload())
             while not self._stop.is_set():
@@ -196,6 +215,8 @@ class ServeServer:
                 if kind == wire.RELOAD:
                     req = json.loads(payload.decode()) if payload else {}
                     wire.send_json(conn, wire.RELOAD, self.store.reload(req.get("path")))
+                elif kind == wire.PROFILE:
+                    self._answer_profile(conn, payload)
                 elif kind == HEALTH:
                     wire.send_json(conn, HEALTH, {
                         "ready": not self._draining.is_set(),
@@ -205,7 +226,7 @@ class ServeServer:
                         "completed": self.completed,
                     })
                 elif kind == wire.REQUEST:
-                    self._handle_request(conn, payload)
+                    self._handle_request(conn, payload, last)
                 else:
                     wire.send_json(conn, wire.ERROR,
                                    {"error": f"unexpected frame kind {kind}", "kind": "protocol"})
@@ -213,23 +234,43 @@ class ServeServer:
             # the failure killed only THIS connection; every other client
             # keeps being served, and the event is its receipt
             if not self._stop.is_set():
-                self._event("serve.conn_error", error=f"{type(err).__name__}: {err}")
+                self._event("serve.conn_error", error=f"{type(err).__name__}: {err}",
+                            request_id=last["rid"], span=last["span"])
         finally:
             try:
                 conn.close()
             except OSError as err:
-                self._event("serve.close_error", error=f"{type(err).__name__}: {err}")
+                self._event("serve.close_error", error=f"{type(err).__name__}: {err}",
+                            request_id=last["rid"], span=last["span"])
 
-    def _handle_request(self, conn: socket.socket, payload: bytes) -> None:
+    def _answer_profile(self, conn: socket.socket, payload: bytes) -> None:
+        """Open a bounded profiler window in this process; reply with the
+        window's directory and trace file, or with its refusal."""
+        from ..telemetry.trace import handle_profile_frame
+
+        req = json.loads(payload.decode()) if payload else {}
+        wire.send_json(conn, wire.PROFILE, handle_profile_frame(req, getattr(self._telem, "log_dir", None)))
+
+    def _end_span(self, span, **attrs) -> None:
+        if self._tracer is not None:
+            self._tracer.end(span, **attrs)
+
+    def _handle_request(self, conn: socket.socket, payload: bytes, last: dict | None = None) -> None:
         t0 = time.monotonic()
         meta, obs = unpack_request(payload)
         rid = meta.get("id")
+        # the request's span, parented on the client's span from the meta
+        span = self._tracer.begin("request", parent=meta.get("span"), id=rid) if self._tracer is not None else None
+        if last is not None:
+            last["rid"] = rid
+            last["span"] = span.id if span is not None else meta.get("span")
         if isinstance(rid, str):
             with self._lock:
                 cached = self._dedupe.get(rid)
             if cached is not None:
                 # replayed id after a reconnect: repeat the answer, not the work
                 wire.send_frame(conn, cached[0], cached[1])
+                self._end_span(span, outcome="replay")
                 return
         if self._draining.is_set():
             wire.send_json(conn, wire.SHED, {
@@ -237,6 +278,7 @@ class ServeServer:
                 "reason": "draining",
             })
             self._finish(t0)
+            self._end_span(span, outcome="shed", reason="draining")
             return
         limit = self.policy.max_rows_per_request
         try:
@@ -256,16 +298,19 @@ class ServeServer:
                 "id": rid, "retry_after_ms": round(shed.retry_after_ms, 1), "reason": shed.reason,
             })
             self._finish(t0)
+            self._end_span(span, outcome="shed", reason=shed.reason)
             return
         except OversizedRequest as err:
             self._answer(conn, rid, wire.ERROR,
                          json.dumps({"id": rid, "error": str(err), "kind": "oversized"}).encode())
             self._finish(t0)
+            self._end_span(span, outcome="error", kind="oversized")
             return
         except ServeError as err:
             self._answer(conn, rid, wire.ERROR,
                          json.dumps({"id": rid, "error": str(err), "kind": "failed"}).encode())
             self._finish(t0)
+            self._end_span(span, outcome="error", kind="failed")
             return
         out_meta = {
             "id": rid,
@@ -277,8 +322,18 @@ class ServeServer:
             "offset": pending.offset,
             "queue_ms": round(pending.queue_ms, 3),
         }
+        if span is not None:
+            out_meta["span"] = span.id
+        t_send = time.monotonic()
         self._answer(conn, rid, wire.RESPONSE, pack_request(out_meta, result))
         self._finish(t0)
+        # the served decomposition: queue wait, pad, dispatch, slice, send
+        self._end_span(
+            span, outcome="served", version=pending.version, rung=pending.rung, rows=pending.rows,
+            queue_ms=round(pending.queue_ms, 3), pad_ms=round(pending.pad_ms, 3),
+            dispatch_ms=round(pending.dispatch_ms, 3), slice_ms=round(pending.slice_ms, 3),
+            send_ms=round((time.monotonic() - t_send) * 1000.0, 3),
+        )
 
     def _answer(self, conn: socket.socket, rid, kind: int, payload: bytes) -> None:
         """Send a TERMINAL answer (RESPONSE/ERROR), remembering it for string

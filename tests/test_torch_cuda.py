@@ -1584,3 +1584,117 @@ def test_graphed_pendulum_player_chunk_equals_eager_bit_for_bit(cuda_device):
             assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
     assert len(results[False]) == len(results[True])
     assert all(torch.equal(a, b) for a, b in zip(results[False], results[True]))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the serving tier: DreamerV3's int8 twin, the ladder's probe,
+# the on-demand profiler window
+# ---------------------------------------------------------------------------
+
+TINY_SERVE_MODEL = ("--env_id discrete_dummy --cnn_keys rgb --cnn_channels_multiplier 2 --dense_units 16 "
+                    "--hidden_size 16 --recurrent_state_size 16 --stochastic_size 4 --discrete_size 4")
+
+
+def _tiny_dv3_policy(device):
+    from sheeprl_tpu_torch.serve.args import ServeArgs
+    from sheeprl_tpu_torch.serve.policies import build_policy
+
+    policy, player, _ = build_policy(ServeArgs(model_argv=TINY_SERVE_MODEL, device=str(device)), device)
+    return policy, player
+
+
+@pytest.mark.cuda
+def test_graphed_dv3_int8_twin_equals_eager_bit_for_bit(cuda_device, tmp_path):
+    """The DreamerV3 int8 twin's rung-8 step captured as serve captures it
+    (`adopt=True` on the rung's buffers) replays equal to its eager launch,
+    bit for bit, with the GRU (kernel 1) and the four conv stages (kernel
+    3) inside the graph."""
+    import types
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.ops.quant import QuantLinear
+    from sheeprl_tpu_torch.serve.quant import QuantState
+
+    policy, player = _tiny_dv3_policy(cuda_device)
+    twin = QuantState(policy, types.SimpleNamespace(quant_bound=0.05, seed=0, ckpt=None),
+                      str(tmp_path)).params_for(1, player)
+    assert any(isinstance(m, QuantLinear) for m in twin.modules())
+    _, state, obs = policy.example(twin, 8)
+    rng = np.random.default_rng(1)
+
+    def step(*a):
+        with torch.inference_mode():
+            return policy.step(*a)
+
+    plan = CompilePlan(device=cuda_device)
+    runner = plan.register("policy_b8", step, adopt=True)
+    for i in range(3):
+        with torch.inference_mode():
+            obs["rgb"].copy_(torch.from_numpy(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)))
+        want_state, want_acts = step(twin, state, obs)
+        got_state, got_acts = runner(twin, state, obs)
+        torch.cuda.synchronize()
+        assert torch.equal(got_acts, want_acts), i
+        assert all(torch.equal(got_state[k], want_state[k]) for k in want_state), i
+    entry = plan.stats()["entries"]["policy_b8"]
+    assert entry["aot_calls"] == 2 and entry["fallbacks"] == 0
+    assert entry["launches_per_replay"] == {"layernorm_gru_cell": 1, "conv_ln_silu": 4}
+
+
+@pytest.mark.cuda
+def test_ladder_probe_on_the_card_is_memoized(cuda_device, tmp_path):
+    """The ladder's probe on the card: a peak of the arguments' bytes plus
+    the allocator's rise during one eager step (above 0), the second sizing
+    read from `serve_ladder.json`."""
+    import json
+    import os
+
+    from sheeprl_tpu_torch.ops.kernels import cnn, gru
+    from sheeprl_tpu_torch.serve import ladder
+
+    policy, player = _tiny_dv3_policy(cuda_device)
+    store = str(tmp_path / "serve_ladder.json")
+    gru.layernorm_gru_cell.launches = cnn.conv_ln_silu.launches = 0
+    first = ladder.size_ladder(policy.step, lambda r: policy.example(player, r), [1, 8], "dreamer_v3@serve",
+                               store_path=store)
+    assert gru.layernorm_gru_cell.launches == 2 and cnn.conv_ln_silu.launches == 8  # one eager step a rung
+    args_b = {r: ladder.example_arg_bytes(policy.example(player, r)) for r in (1, 8)}
+    for d in first:
+        assert d.accepted and d.source == "probe" and d.reason.endswith("(probe)")
+        assert d.peak_bytes > args_b[d.rung] > 0
+    with open(store) as fh:
+        records = list(json.load(fh).values())
+    assert len(records) == 2 and all(r["probe"]["rise_bytes"] > 0 for r in records)
+    assert all(torch.cuda.get_device_name(cuda_device) in r["key"] for r in records)
+    again = ladder.size_ladder(policy.step, lambda r: policy.example(player, r), [1, 8], "dreamer_v3@serve",
+                               store_path=store)
+    assert gru.layernorm_gru_cell.launches == 2  # no second probe
+    assert [d.peak_bytes for d in again] == [d.peak_bytes for d in first]
+    assert all(d.reason.endswith("(probe cache)") for d in again) and os.path.getsize(store) > 0
+
+
+@pytest.mark.cuda
+def test_profile_window_on_the_card_traces_a_port_kernel(cuda_device, tmp_path):
+    """An on-demand window opened as a PROFILE frame opens it records the
+    card's activity: its chrome trace names the GRU kernel launched while
+    it was open, from another thread than the window's."""
+    import json
+
+    from sheeprl_tpu_torch.telemetry.trace import handle_profile_frame, profile_window
+
+    gen = torch.Generator().manual_seed(0)
+    x, h = (_rand(gen, 8, 32).to(cuda_device) for _ in range(2))
+    w = _rand(gen, 96, 64, scale=0.1).to(cuda_device)
+    scale, offset = torch.ones(96, device=cuda_device), torch.zeros(96, device=cuda_device)
+    gru.layernorm_gru_cell(x, h, w, scale, offset, 1e-3)  # built before the window
+    reply = handle_profile_frame({"seconds": 30}, str(tmp_path))
+    assert reply["ok"] and reply["cuda"]
+    assert not handle_profile_frame({"seconds": 1}, str(tmp_path))["ok"]
+    for _ in range(4):
+        gru.layernorm_gru_cell(x, h, w, scale, offset, 1e-3)
+    profile_window().close()
+    with open(reply["trace"]) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+    assert sum("gru_row_kernel" in n for n in names) >= 4

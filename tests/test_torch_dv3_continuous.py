@@ -720,7 +720,9 @@ def test_serve_writes_its_address_whole(tmp_path, monkeypatch):
     run(["serve", "--device", "cpu", "--model_argv", "--env_id continuous_dummy --cnn_keys rgb "
          "--cnn_channels_multiplier 2 --dense_units 16 --hidden_size 16 --recurrent_state_size 16", "--root_dir",
          str(tmp_path), "--run_name", "s", "--serve_requests", "0", "--dry_run"])
-    assert len(renamed) == 1 and renamed[0][0] == "serve_address" and renamed[0][1].startswith("unix:")
+    # the ladder's memo (serve_ladder.json) is renamed into place too
+    address = [text for name, text in renamed if name == "serve_address"]
+    assert len(address) == 1 and address[0].startswith("unix:")
     assert os.listdir(tmp_path / "s").count("serve_address.tmp") == 0
 
 

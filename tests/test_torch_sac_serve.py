@@ -375,8 +375,8 @@ def test_quant_options_are_checked(tmp_path):
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.serve.args import ServeArgs
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
-        run(["serve", "--device", "cpu", "--algo", "dreamer_v3", "--quant", "int8",
+    with pytest.raises(ValueError, match="quant must be"):
+        run(["serve", "--device", "cpu", "--algo", "sac", "--quant", "int4",
              "--root_dir", str(tmp_path), "--dry_run"])
     with pytest.raises(ValueError, match="quant_bound"):
         ServeArgs(quant_bound=0.0)

@@ -128,17 +128,25 @@ def test_serve_without_cuda_raises_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--quant", "int8"], ["--ckpt", "some/ckpt"]])
 def test_unported_serve_options_raise(tmp_path, flag):
-    """`--quant int8` for dreamer_v3 is not ported and raises; `--ckpt` is
-    ported, and a path that holds no checkpoint raises at start-up, before
+    """Both options once raised here. `--quant int8` for dreamer_v3 is now
+    ported: a dry run calibrates, decides each rung and starts
+    (tests/test_torch_serve_tier.py holds it against the reference). `--ckpt`
+    is ported, and a path that holds no checkpoint raises at start-up, before
     the server listens (tests/test_torch_checkpoint.py serves real ones)."""
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.serve.errors import ServeError
 
-    error, match = (ServeError, "no args.json sidecar") if flag[0] == "--ckpt" else (NotImplementedError,
-                                                                                      "not yet ported")
-    with pytest.raises(error, match=match):
-        run(["serve", "--device", "cpu", "--model_argv", TINY_MODEL, "--root_dir", str(tmp_path),
-             "--dry_run", *flag])
+    argv = ["serve", "--device", "cpu", "--model_argv", TINY_MODEL, "--root_dir", str(tmp_path),
+            "--run_name", "r", "--max_batch", "2", "--dry_run", *flag]
+    if flag[0] == "--ckpt":
+        with pytest.raises(ServeError, match="no args.json sidecar"):
+            run(argv)
+        return
+    run(argv)
+    records = _records(os.path.join(str(tmp_path), "r"))
+    start = next(r for r in records if r.get("event") == "serve.start")
+    assert start["quant"] == "int8" and start["rungs"] == [1, 2]
+    assert len([r for r in records if r.get("event") == "serve.quant_rung"]) == 2
 
 
 def test_ladder_auto_is_powers_of_two():
