@@ -195,9 +195,33 @@ the final line:
      from the step-68 checkpoint: the poller reloads the newest valid one;
      (e) on (d)'s server a PROFILE window whose chrome trace holds kernels 1
      and 3, an overlapping frame refused, a span for every request. The
-     kernels line's `tier_launches` are (a)'s and (a')'s device counts.
+     kernels line's `tier_launches` are (a)'s and (a')'s device counts;
+ 16. env: the env and logging layer. (a) `dreamer_v3 --env_id pixeltoy
+     --grayscale_obs --num_envs 4 --action_repeat 2 --max_episode_steps 100
+     --remat on --profile --profile_steps 2` at DreamerV3's full width, the
+     4 host twins in worker processes (the async vector env): losses
+     finite, every model moved, 4 workers, the test episode cut at 50
+     player steps of 2 env steps (its return 100 step penalties), a chrome
+     trace under the run's `profile/` holding kernel 2, the telemetry's
+     phase times and lifecycle events; (b) the same run without the
+     profiler, counted on the device: 143 kernel-2 launches a gradient step
+     (each of the 64 scan steps forward twice under `--remat on`, the 15
+     imagination steps once), 4 conv-res (the first stage at Cin = 1), 3
+     deconv, 3 two_hot, 1 GRU and 4 conv a player step; (c) kernels 3 and
+     3-res at Cin = 1 (the player's N = 4 and the test episode's N = 1, the
+     gradient step's N = 1,024) against their plain versions, timed beside
+     their bounds and library times; (d) one full-width gradient step on
+     gray frames under `--remat off`, `on` and `policy` from one state and
+     one set of draws, with cuDNN's deterministic algorithms (its default
+     conv backward is not repeatable): eagerly (its peak memory) and
+     graphed (a replay's device time, the graph pool), two graphed steps'
+     metrics, parameters, moments and normaliser under `on`, `policy` and
+     `off` again bit for bit those of `off`; and `--remat auto`'s
+     decision. The kernels line's `env_layer_launches` are (b)'s device
+     counts and `gray_cin1` (c)'s rows. Alone: `python3
+     tools/torch_env_phase.py`.
 
-Every path of phases 4, 6-10 and 12-15 runs graphed through the CLIs
+Every path of phases 4, 6-10 and 12-16 runs graphed through the CLIs
 (`compile/plan.py`: serve captures every rung at startup, the trainers
 each step at its first call), and each phase fails on a fallback. A serve
 first probes each rung with one eager step (the ladder's sizing), and a
@@ -293,10 +317,13 @@ class GcPauses:
     phase's count and pause by generation, and the collections of
     generation 1 or 2 or longer than 0.5 ms with their phase, objects freed
     and pause on the host's clock (start, ms). A timed serve reads the
-    pauses inside its window; each phase ends with a line of its own."""
+    pauses inside its window; each phase ends with a line of its own, and
+    a `[phase]` line with its host wall (`seconds`, by phase)."""
 
     def __init__(self):
         self.phase, self.rows, self.totals, self._start = "setup", [], {}, 0.0
+        self.seconds: dict[str, float] = {}
+        self._phase_t0 = time.perf_counter()
 
     def __call__(self, event: str, info: dict) -> None:
         now = time.perf_counter()
@@ -319,7 +346,10 @@ class GcPauses:
                 + "/".join(str(n) for n, _ in counts) + f", {sum(ms for _, ms in counts):.1f} ms in all"
                 + ("" if top is None else f"; longest {top['ms']:.2f} ms (generation {top['generation']}, "
                    f"{top['collected']} freed)"))
-        self.phase = phase
+        now = time.perf_counter()
+        self.seconds[self.phase] = now - self._phase_t0
+        log(f"[phase] {self.phase}: {self.seconds[self.phase]:.1f} s")
+        self.phase, self._phase_t0 = phase, now
 
     def between(self, t0: float, t1: float) -> list[dict]:
         return [r for r in self.rows if r["start"] < t1 and r["start"] + r["ms"] / 1e3 > t0]
@@ -2429,10 +2459,11 @@ def ckpt_phase(torch, np, run, ServeClient, train_root: str, train_done: dict, d
 # phase 10: coupled PPO and evaluation
 # ---------------------------------------------------------------------------
 
-# the reference's learning test (tests/test_algos/test_learning.py:25-41, its
-# --num_devices and --sync_env aside): 128 updates of 128 steps x 4 envs,
-# only the final checkpoint
-PPO_LEARN_ARGV = ["--env_id", "CartPole-v1", "--seed", "5", "--num_envs", "4", "--total_steps", "65536",
+# the reference's learning test as it stands (tests/test_algos/test_learning.py:
+# 25-41): 128 updates of 128 steps x 4 envs stepped in turn, only the final
+# checkpoint
+PPO_LEARN_ARGV = ["--env_id", "CartPole-v1", "--seed", "5", "--num_devices", "1", "--num_envs", "4", "--sync_env",
+                  "--total_steps", "65536",
                   "--rollout_steps", "128", "--per_rank_batch_size", "128", "--update_epochs", "6",
                   "--ent_coef", "0.01", "--anneal_lr", "--normalize_advantages", "--max_grad_norm", "0.5",
                   "--checkpoint_every", "1000000"]
@@ -2450,8 +2481,9 @@ PPO_EVAL_SEED, PPO_EVAL_EPISODES, PPO_RETURN_BAR = 1000, 10, 400.0
 # whose rate has dropped to 0.6 passes it 12.6 % of the time, at 0.5 2.1 %
 PPO_RUNDOWN_SEEDS, PPO_RUNDOWN_PASSES = tuple(range(6, 26)), 15
 # PPO on pixels at the default widths (NatureCNN 32/64/64, 512 features,
-# dense 64): 2 updates of 128 steps x 4 envs, 10 epochs of 8 minibatches
-PPO_PIXEL_ARGV = ["--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--total_steps", str(2 * 128 * 4)]
+# dense 64): 2 updates of 128 steps x 4 envs, 10 epochs of 8 minibatches; the
+# envs stepped in turn (phase 16 drives the env worker processes)
+PPO_PIXEL_ARGV = ["--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--sync_env", "--total_steps", str(2 * 128 * 4)]
 # one update on the card against the same update on the CPU: f32 sums in
 # other orders through 24 (CartPole) or 80 (pixels) Adam steps
 PPO_LOSS_RTOL, PPO_PARAM_TOL = 1e-3, 1e-4
@@ -2481,16 +2513,17 @@ def _ppo_state(torch, ckpt: str, device):
     keys. -> (args, agent, optimizer, envs, obs_keys)."""
     from sheeprl_tpu_torch.algos.ppo import ppo
     from sheeprl_tpu_torch.algos.ppo.args import PPOArgs
+    from sheeprl_tpu_torch.envs.vector import SyncVectorEnv
     from sheeprl_tpu_torch.ops.optim import load_optimizer_state
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_args
     from sheeprl_tpu_torch.utils.env import make_dict_env
     from sheeprl_tpu_torch.utils.parser import DataclassArgumentParser
 
     (args,) = DataclassArgumentParser(PPOArgs).parse_dict(load_checkpoint_args(ckpt))
-    envs = [make_dict_env(args.env_id, 77 + i, rank=0, args=args)() for i in range(args.num_envs)]
-    space = envs[0].observation_space
+    envs = SyncVectorEnv([make_dict_env(args.env_id, 77 + i, rank=0, args=args) for i in range(args.num_envs)])
+    space = envs.single_observation_space
     cnn_keys, mlp_keys = ppo.validate_obs_keys(space, args)
-    actions_dim, cont = ppo.actions_dim_of(envs[0].action_space)
+    actions_dim, cont = ppo.actions_dim_of(envs.single_action_space)
     saved = load_checkpoint(ckpt, device)
     agent = ppo.build_agent(args, actions_dim, cont, space.spaces, cnn_keys, mlp_keys, torch.Generator()).to(device)
     agent.load_state_dict(saved["agent"])
@@ -4528,6 +4561,325 @@ def tier_phase(torch, np, run, ServeClient, device, train_root: str, smi: str) -
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the env and logging layer
+# ---------------------------------------------------------------------------
+
+# DreamerV3's defaults (full width) on pixeltoy's host twin, 4 envs in
+# worker processes (no --sync_env), each frame grayed (Cin = 1), each action
+# repeated twice, episodes cut at 100 env steps (50 player steps), the RSSM
+# scan and imagination checkpointed: 64 random steps of the 4 envs fill each
+# env's ring past T = 64, then a pretrain step and 3 player steps, each
+# followed by a gradient step (4 in all)
+ENV_ENVS, ENV_REPEAT, ENV_LIMIT = 4, 2, 100
+ENV_LAYER_ARGV = ["dreamer_v3", "--env_id", "pixeltoy", "--grayscale_obs", "--cnn_keys", "rgb", "--num_envs",
+                  str(ENV_ENVS), "--action_repeat", str(ENV_REPEAT), "--max_episode_steps", str(ENV_LIMIT),
+                  "--remat", "on", "--buffer_size", "1024", "--learning_starts", "256", "--train_every", "4",
+                  "--total_steps", "268"]
+ENV_PROFILE_STEPS = 2
+GRAY_STAGE = (1, 32, 64)  # the encoder's first stage on gray frames: K = 16 x 1
+# kernel 2 a gradient step under --remat on or policy (the prediction in
+# PERF.md §6, PR 16): the 64 scan steps forward twice (the forward, then the
+# backward's recompute of each checkpointed step) and imagination's 15 once
+# (a discrete actor's loss takes no gradient through the imagined steps, so
+# their checkpoints are never unpacked)
+REMAT_PER_GRADIENT_STEP = {**PER_GRADIENT_STEP, "layernorm_gru_cell_residuals": 2 * 64 + 15}
+REMAT_MODES = ("off", "on", "policy")
+
+
+def gray_kernel_rows(torch, F) -> list[dict]:
+    """Kernels 3 and 3-res at the gray encoder's first stage (Cin = 1) against
+    their plain versions at the path's shapes: the player step's N = 4 (the
+    4 envs) and the test episode's N = 1, the gradient step's N = T * B =
+    1,024, in f32, at phase 3's tolerances, with times, bounds and library
+    times."""
+    from sheeprl_tpu_torch.ops.kernels import cnn
+
+    gen = torch.Generator().manual_seed(16)
+    dev = torch.device("cuda")
+    cin, cout, size = GRAY_STAGE
+    rows = []
+    for kernel, n in (("conv_ln_silu", ENV_ENVS), ("conv_ln_silu", 1), ("conv_ln_silu_residuals", TRAIN_N)):
+        x = torch.rand(n, size, size, cin, generator=gen).to(dev)  # gray pixels / 255
+        w = (torch.randn(4, 4, cin, cout, generator=gen) * (2.0 / (16 * (cin + cout))) ** 0.5).to(dev)
+        scale = (1.0 + 0.1 * torch.randn(cout, generator=gen)).to(dev)
+        offset = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+        args = (x, w, scale, offset, 1e-3)
+        fn, plain = getattr(cnn, kernel), getattr(cnn, kernel + "_plain")
+        pixels = n * (size // 2) ** 2
+        res = kernel.endswith("residuals")
+        nbytes = 4 * (x.numel() + w.numel() + pixels * cout * (2 if res else 1) + 2 * cout)
+        rows.append(check_case(torch, kernel, f"N={n} {cin}->{cout} @{size}x{size}", "float32",
+                               lambda a=args, f=fn: f(*a), lambda a=args, f=plain: f(*a), lambda f=fn: f.launches,
+                               nbytes, 2.0 * pixels * cout * 16 * cin, conv_library(torch, F, *args)))
+        log("[env] kernel at Cin = 1:" + fmt(rows[-1]))
+    return rows
+
+
+def _gray_train_state(torch, np, device):
+    """A full-width DreamerV3 train state on gray 64 x 64 frames (5 actions,
+    as pixeltoy), two [T, B] batches of pixeltoy-like episodes and their
+    draws, all from fixed seeds. -> (args, state, calls)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_models
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.moments import Moments
+
+    args = DreamerV3Args(grayscale_obs=True)
+    space = {"rgb": spaces.Box(0, 255, (64, 64, 1), np.uint8)}
+    models = build_models(torch.Generator().manual_seed(0), [5], False, args, space, ["rgb"], [])
+    for m in models:
+        m.to(device)
+    state = dv3.DV3TrainState(*models, *dv3.make_optimizers(args, *models[:3]),
+                              Moments(args.moments_decay, args.moment_max, device=device))
+    T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+    rng = np.random.default_rng(16)
+    dones, is_first = np.zeros((T, B, 1), np.float32), np.zeros((T, B, 1), np.float32)
+    dones[49::50, ::2], is_first[50::50, ::2] = 1.0, 1.0
+    calls = []
+    for tau in (1.0, 0.02):
+        batch = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 1), dtype=np.uint8),
+                 "actions": np.eye(5, dtype=np.float32)[rng.integers(0, 5, (T, B))],
+                 "rewards": np.where(rng.random((T, B, 1)) < 0.05, 1.0, -0.01).astype(np.float32),
+                 "dones": dones, "is_first": is_first}
+        data = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        noise = dv3.draw_noise(args, T, B, [5], torch.Generator(device=device).manual_seed(len(calls)), device)
+        calls.append((data, torch.full((), tau, device=device), noise))
+    return args, state, calls
+
+
+def _differ(torch, a: list, b: list) -> list[int]:
+    return [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+
+
+def remat_modes_check(torch, np, device) -> dict:
+    """One full-width gradient step on gray frames under `--remat off`, `on`
+    and `policy`, each from a copy of one state with one set of draws, with
+    cuDNN's deterministic algorithms (its default conv backward sums in an
+    order that changes from run to run): (a) eagerly, its peak device
+    memory (the allocator's peak after `reset_peak_memory_stats`, less what
+    was held before) and host wall; (b) graphed (`compile/plan.py`: the
+    first call warms up and captures, the second replays), then 3 replays
+    timed by CUDA events, the graph pool and kernel 2's launches a replay;
+    the two graphed steps' metrics and every parameter, Adam moment and the
+    return normaliser after them bit for bit those of `off`, which runs
+    twice. Then `--remat auto`'s decision (`decide_remat` on the RSSM
+    scan's gradient at these shapes, one timed call a candidate). Raises on
+    a difference. -> the
+    report."""
+    import copy
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.utils import maybe_decide_remat
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.args import DreamerV3Args
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+
+    args0, state0, calls = _gray_train_state(torch, np, device)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out: dict = {}
+    runs: dict = {}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for label in ("off", "on", "policy", "off again"):
+            mode = label.split()[0]
+            args = copy.copy(args0)
+            args.remat = mode
+            if label != "off again":
+                state = copy.deepcopy(state0)
+                eager = dv3.make_train_step(args, ["rgb"], [], [5], False).device_step
+                eager(state, *calls[0])  # cuDNN's plans and the allocator's first blocks
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                held = torch.cuda.memory_allocated(device)
+                t0 = time.perf_counter()
+                eager(state, *calls[1])
+                torch.cuda.synchronize()
+                eager_ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated(device) - held
+                del state, eager
+                free()
+            state, plan = copy.deepcopy(state0), CompilePlan(device=device)
+            step = dv3.make_train_step(args, ["rgb"], [], [5], False, plan=plan).device_step
+            tensors = [step(state, *c).clone() for c in calls]
+            torch.cuda.synchronize()
+            tensors += [t.detach().clone() for m in (state.world_model, state.actor, state.critic,
+                                                     state.target_critic) for t in m.state_dict().values()]
+            tensors += [t.clone() for opt in (state.world_opt, state.actor_opt, state.critic_opt)
+                        for st in opt.state.values() for t in st.values()]
+            tensors += [state.moments.low.clone(), state.moments.high.clone()]
+            runs[label] = tensors
+            entry = plan.stats()["entries"]["train_step"]
+            if entry["fallbacks"] or not entry["compiled"]:
+                raise RuntimeError(f"remat {mode}: the gradient step fell back or was not captured: {entry}")
+            if label != "off again":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(3):
+                    step(state, *calls[1])
+                end.record()
+                torch.cuda.synchronize()
+                out[mode] = dict(eager_peak_bytes=peak, eager_ms=eager_ms,
+                                 replay_device_ms=start.elapsed_time(end) / 3, pool_bytes=entry["peak_bytes"],
+                                 capture_seconds=entry["compile_seconds"],
+                                 kernel2_per_replay=entry["launches_per_replay"].get("layernorm_gru_cell_residuals"))
+                log(f"[env] remat {mode}: one eager gradient step peaks {peak / 2**20:.1f} MiB above what it holds, "
+                    f"{eager_ms:.1f} ms host; graphed: a replay {out[mode]['replay_device_ms']:.3f} ms (CUDA events, "
+                    f"3 replays), graph pool {(entry['peak_bytes'] or 0) / 2**20:.1f} MiB, kernel 2 "
+                    f"{out[mode]['kernel2_per_replay']} a replay (cuDNN's deterministic algorithms)")
+            del state, plan, step, tensors
+            free()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    want = REMAT_PER_GRADIENT_STEP["layernorm_gru_cell_residuals"]
+    if out["off"]["kernel2_per_replay"] != PER_GRADIENT_STEP["layernorm_gru_cell_residuals"] or any(
+            out[m]["kernel2_per_replay"] != want for m in ("on", "policy")):
+        raise RuntimeError(f"kernel 2 a replay under remat {[out[m]['kernel2_per_replay'] for m in REMAT_MODES]}, "
+                           f"predicted {PER_GRADIENT_STEP['layernorm_gru_cell_residuals']} off and {want} on/policy")
+    diffs = {label: _differ(torch, runs["off"], t) for label, t in runs.items() if label != "off"}
+    finite = bool(torch.isfinite(runs["off"][0]).all())
+    log(f"[env] remat, two graphed gradient steps against off's (of {len(runs['off'])} tensors: the metrics, "
+        "parameters, moments and normaliser): " + ", ".join(f"{label} differs in {len(d)}" for label, d in diffs.items())
+        + f"; finite: {finite}")
+    out["bit_exact_vs_off"] = {label: not d for label, d in diffs.items()}
+    if any(diffs.values()) or not finite:
+        raise RuntimeError(f"remat modes are not bit for bit: {[(k, len(d)) for k, d in diffs.items()]}")
+    del runs
+    free()
+    auto = DreamerV3Args(remat="auto", grayscale_obs=True)
+    decision = maybe_decide_remat("dreamer_v3", state0.world_model, auto, 5, repeats=1)
+    cands = decision.candidates
+    log(f"[env] --remat auto (decide_remat on the RSSM scan's gradient, T = 64, B = 16, bytes within "
+        f"{decision.max_time_cost_frac:g} of off's time): "
+        + ", ".join(f"{m} {cands[m]['exec_seconds'] * 1e3:.2f} ms {cands[m]['peak_bytes'] / 2**20:.1f} MiB "
+                    f"bit-exact {cands[m]['bit_exact']}" for m in REMAT_MODES)
+        + f"; winner {decision.winner} (args.remat {auto.remat})")
+    out["decide_remat"] = dict(winner=decision.winner, candidates=cands, accepted=decision.accepted)
+    del state0, calls
+    free()
+    return out
+
+
+def _trace_port_launches(path: str) -> dict:
+    """The port's kernels in a chrome trace (`port_kernel` of each kernel
+    event's name)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    counts: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            wrapper = port_kernel(e.get("name", ""))
+            if wrapper is not None:
+                counts[wrapper] = counts.get(wrapper, 0) + 1
+    return counts
+
+
+def env_layer_phase(torch, np, F, run, device, smi: str) -> dict:
+    """Phase 16: the env and logging layer on the card, (a) to (d) as in
+    the module's docstring. Raises on any failure. -> the phase's report."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
+
+    out: dict = {"smi": smi, "argv": ENV_LAYER_ARGV}
+    parts: dict[str, float] = {}
+    root = os.path.join(OUT_DIR, "env_logs")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def release() -> None:
+        """Return the blocks earlier runs left cached to the card, so that a
+        run's graph capture finds free memory for its pool and the
+        allocator never frees blocks while it captures."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[env] device memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, {free / 2**30:.2f} of {total / 2**30:.2f} "
+            "GiB free")
+
+    release()
+
+    # (a) the command as a user gives it, with its profiler window
+    t0 = time.perf_counter()
+    run([*ENV_LAYER_ARGV, "--profile", "--profile_steps", str(ENV_PROFILE_STEPS), "--root_dir", root,
+         "--run_name", "profiled"])
+    parts["profiled run"] = time.perf_counter() - t0
+    run_dir = os.path.join(root, "profiled")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh if line.strip()]
+    done, steps = records[-1], [r for r in records[:-1] if "gradient_steps" in r]
+    finite = all(math.isfinite(r[k]) for r in steps for k in METRICS)
+    moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+    test_steps, test_return = done["test_player_steps"][0], done["test_returns"][0]
+    cut = ENV_LIMIT // ENV_REPEAT
+    trace = os.path.join(run_dir, "profile", "trace.json")
+    window = _trace_port_launches(trace) if os.path.exists(trace) else {}
+    with open(os.path.join(run_dir, "telemetry.jsonl")) as fh:
+        telemetry = [json.loads(line) for line in fh if line.strip()]
+    events = [r["event"] for r in telemetry]
+    phases = sorted({k for r in telemetry if r["event"] == "interval" for k in r["metrics"] if k.startswith("Time/")})
+    log(f"[env] {' '.join(ENV_LAYER_ARGV)} --profile --profile_steps {ENV_PROFILE_STEPS}: "
+        f"{done['gradient_steps']} gradient steps, {done['player_steps']} player steps, {done['env_steps']} env "
+        f"steps in {parts['profiled run']:.1f} s through {done['vector_env']}; losses finite: {finite}; parameter "
+        f"change (L2) {moved}; remat {done['remat']}; test episode {test_steps} player steps (cut at {ENV_LIMIT} env "
+        f"steps = {cut} player steps), return {test_return:.6f}; trace {done['profile']} "
+        f"({os.path.getsize(trace) / 1e6 if os.path.exists(trace) else 0:.1f} MB), the port's kernels in its "
+        f"window of {ENV_PROFILE_STEPS} gradient steps: {window}; telemetry events {sorted(set(events))}, "
+        f"phases {phases}")
+    if done["vector_env"] != {"kind": "AsyncVectorEnv", "workers": ENV_ENVS} or done["remat"] != "on":
+        raise RuntimeError(f"the run did not go through {ENV_ENVS} env workers with remat on: {done['vector_env']}")
+    if done["gradient_steps"] < 4 or not finite or min(moved.values()) <= 0:
+        raise RuntimeError("the env-layer run took fewer than 4 gradient steps, lost finiteness or moved nothing")
+    # pixeltoy pays 0.01 an env step until the goal (+1): a test episode cut
+    # at the limit is 50 player steps of 2 env steps each, 100 penalties
+    if not 0 < test_steps <= cut or (test_steps == cut and abs(test_return + 0.01 * ENV_LIMIT) > 1e-5):
+        raise RuntimeError(f"the test episode does not show the repeat and the limit: {test_steps} steps, "
+                           f"return {test_return}")
+    if done["profile"] != trace or not os.path.exists(trace) or not {"profile.start", "profile.stop"} <= set(events):
+        raise RuntimeError(f"no profile trace under {run_dir}/profile: {done['profile']}")
+    if window.get("layernorm_gru_cell_residuals", 0) == 0:
+        raise RuntimeError(f"the profile window holds no gradient step's kernel 2: {window}")
+    if not {"Time/rollout_seconds", "Time/train/dispatch_seconds"} <= set(phases) or events[0] != "start" \
+            or events[-1] != "end":
+        raise RuntimeError(f"the run's telemetry lacks its phases or lifecycle events: {events[:3]} {phases}")
+    out["profiled"] = dict(done=done, records=steps, window_launches=window, telemetry_events=sorted(set(events)),
+                           phases=phases)
+
+    # (b) the same run, without the profiler, counted on the device
+    release()
+    t0 = time.perf_counter()
+    launches, crecords, cdone, wrapper = drive_train(torch, run, root, argv=ENV_LAYER_ARGV, run_name="counted")
+    parts["counted run"] = time.perf_counter() - t0
+    log(f"[env] the run again without --profile: launches on the device {launches}, by the wrappers {wrapper}; "
+        f"kernel 2 a gradient step predicted {REMAT_PER_GRADIENT_STEP['layernorm_gru_cell_residuals']} under "
+        f"remat on (79 off); {fmt_tests(cdone)}; graphs: {check_graphs(cdone, 'env')}")
+    expected = check_train_launches("env", launches, wrapper, REMAT_PER_GRADIENT_STEP, PER_PLAYER_STEP, cdone)
+    if cdone["vector_env"]["workers"] != ENV_ENVS:
+        raise RuntimeError(f"the counted run did not step {ENV_ENVS} env workers: {cdone['vector_env']}")
+    out["counted"] = dict(launches=launches, wrapper_launches=wrapper, expected=expected, done=cdone)
+
+    # (c) kernels 3 and 3-res at Cin = 1
+    t0 = time.perf_counter()
+    out["gray_rows"] = gray_kernel_rows(torch, F)
+    parts["kernels"] = time.perf_counter() - t0
+    bad = [r for r in out["gray_rows"] if not r["within_tol"]]
+    if bad:
+        raise RuntimeError(f"kernel 3 or 3-res at Cin = 1 out of tolerance: {bad}")
+
+    # (d) the three remat modes from one state and one set of draws
+    release()
+    t0 = time.perf_counter()
+    out["remat"] = remat_modes_check(torch, np, device)
+    parts["remat"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    log(f"[env] {smi}: the phase's parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; {sum(parts.values()):.1f} in all")
+    return out
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one card")
@@ -4813,8 +5165,13 @@ def main() -> int:
     GC.next_phase("15 tier")
     report["tier"] = tier_phase(torch, np, run, ServeClient, torch.device("cuda"), train_root, smi)
 
+    # -- phase 16: the env and logging layer ---------------------------------------
+    GC.next_phase("16 env")
+    report["env"] = env_layer_phase(torch, np, F, run, torch.device("cuda"), smi)
+
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])
+    report["phase_seconds"] = GC.seconds
     edges = DeviceLaunches.WINDOWS
     report["profiler_windows"] = edges
     log(f"[windows] {len(edges)} launch-count windows kept every empty edge kernel; slack kept at the least "
@@ -4917,6 +5274,23 @@ def main() -> int:
         k["tier_launches"] = tier_launches.get(k["name"], 0)
     if any(tier_launches.get(name, 0) == 0 for name in ("layernorm_gru_cell", "conv_ln_silu")):
         raise RuntimeError(f"a kernel of phase 15's path was not launched there: {tier_launches}")
+    # phase 16's path: DreamerV3 on pixeltoy's gray frames through 4 env
+    # workers under --remat on, kernels 1 and 3 (its first stage at Cin = 1)
+    # in each player step, 2 (twice in the scan), 3-res, 4 and 7 in the
+    # gradient step, counted on the device over that run; kernels 3 and 3-res
+    # at Cin = 1 held against their plain versions at the path's shapes
+    env_launches = report["env"]["counted"]["launches"]
+    gray = {r["kernel"]: r for r in report["env"]["gray_rows"] if not r["shape"].startswith("N=1 ")}
+    for k in kernels:
+        k["env_layer_launches"] = env_launches.get(k["name"], 0)
+        if k["name"] in gray:
+            r = gray[k["name"]]
+            k["gray_cin1"] = {key: r[key] for key in ("shape", "max_abs_err", "ms", "run_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")}
+    if any(env_launches.get(name, 0) == 0 for name in ("layernorm_gru_cell", "conv_ln_silu",
+                                                       "layernorm_gru_cell_residuals", "conv_ln_silu_residuals",
+                                                       "deconv_ln_silu", "two_hot_log_prob")):
+        raise RuntimeError(f"a kernel of phase 16's path was not launched there: {env_launches}")
     # every kernel but symlog_symexp lies on a path, and that run must have launched it
     if any(k["launches"] == 0 or k["wrapper_launches"] == 0 for k in kernels if k["name"] != "symlog_symexp"):
         raise RuntimeError(f"a kernel was not launched on its path: {kernels}")

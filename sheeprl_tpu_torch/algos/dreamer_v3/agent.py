@@ -36,6 +36,7 @@ from ...ops.distributions import (
 )
 from ...ops.kernels.rssm import fused_rssm_step, fused_rssm_supported
 from ...ops.math import symlog
+from ...ops.scan import checkpoint_body
 
 __all__ = [
     "BEST_OF",
@@ -349,18 +350,21 @@ class RSSM(tnn.Module):
         return recurrent_state, posterior, prior_logits, posterior_logits
 
     def scan_dynamic(self, posterior0: torch.Tensor, recurrent0: torch.Tensor, actions: torch.Tensor,
-                     embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbels: torch.Tensor):
+                     embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbels: torch.Tensor,
+                     remat: str = "off"):
         """The dynamic-learning sequence as a loop over T (the reference's
         `lax.scan`): actions [T, B, A], embedded_obs [T, B, E], is_first
         [T, B, 1], gumbels [T, B, S, D]. The fused step's weights are cast
-        to the compute dtype once, before the loop. Returns stacked
-        (recurrent_states [T, B, R], priors_logits [T, B, S*D], posteriors
-        [T, B, S, D], posteriors_logits [T, B, S*D])."""
+        to the compute dtype once, before the loop. `remat` checkpoints
+        each step for the backward (`ops/scan.py:checkpoint_body`). Returns
+        stacked (recurrent_states [T, B, R], priors_logits [T, B, S*D],
+        posteriors [T, B, S, D], posteriors_logits [T, B, S*D])."""
         post, rec = posterior0, recurrent0
         fused = self._fused_step_weights(rec.dtype) if rec.dim() == 2 else None
+        step = checkpoint_body(self.dynamic, remat)
         outs = []
         for t in range(actions.shape[0]):
-            rec, post, prior_logits, post_logits = self.dynamic(
+            rec, post, prior_logits, post_logits = step(
                 post, rec, actions[t], embedded_obs[t], is_first[t], gumbels[t], fused=fused
             )
             outs.append((rec, prior_logits, post, post_logits))

@@ -52,6 +52,13 @@ class DreamerV3Args(DreamerV2Args):
         "layers, zeros on the critic and reward heads",
     )
 
+    # Environment settings
+    action_repeat: int = Arg(default=4, help="the number of times an action is repeated")
+    max_episode_steps: int = Arg(
+        default=108000,
+        help="max episode length in env steps (divided by action_repeat); -1 disables",
+    )
+
     # Returns normalization (percentile EMA)
     moments_decay: float = Arg(default=0.99, help="EMA decay of the return-percentile normalizer")
     moment_max: float = Arg(default=1.0, help="max in `max(1/moment_max, Per(R,95) - Per(R,5))`")

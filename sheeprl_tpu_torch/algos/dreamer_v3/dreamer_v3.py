@@ -5,6 +5,23 @@ device.
 
     python -m sheeprl_tpu_torch dreamer_v3 --env_id discrete_dummy [--device cpu]
     python -m sheeprl_tpu_torch dreamer_v3 --env_id pixeltoy --env_backend jax --num_envs 16
+    python -m sheeprl_tpu_torch dreamer_v3 --env_id pixeltoy --grayscale_obs --num_envs 4 --action_repeat 2 \
+        --max_episode_steps 100 --remat on --profile --profile_steps 2
+
+The host envs are `utils/env.py:make_dict_env`'s chain (each action
+repeated `--action_repeat` times, 4 by default as in the reference;
+episodes cut at `--max_episode_steps // action_repeat`; images resized,
+grayed and stacked as asked) in `envs/vector.py`'s vector env: one worker
+process an env unless `--sync_env` or one env, as in the reference. Their
+rows go into a replay ring on the device, or with `--memmap_buffer` into
+host memmap files under `<run_dir>/memmap_buffer`. `--remat on|policy`
+checkpoints the RSSM scan's and imagination's steps
+(`ops/scan.py:checkpoint_body`); `auto` is settled by
+`algos/dreamer_v2/utils.py:maybe_decide_remat` before the first step.
+Each gradient step's metrics stay on the device until the log pulls them
+(`utils/metric.py`, one copy); `telemetry.jsonl` gets the phase times
+(`telemetry/core.py`), and `--profile` a torch.profiler window over
+`--profile_steps` gradient steps (`utils/profiler.py`).
 
 One gradient step follows the reference's `make_train_step`: the EMA
 target-critic update first (tau 1 at the first gradient step), the world
@@ -60,7 +77,9 @@ Continuous actions (a Box action space: `continuous_dummy`, Pendulum-v1,
 on either env backend) train the truncated-normal actor (`--actor_distribution
 auto`) through imagination (`make_train_step`); the warm-up draws the
 box's own samples, the ring stores the float actions and the envs take
-them as they are. The gymnasium env backends are not ported.
+them as they are. The gymnasium env backends are not ported. The device
+envs repeat no action, as the reference's `VecJaxEnv` path does; the test
+episodes at the end of such a run do.
 """
 
 from __future__ import annotations
@@ -73,6 +92,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ...compile.decisions import remat_mode
 from ...compile.plan import CompilePlan
 from ...data.buffers import AsyncReplayBuffer
 from ...envs.device import VecDeviceEnv, make_device_env
@@ -92,13 +112,19 @@ from ...ops.math import lambda_values_dv3, polynomial_decay
 from ...ops.moments import Moments
 from ...ops.optim import adam, apply_gradients, clip_by_global_norm, global_norm, load_optimizer_state
 from ...ops.precision import compute_dtype, to_compute, to_float32
+from ...ops.scan import checkpoint_body
+from ...envs.vector import make_vector_env
+from ...telemetry.core import Telemetry
 from ...utils.checkpoint import load_checkpoint, save_checkpoint
-from ...utils.device import resolve_device
+from ...utils.device import check_num_devices, resolve_device
 from ...utils.env import make_dict_env, obs_zeros
 from ...utils.evaluation import parse_run_args, run_test_episodes
 from ...utils.logger import create_logger
+from ...utils.metric import MetricAggregator
+from ...utils.profiler import StepProfiler
 from ...parallel.anakin import AnakinStats
 from ...utils.registry import register_algorithm
+from ..dreamer_v2.utils import maybe_decide_remat
 from ..ppo.ppo import actions_dim_of, validate_obs_keys
 from .agent import Actor, PlayerDV3, WorldModel, build_models
 from .args import DreamerV3Args
@@ -221,6 +247,7 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
     # the forwards run in the compute dtype; parameters stay f32 (every
     # layer casts its weights to its input's dtype), heads return to f32
     dt = compute_dtype(args.precision)
+    remat = remat_mode(getattr(args, "remat", "off"))
     stoch_size = args.stochastic_size * args.discrete_size
     horizon = args.horizon
     splits = [int(a) for a in actions_dim]
@@ -240,7 +267,7 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
         posterior0 = embedded.new_zeros((B, args.stochastic_size, args.discrete_size), dtype=dt)
         recurrent0 = embedded.new_zeros((B, args.recurrent_state_size), dtype=dt)
         recurrent_states, priors_logits, posteriors, posteriors_logits = wm.rssm.scan_dynamic(
-            posterior0, recurrent0, batch_actions, embedded, is_first, noise["post"]
+            posterior0, recurrent0, batch_actions, embedded, is_first, noise["post"], remat=remat
         )
         latent_states = torch.cat([posteriors.reshape(T, B, -1), recurrent_states], dim=-1)
         reconstructed = to_float32(wm.observation_model(latent_states))
@@ -271,12 +298,19 @@ def make_train_step(args: DreamerV3Args, cnn_keys: Sequence[str], mlp_keys: Sequ
                 return {"uniforms": noise["img_actions"][h]}
             return {"gumbels": [g[h] for g in noise["img_actions"]]}
 
+        def img_step(prior, recurrent, draws: dict, gumbel):
+            latent = torch.cat([prior, recurrent], dim=-1)
+            acts, _ = actor(latent.detach(), **draws)
+            action = torch.cat(acts, dim=-1).to(prior.dtype)
+            prior, recurrent = wm.rssm.imagination(prior, recurrent, action, gumbel)
+            return prior, recurrent, latent, action
+
+        # --remat also covers imagination's backward: each horizon step's
+        # actor and transition activations are recomputed, not kept
+        img_step = checkpoint_body(img_step, remat)
         latents, actions = [], []
         for h in range(horizon):
-            latent = torch.cat([prior, recurrent], dim=-1)
-            acts, _ = actor(latent.detach(), **draw(h))
-            action = torch.cat(acts, dim=-1).to(prior.dtype)
-            prior, recurrent = wm.rssm.imagination(prior, recurrent, action, noise["img_prior"][h])
+            prior, recurrent, latent, action = img_step(prior, recurrent, draw(h), noise["img_prior"][h])
             latents.append(latent)
             actions.append(action)
         latent_h = torch.cat([prior, recurrent], dim=-1)
@@ -419,6 +453,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     args.screen_size = 64
     args.frame_stack = -1
     device = resolve_device(args.device)
+    check_num_devices(args.num_devices, device)
     if device.type == "cuda":
         # the reference's float32 products are true float32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -428,21 +463,26 @@ def main(argv: Sequence[str] | None = None) -> None:
 
     device_envs = args.env_backend == "jax"
     if device_envs:
+        if args.memmap_buffer:
+            raise ValueError("--env_backend jax writes rollouts into the device replay ring; drop --memmap_buffer")
         # the Anakin arrangement: envs and player on the device, a chunk of
         # collection one graph replay writing into the device ring
         venv = VecDeviceEnv(make_device_env(args.env_id), args.num_envs, device)
-        envs, observation_space, action_space = [], venv.single_observation_space, venv.single_action_space
+        envs, observation_space, action_space = None, venv.single_observation_space, venv.single_action_space
     else:
-        envs = [
-            make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
-            for i in range(args.num_envs)
-        ]
-        observation_space, action_space = envs[0].observation_space, envs[0].action_space
+        envs = make_vector_env(
+            [make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)
+             for i in range(args.num_envs)],
+            sync=args.sync_env or args.num_envs == 1,
+        )
+        observation_space, action_space = envs.single_observation_space, envs.single_action_space
     cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
     obs_keys = [*cnn_keys, *mlp_keys]
     actions_dim, is_continuous = actions_dim_of(action_space)
 
     logger, run_dir = create_logger(args, "dreamer_v3")
+    telem = Telemetry.from_args(args, run_dir, algo="dreamer_v3")
+    profiler = StepProfiler.from_args(args, run_dir)
 
     world_model, actor, critic, target_critic = build_models(
         torch.Generator().manual_seed(args.seed), actions_dim, is_continuous, args,
@@ -450,6 +490,9 @@ def main(argv: Sequence[str] | None = None) -> None:
     )
     for m in (world_model, actor, critic, target_critic):
         m.to(device)
+    # --remat auto: measured on this run's scan before the step reads args.remat
+    maybe_decide_remat("dreamer_v3", world_model, args, int(sum(actions_dim)), telem,
+                       store_path=os.path.join(run_dir, "decisions.json"))
     state = DV3TrainState(
         world_model, actor, critic, target_critic,
         *make_optimizers(args, world_model, actor, critic),
@@ -487,7 +530,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     # the hot steps as CUDA graphs on the card (compile/plan.py): the
     # gradient step and the player step, with example arguments of their
     # shapes for --warm_compile on
-    plan = CompilePlan.from_args(args)
+    plan = CompilePlan.from_args(args, telem)
+    telem.add_gauges(plan.gauges)
 
     def _train_example():
         T, B = args.per_rank_sequence_length, args.per_rank_batch_size
@@ -511,8 +555,11 @@ def main(argv: Sequence[str] | None = None) -> None:
             player.draw_noise(n_envs, torch.Generator(device=device).manual_seed(0), device),
             torch.zeros((), device=device)))
     buffer_size = args.buffer_size // n_envs if not args.dry_run else 2
+    # the replay ring on the device unless --memmap_buffer keeps it in host
+    # memmap files (the reference's choice, dreamer_v3.py:826-830)
     rb = AsyncReplayBuffer(max(buffer_size, args.per_rank_sequence_length), n_envs, seed=args.seed,
-                           **(dict(storage="device", device=device) if device_envs else {}))
+                           **(dict(storage="host", memmap_dir=os.path.join(run_dir, "memmap_buffer"))
+                              if args.memmap_buffer else dict(storage="device", device=device)))
     buffer_ckpt = os.path.abspath(args.checkpoint_path) + "_buffer.npz" if args.checkpoint_path else None
     if buffer_ckpt and args.checkpoint_buffer and os.path.exists(buffer_ckpt) and not args.eval_only:
         rb.load(buffer_ckpt)
@@ -558,15 +605,14 @@ def main(argv: Sequence[str] | None = None) -> None:
         collect, collect_random = _collector(False), _collector(True)
         anakin = AnakinStats(scan_span=chunk, env_batch=n_envs, devices=1)
     else:
-        obs = [env.reset(seed=args.seed + i)[0] for i, env in enumerate(envs)]
-        step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+        obs = envs.reset(seed=args.seed)[0]
+        step_data = {k: obs[k] for k in obs_keys}
         step_data["dones"] = np.zeros((n_envs, 1), np.float32)
         step_data["rewards"] = np.zeros((n_envs, 1), np.float32)
         step_data["is_first"] = np.ones((n_envs, 1), np.float32)
         with torch.inference_mode():
             player_state = player.init_states(n_envs)
-    ep_return, ep_len = np.zeros(n_envs), np.zeros(n_envs, dtype=np.int64)
-    episodes: list[tuple[float, int]] = []
+    aggregator = MetricAggregator()
     # restarts at 0 on a resume, as in the reference (:1027): the first
     # gradient step after it takes tau 1
     gradient_steps = player_steps = env_steps = 0
@@ -581,6 +627,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     last_step = steps_iter[-1] if len(steps_iter) else num_updates
     for global_step in steps_iter:
         t0 = time.perf_counter()
+        telem.mark("rollout")
         if device_envs:
             random_phase = global_step <= learning_starts and not args.checkpoint_path
             idx = rb.reserve(chunk)
@@ -590,8 +637,9 @@ def main(argv: Sequence[str] | None = None) -> None:
             rb.add_direct(traj, idx, chunk)
             # the one pull of a chunk (the device has retired it when it lands)
             n_ep, return_sum, length_sum = torch.stack([ep["episodes"], ep["return_sum"], ep["length_sum"]]).tolist()
-            if n_ep:  # the chunk's mean, once an episode
-                episodes.extend([(return_sum / n_ep, length_sum / n_ep)] * int(n_ep))
+            for _ in range(int(n_ep)):  # the chunk's mean, once an episode
+                aggregator.update("Rewards/rew_avg", return_sum / n_ep)
+                aggregator.update("Game/ep_len_avg", length_sum / n_ep)
             env_steps += chunk * n_envs
             anakin.note(chunk * n_envs, time.perf_counter() - t0)
             if not random_phase:
@@ -612,30 +660,24 @@ def main(argv: Sequence[str] | None = None) -> None:
             step_data["actions"] = actions
             rb.add({k: v[None] for k, v in step_data.items()})
 
-            dones = np.zeros(n_envs, np.float32)
-            rewards = np.zeros(n_envs, np.float32)
-            final_obs: dict[int, dict] = {}
-            for i, (env, a) in enumerate(zip(envs, _env_actions(actions, actions_dim, is_continuous))):
-                o, r, term, trunc, _ = env.step(a)
-                rewards[i], dones[i] = r, float(term or trunc)
-                ep_return[i] += r
-                ep_len[i] += 1
-                if dones[i]:
-                    # same-step autoreset, as a gymnasium vector env does
-                    final_obs[i] = o
-                    o, _ = env.reset()
-                    episodes.append((float(ep_return[i]), int(ep_len[i])))
-                    ep_return[i], ep_len[i] = 0.0, 0
-                obs[i] = o
+            # same-step autoreset: an ended episode's last observation is in
+            # its info, the returned one is already the reset one
+            obs, rewards, terms, truncs, infos = envs.step(_env_actions(actions, actions_dim, is_continuous))
+            dones = np.logical_or(terms, truncs).astype(np.float32)
+            for info in infos:
+                if "episode" in info:
+                    aggregator.update("Rewards/rew_avg", float(info["episode"]["r"]))
+                    aggregator.update("Game/ep_len_avg", float(info["episode"]["l"]))
             env_steps += n_envs
-            step_data = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+            step_data = {k: obs[k] for k in obs_keys}
             step_data["is_first"] = np.zeros((n_envs, 1), np.float32)
             step_data["dones"] = dones[:, None]
             step_data["rewards"] = (np.tanh(rewards) if args.clip_rewards else rewards)[:, None].astype(np.float32)
-            done_idx = sorted(final_obs)
+            done_idx = np.nonzero(dones)[0].tolist()
             if done_idx:
                 # terminal rows carry the true final observation and zero actions
-                reset_data = {k: np.stack([final_obs[i][k] for i in done_idx])[None] for k in obs_keys}
+                reset_data = {k: np.stack([infos[i]["final_observation"][k] for i in done_idx])[None]
+                              for k in obs_keys}
                 reset_data["dones"] = np.ones((1, len(done_idx), 1), np.float32)
                 reset_data["actions"] = np.zeros((1, len(done_idx), int(sum(actions_dim))), np.float32)
                 reset_data["rewards"] = step_data["rewards"][done_idx][None]
@@ -657,20 +699,26 @@ def main(argv: Sequence[str] | None = None) -> None:
             # at or past it is the pretrain moment
             first = global_step - chunk < learning_starts if device_envs else global_step == learning_starts
             n_samples = args.pretrain_steps if first else args.gradient_steps
+            telem.mark("buffer/sample")
             local = rb.sample(args.per_rank_batch_size, sequence_length=args.per_rank_sequence_length,
                               n_samples=n_samples)
-            rows = []
+            telem.mark("train/dispatch")
+            t1 = time.perf_counter()
             for i in range(n_samples):
                 if gradient_steps % args.critic_target_network_update_freq == 0:
                     tau = 1.0 if gradient_steps == 0 else args.critic_tau
                 else:
                     tau = 0.0
                 data = {k: v[i] if torch.is_tensor(v) else torch.from_numpy(v[i]).to(device) for k, v in local.items()}
-                t1 = time.perf_counter()
                 noise = draw_noise(args, args.per_rank_sequence_length, args.per_rank_batch_size,
                                    actions_dim, noise_gen, device, is_continuous)
-                rows.append(train_step(state, data, tau, noise))
-                step_ms.append((time.perf_counter() - t1) * 1e3)
+                # the metrics stay on the device (a copy: the next replay
+                # overwrites the graph's output) until the log's one pull
+                metrics = train_step.device_step(state, data, torch.full((), float(tau), device=device),
+                                                 noise).clone()
+                for name, value in zip(METRICS, metrics):
+                    aggregator.update(name, value)
+                profiler.tick()
                 gradient_steps += 1
             step_before_training = args.train_every // n_envs
             if args.expl_decay:
@@ -679,14 +727,15 @@ def main(argv: Sequence[str] | None = None) -> None:
                     expl_decay_steps, initial=args.expl_amount, final=args.expl_min,
                     max_decay_steps=max_step_expl_decay,
                 )
-            rec = {k: float(np.mean([r[k] for r in rows])) for k in METRICS}
-            rec.update(step=global_step, gradient_steps=gradient_steps,
-                       sps=(global_step - start_step + 1) * n_envs / (time.perf_counter() - start),
-                       **{"Params/exploration_amount": expl_amount})
-            if episodes:
-                rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in episodes]))
-                rec["Game/ep_len_avg"] = float(np.mean([e[1] for e in episodes]))
-                episodes.clear()
+            aggregator.update("Params/exploration_amount", expl_amount)
+            telem.mark("log")
+            sps = (global_step - start_step + 1) * n_envs / (time.perf_counter() - start)
+            rec = aggregator.compute()
+            aggregator.reset()
+            telem.interval(rec, global_step, sps)
+            # each gradient step's host wall: this event's, its one pull included
+            step_ms.extend([(time.perf_counter() - t1) * 1e3 / n_samples] * n_samples)
+            rec.update(step=global_step, gradient_steps=gradient_steps, sps=sps)
             logger.record(rec)
             print(f"[dreamer_v3] step {global_step} grad_steps {gradient_steps} "
                   f"rec_loss {rec['Loss/reconstruction_loss']:.4f} policy_loss {rec['Loss/policy_loss']:.4f} "
@@ -704,8 +753,9 @@ def main(argv: Sequence[str] | None = None) -> None:
             checkpoints.append({"path": ckpt_path, "step": global_step, "bytes": nbytes,
                                 "save_ms": (time.perf_counter() - t_save) * 1e3})
 
-    for env in envs:
-        env.close()
+    profiler.close()
+    if envs is not None:
+        envs.close()
     plan.close()
     test_steps: list[int] = []
 
@@ -729,7 +779,11 @@ def main(argv: Sequence[str] | None = None) -> None:
         # each player chunk's host wall: draws, replay, add_direct, the pull
         "anakin_chunk_ms": chunk_ms,
         "anakin": anakin.gauges() if anakin is not None else None,
+        "remat": args.remat, "profile": profiler.trace_path if args.profile else None,
+        "vector_env": None if envs is None else {
+            "kind": type(envs).__name__, "workers": len(getattr(envs, "processes", ()))},
     }
+    telem.close()
     logger.record(summary)
     print(f"[dreamer_v3] done: {gradient_steps} gradient steps, {env_steps} env steps, run dir {run_dir}",
           flush=True)

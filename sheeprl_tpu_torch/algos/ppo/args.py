@@ -1,6 +1,6 @@
 """PPO config (the port of sheeprl_tpu/algos/ppo/args.py: the same fields
-and defaults, without those of the mesh, the flock, DIAMBRA, Atari, video
-capture and velocity masking, which the port does not have)."""
+and defaults, without those of the mesh, the flock, DIAMBRA, Atari and
+video capture, which the port does not have)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ class PPOArgs(StandardArgs):
     per_rank_batch_size: int = Arg(default=64, help="minibatch size")
     total_steps: int = Arg(default=2**16, help="total env steps of the experiment")
     rollout_steps: int = Arg(default=128, help="env steps per policy rollout")
+    mask_vel: bool = Arg(default=False, help="mask velocity entries (POMDP)")
     lr: float = Arg(default=1e-3, help="optimizer learning rate")
     anneal_lr: bool = Arg(default=False, help="linearly anneal lr to zero")
     gamma: float = Arg(default=0.99, help="discount factor")

@@ -36,9 +36,17 @@ adds the carry (`collector`) and that generator's state
 (`collector_generator`), so `--checkpoint_path` resumes the same rollout
 stream; the "done" record adds the `Anakin/*` gauges.
 
+The host envs are `utils/env.py:make_dict_env`'s chain (`--mask_vel`,
+`--action_repeat`, `--max_episode_steps`, image resize, grayscale and
+`--frame_stack`/`--frame_stack_dilation`) in `envs/vector.py`'s vector env,
+in worker processes unless `--sync_env` or one env; `--memmap_buffer`
+keeps the rollout in host numpy, as the reference's PPO does. Telemetry
+(`telemetry.jsonl`, the phase times), the metrics through
+`utils/metric.py` and `--profile` (a torch.profiler window over
+`--profile_steps` updates) as in the reference.
+
 Not ported: the flock, the non-finite guard, the sanitizer, telemetry
-spans, the profiler and a mesh of more than one device (so no
-`shard_env_batch`).
+spans and a mesh of more than one device (so no `shard_env_batch`).
 
 Also the two helpers the serving tier and DreamerV3 use:
 `validate_obs_keys` and `actions_dim_of`."""
@@ -62,8 +70,12 @@ from ...compile.plan import CompilePlan
 from ...ops.optim import Adam, adam, apply_gradients, load_optimizer_state
 from ...parallel.anakin import AnakinStats
 from ...utils.checkpoint import load_checkpoint, save_checkpoint
-from ...utils.device import resolve_device
+from ...utils.device import check_num_devices, resolve_device
+from ...envs.vector import make_vector_env
+from ...telemetry.core import Telemetry
 from ...utils.env import make_dict_env, obs_zeros
+from ...utils.metric import MetricAggregator
+from ...utils.profiler import StepProfiler
 from ...utils.evaluation import parse_run_args, run_test_episodes
 from ...utils.logger import create_logger
 from ...utils.registry import register_algorithm
@@ -245,20 +257,20 @@ def make_train_step(args: PPOArgs, num_minibatches: int, plan: CompilePlan | Non
 
 
 class Rollout:
-    """The host side of a run's rollouts: its envs, each env's last
-    observation, the done flags entering the next step (`next_done`), the
-    running return and length of each env's episode, and the (return,
-    length) of the episodes ended since `ended` was last cleared."""
+    """The host side of a run's rollouts: its vector env (`envs/vector.py`,
+    reset with `seed`, so env i starts from `seed + i`), the envs' last
+    observations, the done flags entering the next step (`next_done`), and
+    the (return, length) of the episodes ended since `ended` was last
+    cleared (their `RecordEpisodeStatistics`)."""
 
-    def __init__(self, envs: list, seed: int):
+    def __init__(self, envs, seed: int):
         self.envs = envs
-        self.obs = [env.reset(seed=seed + i)[0] for i, env in enumerate(envs)]
-        self.next_done = np.zeros(len(envs), np.float32)
-        self.ep_return, self.ep_len = np.zeros(len(envs)), np.zeros(len(envs), dtype=np.int64)
+        self.obs = envs.reset(seed=seed)[0]
+        self.next_done = np.zeros(envs.num_envs, np.float32)
         self.ended: list[tuple[float, int]] = []
 
     def device_obs(self, keys: Sequence[str], device) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.stack([o[k] for o in self.obs])).to(device) for k in keys}
+        return {k: torch.from_numpy(self.obs[k]).to(device) for k in keys}
 
     def collect(self, agent: PPOAgent, rb: ReplayBuffer, obs_keys: Sequence[str],
                 generator: torch.Generator, step=policy_step) -> None:
@@ -267,30 +279,24 @@ class Rollout:
         one copy; each step pulls only the env action indices to the host
         (with host storage also the log-prob and value; the obs and the
         one-hot are rebuilt there). An env whose episode ends resets in the
-        same step; a row's `dones` is the done flag entering its step.
+        same step (the vector env's); a row's `dones` is the done flag
+        entering its step.
         `step` is `policy_step` or its graphed twin (`main` registers it);
         its outputs are copied into `rb` before the next step."""
         device = next(agent.parameters()).device
         host = rb.prefers_host_adds
-        noise = agent.draw_noise(generator, rb.buffer_size, len(self.envs)).to(device)
+        noise = agent.draw_noise(generator, rb.buffer_size, self.envs.num_envs).to(device)
         for t in range(rb.buffer_size):
-            host_obs = {k: np.stack([o[k] for o in self.obs]) for k in obs_keys}
+            host_obs = {k: self.obs[k] for k in obs_keys}
             obs = {k: torch.from_numpy(v).to(device) for k, v in host_obs.items()}
             actions, logprob, value, env_idx = step(agent, obs, noise[t])
             env_idx = env_idx.cpu().numpy()
             env_actions = indices_to_env_actions(env_idx, agent.actions_dim, agent.is_continuous)
-            rewards, dones = np.zeros(len(self.envs), np.float32), np.zeros(len(self.envs), np.float32)
-            for i, env in enumerate(self.envs):
-                a = env_actions[i]
-                o, r, term, trunc, _ = env.step(a.item() if np.ndim(a) == 0 else a)
-                rewards[i], dones[i] = r, float(term or trunc)
-                self.ep_return[i] += r
-                self.ep_len[i] += 1
-                if dones[i]:
-                    o, _ = env.reset()
-                    self.ended.append((float(self.ep_return[i]), int(self.ep_len[i])))
-                    self.ep_return[i], self.ep_len[i] = 0.0, 0
-                self.obs[i] = o
+            self.obs, rewards, terms, truncs, infos = self.envs.step(
+                [a.item() if np.ndim(a) == 0 else a for a in env_actions])
+            dones = np.logical_or(terms, truncs).astype(np.float32)
+            self.ended += [(float(info["episode"]["r"]), int(info["episode"]["l"])) for info in infos
+                           if "episode" in info]
             rb.add({**{k: v[None] for k, v in (host_obs if host else obs).items()},
                     "actions": buffer_actions(env_idx, actions, agent.actions_dim, agent.is_continuous, host)[None],
                     "logprobs": logprob[None], "values": value[None], "rewards": rewards[None, :, None],
@@ -314,7 +320,9 @@ def rollout_batch(agent: PPOAgent, rb: ReplayBuffer, rollout: Rollout, obs_keys:
     """The update's flat `[T * N, ...]` batch of the rollout in `rb`, with
     its GAE returns and advantages bootstrapped from `rollout`'s envs."""
     device = next(agent.parameters()).device
-    return flat_batch(agent, {k: rb[k] for k in (*obs_keys, *ROLLOUT_KEYS)}, rollout.device_obs(obs_keys, device),
+    # host storage (--memmap_buffer) moves the rollout to the agent's device here, in one copy a key
+    traj = {k: torch.as_tensor(rb[k], device=device) for k in (*obs_keys, *ROLLOUT_KEYS)}
+    return flat_batch(agent, traj, rollout.device_obs(obs_keys, device),
                       torch.from_numpy(rollout.next_done).to(device)[:, None], obs_keys, args)
 
 
@@ -353,6 +361,7 @@ def _set_generator_state(generator: torch.Generator, state: torch.Tensor) -> Non
 def main(argv: Sequence[str] | None = None) -> None:
     args = parse_run_args(PPOArgs, argv)
     device = resolve_device(args.device)
+    check_num_devices(args.num_devices, device)
     if device.type == "cuda":
         # the reference's float32 products are true float32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -361,14 +370,19 @@ def main(argv: Sequence[str] | None = None) -> None:
 
     device_envs = args.env_backend == "jax"
     if device_envs:
+        if args.memmap_buffer:
+            raise ValueError("--env_backend jax keeps the rollout on the device; drop --memmap_buffer")
         # the Anakin arrangement: the envs beside the agent on the device,
         # a whole rollout one graph replay
         venv = VecDeviceEnv(make_device_env(args.env_id), args.num_envs, device)
-        envs, observation_space, action_space = [], venv.single_observation_space, venv.single_action_space
+        envs, observation_space, action_space = None, venv.single_observation_space, venv.single_action_space
     else:
-        envs = [make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i)()
-                for i in range(args.num_envs)]
-        observation_space, action_space = envs[0].observation_space, envs[0].action_space
+        envs = make_vector_env(
+            [make_dict_env(args.env_id, args.seed + i, rank=0, args=args, vector_env_idx=i,
+                           mask_velocities=args.mask_vel) for i in range(args.num_envs)],
+            sync=args.sync_env or args.num_envs == 1,
+        )
+        observation_space, action_space = envs.single_observation_space, envs.single_action_space
     cnn_keys, mlp_keys = validate_obs_keys(observation_space, args)
     obs_keys = [*cnn_keys, *mlp_keys]
     actions_dim, is_continuous = actions_dim_of(action_space)
@@ -401,13 +415,20 @@ def main(argv: Sequence[str] | None = None) -> None:
     # a dry run takes exactly one update, also after a resume
     num_updates = args.total_steps // rollout_size if not args.dry_run else start_update
     num_minibatches = max(rollout_size // args.per_rank_batch_size, 1)
-    rb = None if device_envs else ReplayBuffer(args.rollout_steps, n_envs, storage="device", device=device,
+    # the rollout store on the device, or (--memmap_buffer, as the
+    # reference's PPO reads it) in host numpy
+    rb = None if device_envs else ReplayBuffer(args.rollout_steps, n_envs,
+                                               storage="host" if args.memmap_buffer else "device", device=device,
                                                obs_keys=obs_keys, seed=args.seed)
 
+    telem = Telemetry.from_args(args, run_dir, algo="ppo")
+    profiler = StepProfiler.from_args(args, run_dir)
+    aggregator = MetricAggregator()
     # the policy step and the minibatch step as CUDA graphs on the card
     # (compile/plan.py), with example arguments of their shapes for
     # --warm_compile on
-    plan = CompilePlan.from_args(args)
+    plan = CompilePlan.from_args(args, telem)
+    telem.add_gauges(plan.gauges)
 
     def _obs(lead: tuple) -> dict:
         return obs_zeros(observation_space.spaces, obs_keys, lead, device)
@@ -450,7 +471,7 @@ def main(argv: Sequence[str] | None = None) -> None:
                                   (args.ent_coef, args.anneal_ent_coef))
         )
         t0 = time.perf_counter()
-        ended = None
+        telem.mark("rollout")
         if device_envs:
             traj, ep = collect(agent, carry, *_draws(collect_gen))
             # the one pull of a rollout: the episode dict (the device has
@@ -458,29 +479,38 @@ def main(argv: Sequence[str] | None = None) -> None:
             episodes, return_sum, length_sum = torch.stack(
                 [ep["episodes"], ep["return_sum"], ep["length_sum"]]).tolist()
             if episodes > 0:
-                ended = (return_sum / episodes, length_sum / episodes)
+                aggregator.update("Rewards/rew_avg", return_sum / episodes)
+                aggregator.update("Game/ep_len_avg", length_sum / episodes)
         else:
             rollout.collect(agent, rb, obs_keys, gen, step=graphed_policy_step)
-            if rollout.ended:
-                ended = tuple(float(np.mean([e[i] for e in rollout.ended])) for i in (0, 1))
-                rollout.ended.clear()
+            for ret, length in rollout.ended:
+                aggregator.update("Rewards/rew_avg", ret)
+                aggregator.update("Game/ep_len_avg", length)
+            rollout.ended.clear()
         env_steps += rollout_size
         t1 = time.perf_counter()
+        telem.mark("train/dispatch")
         if device_envs:
             anakin.note(rollout_size, t1 - t0)
             batch = flat_batch(agent, traj, carry.obs, carry.prev_done, obs_keys, args)
         else:
             batch = rollout_batch(agent, rb, rollout, obs_keys, args)
         metrics = train_step(agent, optimizer, batch, lr, clip_coef, ent_coef, generator=gen)
+        profiler.tick()
         t2 = time.perf_counter()
         rollout_ms.append((t1 - t0) * 1e3)
         train_ms.append((t2 - t1) * 1e3)
 
-        rec = {"update": update, "step": update * rollout_size, **metrics, "Info/learning_rate": lr,
-               "Time/rollout_ms": rollout_ms[-1], "Time/train_ms": train_ms[-1],
-               "Time/step_per_second": env_steps / (time.perf_counter() - start)}
-        if ended is not None:
-            rec["Rewards/rew_avg"], rec["Game/ep_len_avg"] = ended
+        telem.mark("log")
+        for name, value in metrics.items():
+            aggregator.update(name, value)
+        aggregator.update("Info/learning_rate", lr)
+        sps = env_steps / (time.perf_counter() - start)
+        rec = aggregator.compute()
+        aggregator.reset()
+        telem.interval(rec, update * rollout_size, sps)
+        rec.update({"update": update, "step": update * rollout_size, "Time/rollout_ms": rollout_ms[-1],
+                    "Time/train_ms": train_ms[-1], "Time/step_per_second": sps})
         logger.record(rec)
         print(f"[ppo] update {update}/{num_updates} " + " ".join(
             f"{k.split('/')[1]} {rec[k]:.4g}" for k in (*LOSSES, "Rewards/rew_avg") if k in rec), flush=True)
@@ -496,8 +526,9 @@ def main(argv: Sequence[str] | None = None) -> None:
             nbytes = save_checkpoint(ckpt_path, saved, args)
             checkpoints.append({"path": ckpt_path, "update": update, "bytes": nbytes,
                                 "save_ms": (time.perf_counter() - t_save) * 1e3})
-    for env in envs:
-        env.close()
+    profiler.close()
+    if envs is not None:
+        envs.close()
     plan.close()
 
     t_test = time.perf_counter()
@@ -512,6 +543,8 @@ def main(argv: Sequence[str] | None = None) -> None:
         "device": str(device), "checkpoints": checkpoints, "resumed": resumed, "test_returns": test_returns,
         "test_ms": (time.perf_counter() - t_test) * 1e3, "compile": plan.gauges(), "compile_stats": plan.stats(),
         "env_backend": args.env_backend, "anakin": anakin.gauges() if anakin is not None else None,
+        "profile": profiler.trace_path if args.profile else None,
     })
+    telem.close()
     print(f"[ppo] done: {len(train_ms)} updates, {env_steps} env steps, test returns {test_returns}, "
           f"run dir {run_dir}", flush=True)

@@ -1,11 +1,14 @@
 """SAC, coupled (the port of sheeprl_tpu/algos/sac/sac.py), over the port's
-host envs:
+host envs in a vector env (`envs/vector.py`: in subprocesses unless
+`--sync_env` or one env), each repeating its action `--action_repeat`
+times (the test episodes' env does not repeat, as the reference's):
 
     python -m sheeprl_tpu_torch sac --env_id Pendulum-v1 [--device cpu]
 
 Before `learning_starts` the envs take uniform random actions, then the
 policy's sampled ones. Each env step adds one row an env to a
-`ReplayBuffer` on the device; from `learning_starts - 1` on, each step
+`ReplayBuffer` on the device (`--memmap_buffer`: in host memmap files
+under `<run_dir>/memmap_buffer`); from `learning_starts - 1` on, each step
 takes one train step (`make_train_step`): `gradient_steps` batches of
 `per_rank_batch_size` rows, gathered at once, each running critic -> target
 EMA (every `target_network_frequency` steps) -> actor -> temperature. At
@@ -35,9 +38,12 @@ On the card the train step and the policy step are CUDA graphs
 temperature never leaves the device, and the Adams, the critics and their
 targets are updated in place.
 
-Not ported: `--on_nonfinite` (the non-finite guard), the sanitizer,
-telemetry spans, the profiler, `Pipeline`, a mesh of more than one
-device, `--memmap_buffer`, and `sac_decoupled`."""
+Telemetry (`telemetry/core.py`, phase times in `telemetry.jsonl`), the
+episode statistics through `utils/metric.py` and `--profile` (a
+torch.profiler window over `--profile_steps` train steps,
+`utils/profiler.py`) as in the reference. Not ported: `--on_nonfinite`
+(the non-finite guard), the sanitizer, `Pipeline`, a mesh of more than one
+device, and `sac_decoupled`."""
 
 from __future__ import annotations
 
@@ -52,12 +58,16 @@ import torch
 
 from ...compile.plan import CompilePlan
 from ...data.buffers import ReplayBuffer
+from ...envs.vector import make_vector_env
 from ...ops.optim import Adam, adam, load_optimizer_state
+from ...telemetry.core import Telemetry
 from ...utils.checkpoint import load_checkpoint, save_checkpoint
-from ...utils.device import resolve_device
+from ...utils.device import check_num_devices, resolve_device
 from ...utils.env import make_env
 from ...utils.evaluation import parse_run_args, run_test_episodes
 from ...utils.logger import create_logger
+from ...utils.metric import MetricAggregator
+from ...utils.profiler import StepProfiler
 from ...utils.registry import register_algorithm
 from .agent import SACActor, SACAgent
 from .args import SACArgs
@@ -229,13 +239,21 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
     fourth argument at a step: SAC's EMA gate, DroQ's fresh observations
     for the actor; an example of it)."""
     device = resolve_device(args.device)
+    check_num_devices(args.num_devices, device)
     if device.type == "cuda":
         # the reference's float32 products are true float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     logger, run_dir = create_logger(args, algo)
-    envs = [make_env(args.env_id, args.seed + i)() for i in range(args.num_envs)]
-    obs_space, act_space = envs[0].observation_space, envs[0].action_space
+    telem = Telemetry.from_args(args, run_dir, algo=algo)
+    profiler = StepProfiler.from_args(args, run_dir)
+    aggregator = MetricAggregator()
+    envs = make_vector_env(
+        [make_env(args.env_id, args.seed + i, 0, vector_env_idx=i, action_repeat=args.action_repeat)
+         for i in range(args.num_envs)],
+        sync=args.sync_env or args.num_envs == 1,
+    )
+    obs_space, act_space = envs.single_observation_space, envs.single_action_space
     if len(obs_space.shape) != 1 or len(act_space.shape) != 1:
         raise ValueError(f"{algo} takes vector observations and continuous actions")
     obs_dim, act_dim = obs_space.shape[0], act_space.shape[0]
@@ -247,8 +265,9 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
     gen = torch.Generator(device=device).manual_seed(args.seed)
     min_size = 2 if args.sample_next_obs else 1
     buffer_size = max(args.buffer_size // args.num_envs, min_size) if not args.dry_run else min_size
-    rb = ReplayBuffer(buffer_size, args.num_envs, storage="device", device=device, obs_keys=("observations",),
-                      seed=args.seed)
+    rb = ReplayBuffer(buffer_size, args.num_envs, storage="host" if args.memmap_buffer else "device", device=device,
+                      obs_keys=("observations",), seed=args.seed,
+                      memmap_dir=os.path.join(run_dir, "memmap_buffer") if args.memmap_buffer else None)
     start_step, restored_buffer, resumed = 1, False, None
     if args.checkpoint_path:
         ckpt = load_checkpoint(args.checkpoint_path, device)
@@ -271,7 +290,8 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
     G, B = args.gradient_steps, args.per_rank_batch_size
     layout = make_layout(args, act_dim)
     extra_input, extra_example = make_extra(args, obs_dim, device)
-    plan = CompilePlan.from_args(args)
+    plan = CompilePlan.from_args(args, telem)
+    telem.add_gauges(plan.gauges)
 
     def _data_example() -> dict:
         shapes = {"observations": obs_dim, "next_observations": obs_dim, "actions": act_dim, "rewards": 1,
@@ -295,9 +315,7 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
     if args.eval_only:
         num_steps = start_step - 1  # no step: straight to the test episodes
 
-    obs = np.stack([env.reset(seed=args.seed + i)[0] for i, env in enumerate(envs)]).astype(np.float32)
-    ep_return, ep_len = np.zeros(args.num_envs), np.zeros(args.num_envs, np.int64)
-    ended: list[tuple[float, int]] = []
+    obs = envs.reset(seed=args.seed)[0].astype(np.float32)
     loss_sum, loss_n = torch.zeros(3, device=device), 0
     random_s = learn_s = burst_s = 0.0
     random_steps = learn_steps = train_calls = policy_calls = 0
@@ -306,25 +324,25 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
     t_start = time.perf_counter()
     for global_step in range(start_step, num_steps + 1):
         t0 = time.perf_counter()
+        telem.mark("rollout")
         if global_step < learning_starts:
             actions = action_rng.uniform(low, high, (args.num_envs, act_dim)).astype(np.float32)
         else:
             noise = torch.randn((args.num_envs, act_dim), generator=gen, device=device)
             actions = graphed_policy(agent.actor, torch.from_numpy(obs).to(device), noise).cpu().numpy()
             policy_calls += 1
-        next_obs, real_next_obs = obs.copy(), obs.copy()
-        rewards, dones = np.zeros(args.num_envs, np.float32), np.zeros(args.num_envs, np.float32)
-        for i, env in enumerate(envs):
-            o, r, term, trunc, _ = env.step(actions[i])
-            rewards[i], dones[i] = r, float(term or trunc)
-            real_next_obs[i] = o
-            ep_return[i] += r
-            ep_len[i] += 1
-            if dones[i]:
-                o, _ = env.reset()
-                ended.append((float(ep_return[i]), int(ep_len[i])))
-                ep_return[i], ep_len[i] = 0.0, 0
-            next_obs[i] = o
+        next_obs, rewards, terms, truncs, infos = envs.step(list(actions))
+        next_obs = next_obs.astype(np.float32)
+        dones = np.logical_or(terms, truncs).astype(np.float32)
+        real_next_obs = next_obs.copy()
+        ended = False
+        for i, info in enumerate(infos):
+            if "final_observation" in info:
+                real_next_obs[i] = info["final_observation"]
+            if "episode" in info:
+                ended = True
+                aggregator.update("Rewards/rew_avg", float(info["episode"]["r"]))
+                aggregator.update("Game/ep_len_avg", float(info["episode"]["l"]))
         row = {"observations": obs[None], "actions": actions[None], "rewards": rewards[None, :, None],
                "dones": dones[None, :, None]}
         if not args.sample_next_obs:
@@ -335,14 +353,17 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
         burst = False
         if global_step >= learning_starts - 1 and rb.can_sample(args.sample_next_obs):
             burst = global_step == learning_starts - 1 and base_learning_starts > 1
+            telem.mark("train/dispatch")
             for _ in range(base_learning_starts if burst else 1):
                 sample = rb.sample(G * B, sample_next_obs=args.sample_next_obs)
-                data = {k: v.reshape((G, B) + v.shape[1:]) for k, v in sample.items()}
+                data = {k: torch.as_tensor(v, device=device).reshape((G, B) + v.shape[1:])
+                        for k, v in sample.items()}
                 target = _static_draws(train_step, draws)
                 layout.fill(target, gen)
                 loss_sum += train_step(state, data, target, extra_input(global_step, rb))
                 loss_n += 1
                 train_calls += 1
+                profiler.tick()
         dt = time.perf_counter() - t0
         if burst:
             burst_s += dt
@@ -352,17 +373,17 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
             learn_s, learn_steps = learn_s + dt, learn_steps + 1
 
         if ended or (global_step == num_steps and loss_n):  # at episode ends, and the run's last losses
-            rec = {"step": global_step,
-                   "Time/step_per_second": (global_step - start_step + 1) / (time.perf_counter() - t_start)}
-            if ended:
-                rec["Rewards/rew_avg"] = float(np.mean([e[0] for e in ended]))
-                rec["Game/ep_len_avg"] = float(np.mean([e[1] for e in ended]))
+            telem.mark("log")
+            sps = (global_step - start_step + 1) / (time.perf_counter() - t_start)
+            rec = aggregator.compute()
+            aggregator.reset()
             if loss_n:
                 rec.update(zip(LOSSES, (loss_sum / loss_n).tolist()))
                 loss_sum.zero_()
                 loss_n = 0
+            telem.interval(rec, global_step, sps)
+            rec.update({"step": global_step, "Time/step_per_second": sps})
             logger.record(rec)
-            ended.clear()
             if global_step % (10 * 200 * args.num_envs) < args.num_envs or global_step == num_steps:
                 print(f"[{algo}] step {global_step}/{num_steps} " + " ".join(
                     f"{k.split('/')[1]} {rec[k]:.4g}" for k in ("Rewards/rew_avg", *LOSSES) if k in rec), flush=True)
@@ -377,8 +398,8 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
             checkpoints.append({"path": ckpt_path, "step": global_step, "bytes": nbytes,
                                 "save_ms": (time.perf_counter() - t_save) * 1e3})
     wall_s = time.perf_counter() - t_start
-    for env in envs:
-        env.close()
+    profiler.close()
+    envs.close()
     plan.close()
 
     t_test = time.perf_counter()
@@ -393,7 +414,9 @@ def run(args: SACArgs, algo: str, make_agent: Callable, make_step: Callable, mak
         "learn_ms_per_step": learn_s / max(learn_steps, 1) * 1e3, "burst_s": burst_s,
         "checkpoints": checkpoints, "resumed": resumed, "test_returns": test_returns,
         "test_ms": (time.perf_counter() - t_test) * 1e3, "compile": plan.gauges(), "compile_stats": plan.stats(),
+        "profile": profiler.trace_path if args.profile else None,
     })
+    telem.close()
     print(f"[{algo}] done: {env_steps} env steps, {train_calls} train steps in {wall_s:.1f} s, test returns "
           f"{test_returns}, run dir {run_dir}", flush=True)
 

@@ -1,18 +1,24 @@
-"""Measured decisions (the port of sheeprl_tpu/compile/decisions.py:226-575
-and :622-649, the parts `serve/quant.py:accept_rungs` and
-`serve/ladder.py:size_ladder` need).
+"""Measured decisions (the port of sheeprl_tpu/compile/decisions.py:60-100,
+:226-649: what `serve/quant.py:accept_rungs`, `serve/ladder.py:size_ladder`
+and `--remat auto` need).
 
 A decision times a ladder of candidates on one example and keeps a winner:
 
     candidate -> one untimed call (its time, which includes building a
                  kernel at first use, is `compile_seconds`) -> `REPEATS`
                  timed calls, each ended by a device synchronise (median)
-              -> peak device bytes (`torch.cuda.max_memory_allocated` after
-                 a reset; None on the CPU)
+              -> peak device bytes: `torch.cuda.max_memory_allocated` over
+                 the calls after `reset_peak_memory_stats`, less what was
+                 allocated before them (None on the CPU)
               -> a receipt against the first candidate, the baseline:
                  bit-exact outputs, or, with `quality_metric` and
                  `quality_bound`, a measured divergence within the bound
-              -> the fastest candidate that holds its receipt.
+              -> the winner by the objective: `seconds`, the fastest
+                 candidate that holds its receipt; `bytes`, the one of
+                 fewest peak bytes among those whose time is within
+                 `max_time_cost_frac` of the baseline's, strictly fewer
+                 than the baseline's to win (without a peak, on the CPU,
+                 the baseline).
 
 Unlike the reference, a candidate that raises aborts the decision instead
 of losing it: every candidate of the port's one ladder (f32 against the
@@ -21,10 +27,15 @@ launch must stop the process, never leave the rungs quietly on f32.
 
 Decisions persist in a JSON store keyed by family, name, the example's
 shapes and dtypes, the torch version and the device's name, so a re-run on
-the same shapes and card reads the winner back. Time is the only
-objective: the reference's `bytes` objective and `decide_remat` come with
-`--remat` (ROADMAP Queue A item 5); the legacy scan-unroll migration is
+the same shapes and card reads the winner back. The legacy scan-unroll migration is
 not ported.
+
+`remat_mode` settles `--remat {off,on,policy,auto}` for `ops/scan.py`, and
+`decide_remat` is the auto-remat gate: the `bytes` objective within
+`max_time_cost_frac` (SHEEPRL_TPU_REMAT_TIME_COST_FRAC, 5 % by default)
+over the ladder off, policy, on. A candidate runs with autograd on when
+its callable asks for it (`torch.inference_mode(False)` inside); the
+decision loop itself runs under inference mode.
 
 `measured_probe` memoizes one measurement (the serve ladder's peak bytes)
 in the same store, under the same key as a decision on that example.
@@ -42,16 +53,48 @@ import torch
 
 __all__ = [
     "CandidateReport",
+    "DEFAULT_REMAT_TIME_COST_FRAC",
     "Decision",
+    "REMAT_LADDER",
     "cached_decision",
     "decide",
+    "decide_remat",
     "decision_key",
     "load_cache",
     "measured_probe",
+    "remat_mode",
+    "remat_time_cost_frac",
     "tree_leaves",
 ]
 
 REPEATS = 3  # timed calls per candidate; the median is its time
+
+# the auto-remat gate: a remat rung wins only with fewer peak bytes at no
+# more than this fraction of the baseline's time on top
+DEFAULT_REMAT_TIME_COST_FRAC = 0.05
+REMAT_LADDER = ("off", "policy", "on")
+
+
+def remat_time_cost_frac() -> float:
+    try:
+        return float(os.environ.get("SHEEPRL_TPU_REMAT_TIME_COST_FRAC", DEFAULT_REMAT_TIME_COST_FRAC))
+    except ValueError:
+        return DEFAULT_REMAT_TIME_COST_FRAC
+
+
+def remat_mode(value: Any) -> str:
+    """`--remat` as the mode `ops/scan.py:checkpoint_body` takes: "on",
+    "policy" or "off". An unresolved "auto" reads "off" (the mains resolve
+    it with `decide_remat` before the first step); a bool from an older
+    checkpoint's config passes as on/off."""
+    if isinstance(value, bool):
+        return "on" if value else "off"
+    v = str(value).strip().lower()
+    if v in ("on", "true", "1", "yes"):
+        return "on"
+    if v == "policy":
+        return "policy"
+    return "off"
 
 
 def load_cache(path: str) -> dict:
@@ -142,6 +185,8 @@ class Decision:
     # the bound the ladder was accepted under (None for bit-exact ladders):
     # stored next to the winner, so the store entry is the receipt
     quality_bound: float | None = None
+    objective: str = "seconds"
+    max_time_cost_frac: float | None = None
 
     def candidate(self, label: str) -> dict:
         return self.candidates.get(str(label), {})
@@ -161,6 +206,8 @@ class Decision:
             source="cache",
             key=str(d.get("key", "")),
             quality_bound=d.get("quality_bound"),
+            objective=str(d.get("objective", "seconds")),
+            max_time_cost_frac=d.get("max_time_cost_frac"),
         )
 
 
@@ -202,6 +249,9 @@ def decide(
     build: Callable[[Any], Callable],
     example: Sequence[Any],
     *,
+    objective: str = "seconds",
+    max_time_cost_frac: float | None = None,
+    repeats: int = REPEATS,
     store_path: str | None = None,
     quality_metric: Callable[[Any, Any], float] | None = None,
     quality_bound: float | None = None,
@@ -212,12 +262,14 @@ def decide(
     `build(candidate)` returns the callable for that candidate, called as
     `fn(*example)` under `torch.inference_mode()`. First the baseline (the
     first candidate) is called once, untimed, to absorb the process's
-    one-time costs; then each candidate gets one untimed call and `REPEATS`
+    one-time costs; then each candidate gets one untimed call and `repeats`
     timed calls (median). A candidate that raises, or a quality metric that
     raises, aborts the decision with its error. A candidate whose outputs
     are not bit-identical to the baseline's is disqualified, unless
     `quality_metric(baseline_out, candidate_out) <= quality_bound`. The
-    winner is the fastest survivor, ties broken toward ladder order."""
+    winner is drawn by `objective` (`_pick_winner`)."""
+    if objective not in ("seconds", "bytes"):
+        raise ValueError(f"unknown objective {objective!r}")
     if (quality_metric is None) != (quality_bound is None):
         raise ValueError("quality_metric and quality_bound come together")
     labels = [str(c) for c in candidates]
@@ -241,18 +293,19 @@ def decide(
             fn = build(value)
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)
+                held = torch.cuda.memory_allocated(device)
             t0 = time.perf_counter()
             out = fn(*example)
             _synchronize(device)
             report.compile_seconds = time.perf_counter() - t0
             samples = []
-            for _ in range(REPEATS):
+            for _ in range(max(1, repeats)):
                 t0 = time.perf_counter()
                 out = fn(*example)
                 _synchronize(device)
                 samples.append(time.perf_counter() - t0)
             if device.type == "cuda":
-                report.peak_bytes = int(torch.cuda.max_memory_allocated(device))
+                report.peak_bytes = int(torch.cuda.max_memory_allocated(device)) - held
             samples.sort()
             report.exec_seconds = samples[len(samples) // 2]
             outputs[label] = out
@@ -266,11 +319,12 @@ def decide(
         rep.divergence = 0.0 if label == baseline else float(quality_metric(outputs[baseline], outputs[label]))
         rep.within_bound = rep.divergence <= quality_bound
 
-    winner = _pick_winner(labels, reports)
+    winner = _pick_winner(labels, reports, objective, baseline, max_time_cost_frac)
     decision = Decision(
         family=family, name=name, winner=winner, baseline=baseline,
         candidates={lbl: rep.as_dict() for lbl, rep in reports.items()},
         accepted=winner != baseline, source="measured", key=key, quality_bound=quality_bound,
+        objective=objective, max_time_cost_frac=max_time_cost_frac,
     )
     if store_path:
         store = load_cache(store_path)
@@ -279,12 +333,49 @@ def decide(
     return decision
 
 
-def _pick_winner(labels: list[str], reports: dict[str, CandidateReport]) -> str:
-    """The fastest candidate that survives on either receipt (bit-exact, or
-    a measured divergence within the bound); ties break toward ladder
-    order. The baseline always survives."""
-    eligible = [lbl for lbl in labels if reports[lbl].bit_exact or reports[lbl].within_bound]
-    return min(eligible, key=lambda lbl: (reports[lbl].exec_seconds, labels.index(lbl)))
+def _pick_winner(labels: list[str], reports: dict[str, CandidateReport], objective: str = "seconds",
+                 baseline: str | None = None, max_time_cost_frac: float | None = None) -> str:
+    """Among the candidates that survive on either receipt (bit-exact, or a
+    measured divergence within the bound; the baseline always survives):
+    with `seconds` the fastest, ties toward ladder order; with `bytes` the
+    one of fewest peak bytes, strictly fewer than the best so far in
+    ladder order starting from the baseline, among those whose time is at
+    most the baseline's times (1 + `max_time_cost_frac`) when a fraction is
+    given; the baseline when it has no peak."""
+    eligible = [lbl for lbl in labels if (reports[lbl].bit_exact or reports[lbl].within_bound)
+                and reports[lbl].exec_seconds is not None]
+    if objective == "seconds":
+        return min(eligible, key=lambda lbl: (reports[lbl].exec_seconds, labels.index(lbl)))
+    baseline = labels[0] if baseline is None else baseline
+    base = reports[baseline]
+    if base.peak_bytes is None:
+        return baseline
+    budget_s = None if max_time_cost_frac is None or base.exec_seconds is None \
+        else base.exec_seconds * (1.0 + max_time_cost_frac)
+    best = baseline
+    for lbl in eligible:
+        rep = reports[lbl]
+        if lbl == baseline or rep.peak_bytes is None:
+            continue
+        if budget_s is not None and rep.exec_seconds > budget_s:
+            continue
+        if rep.peak_bytes < reports[best].peak_bytes:
+            best = lbl
+    return best
+
+
+def decide_remat(name: str, build: Callable[[str], Callable], example: Sequence[Any], *,
+                 candidates: Sequence[str] = REMAT_LADDER, repeats: int = REPEATS, store_path: str | None = None,
+                 max_time_cost_frac: float | None = None) -> Decision:
+    """The auto-remat gate: `build(mode)` returns the probe (the gradient
+    of the train step's recurrent scan, its body checkpointed per `mode`).
+    A remat rung wins only when its gradients are bit for bit the
+    baseline's, its peak bytes strictly fewer, and its time at most
+    `max_time_cost_frac` (default `remat_time_cost_frac()`) above the
+    baseline's."""
+    frac = remat_time_cost_frac() if max_time_cost_frac is None else max_time_cost_frac
+    return decide("remat", name, list(candidates), build, example, objective="bytes", max_time_cost_frac=frac,
+                  repeats=repeats, store_path=store_path)
 
 
 def measured_probe(

@@ -26,7 +26,9 @@ On CUDA an entry is built in three stages:
      moments zeroed), objects with `state_dict`/`load_state_dict` (the
      return normaliser) through those, and the argument tensors;
   2. **capture** once, into static input tensors (copies of the call's) and
-     the static outputs the capture returns;
+     the static outputs the capture returns; the garbage collector runs
+     before it and not during it (a collection that destroyed a dead graph
+     mid-capture would invalidate the capture);
   3. **call**: each later call `copy_`s its tensor arguments into the
      static inputs (none that already is one: `WarmJit.static_args`),
      replays the graph and returns the static outputs. The next replay
@@ -67,6 +69,7 @@ builds).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable
 
@@ -271,14 +274,24 @@ class _CudaGraphs:
         """-> (replay, the static outputs, the graph pool's bytes)."""
         del like
         with torch.cuda.device(device):
+            # a garbage collection inside the capture may destroy a dead
+            # graph of an earlier run, a CUDA call that invalidates this
+            # capture: collect first, and not while capturing
+            gc.collect()
             # the capture empties the allocator's cache first: so do we, so
             # that the difference is the graph's pool alone
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             before = torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                out = fn(*args)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    out = fn(*args)
+            finally:
+                if collecting:
+                    gc.enable()
             after = torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0)
         return graph.replay, out, max(int(after - before), 0)
 

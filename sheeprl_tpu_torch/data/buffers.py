@@ -9,7 +9,9 @@ or in host numpy, with uniform sampling.
 `AsyncReplayBuffer` keeps per-env rings, `add(data, indices)` so envs that reset
 mid-step can append their reset rows alone, and `sample` of contiguous
 windows `[n_samples, T, B, *item]`, each from one env. Its rings are host
-numpy (`storage="host"`, the default) or torch tensors on a device
+numpy (`storage="host"`, the default; with `memmap_dir`, `.npy` files
+there opened with `np.lib.format.open_memmap`, one a key, as the
+reference's `--memmap_buffer` keeps them) or torch tensors on a device
 (`storage="device"`), where a collector's rows go in without leaving the
 device: `reserve(data_len)` picks the rows of a full-width write and
 `add_direct(traj, idx, data_len)` scatters a `[data_len, n_envs, ...]`
@@ -32,6 +34,7 @@ generator's, under `torch_sampler_state`; the reference's `sampler_state`
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -42,24 +45,40 @@ __all__ = ["AsyncReplayBuffer", "ReplayBuffer"]
 SAMPLER_KEY = "torch_sampler_state"
 
 
+def _ring(storage: str, device: torch.device, memmap_dir: str | None, key: str, shape: tuple, dtype):
+    """One key's zeroed storage: a tensor on `device`, a numpy array, or a
+    memory-mapped `<memmap_dir>/<key>.npy`."""
+    if storage == "device":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if memmap_dir is not None:
+        return np.lib.format.open_memmap(os.path.join(memmap_dir, f"{key}.npy"), mode="w+", dtype=dtype, shape=shape)
+    return np.zeros(shape, dtype=dtype)
+
+
 class ReplayBuffer:
     """A circular buffer `[buffer_size, n_envs, *item]` a key, written at one
     head for all envs; uniform sampling. `storage="device"` keeps torch
-    tensors on `device`, `storage="host"` numpy arrays."""
+    tensors on `device`, `storage="host"` numpy arrays (with `memmap_dir`,
+    memory-mapped `<memmap_dir>/<key>.npy` files)."""
 
     def __init__(self, buffer_size: int, n_envs: int = 1, storage: str = "device",
                  device: torch.device | str = "cuda", obs_keys: Sequence[str] = ("observations",),
-                 seed: int = 0):
+                 seed: int = 0, memmap_dir: str | None = None):
         if buffer_size <= 0:
             raise ValueError(f"buffer size must be > 0, got {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"n_envs must be > 0, got {n_envs}")
         if storage not in ("device", "host"):
             raise ValueError(f"storage must be 'device' or 'host', got {storage!r}")
+        if memmap_dir is not None and storage != "host":
+            raise ValueError("memmap_dir needs host storage")
         self.buffer_size = buffer_size
         self.n_envs = n_envs
         self.storage = storage
         self.device = torch.device(device)
+        self.memmap_dir = memmap_dir
+        if memmap_dir is not None:
+            os.makedirs(memmap_dir, exist_ok=True)
         self.obs_keys = tuple(obs_keys)
         self._buf: dict | None = None
         self.pos = 0
@@ -97,12 +116,7 @@ class ReplayBuffer:
             data = {k: v[-self.buffer_size:] for k, v in data.items()}
             length = self.buffer_size
         if self._buf is None:
-            shape = (self.buffer_size, self.n_envs)
-            self._buf = {
-                k: torch.zeros(shape + tuple(v.shape[2:]), dtype=v.dtype, device=self.device)
-                if self.storage == "device" else np.zeros(shape + v.shape[2:], dtype=v.dtype)
-                for k, v in data.items()
-            }
+            self._allocate(data)
         if length == 1:  # a rollout step: one row, written in place
             rows = self.pos
             data = {k: v[0] for k, v in data.items()}
@@ -114,6 +128,10 @@ class ReplayBuffer:
             self._buf[k][rows] = v
         self.full = self.full or self.pos + length >= self.buffer_size
         self.pos = (self.pos + length) % self.buffer_size
+
+    def _allocate(self, data: Mapping) -> None:
+        self._buf = {k: _ring(self.storage, self.device, self.memmap_dir, k,
+                              (self.buffer_size, self.n_envs, *v.shape[2:]), v.dtype) for k, v in data.items()}
 
     def _valid_ranges(self, exclude: int) -> tuple[int, int]:
         """The sampling domain (first, n_valid): a draw r < first maps to
@@ -177,6 +195,11 @@ class ReplayBuffer:
                                  f"this one [{self.buffer_size}, {self.n_envs}]")
             bufs = {k[len("buf_"):]: data[k] for k in data.files if k.startswith("buf_")}
             self._buf = {k: self._as_stored(np.ascontiguousarray(v)) for k, v in bufs.items()} or None
+            if self._buf and self.memmap_dir is not None:
+                rings = self._buf
+                self._allocate(rings)
+                for k, v in rings.items():
+                    self._buf[k][...] = v
             self.pos, self.full = int(data["pos"]), bool(data["full"])
             if SAMPLER_KEY in data.files:
                 self._gen.set_state(torch.from_numpy(data[SAMPLER_KEY].copy()))
@@ -186,21 +209,26 @@ class ReplayBuffer:
 class AsyncReplayBuffer:
     """`n_envs` independent rings of `buffer_size` rows each, stored as one
     array `[buffer_size, n_envs, *item]` per key with a write head per env:
-    numpy arrays with `storage="host"`, tensors on `device` with
-    `storage="device"`."""
+    numpy arrays with `storage="host"` (memory-mapped `<memmap_dir>/<key>.npy`
+    files with `memmap_dir`), tensors on `device` with `storage="device"`."""
 
     def __init__(self, buffer_size: int, n_envs: int = 1, seed: int = 0, storage: str = "host",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", memmap_dir: str | None = None):
         if buffer_size <= 0:
             raise ValueError(f"buffer size must be > 0, got {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"n_envs must be > 0, got {n_envs}")
         if storage not in ("device", "host"):
             raise ValueError(f"storage must be 'device' or 'host', got {storage!r}")
+        if memmap_dir is not None and storage != "host":
+            raise ValueError("memmap_dir needs host storage")
         self.buffer_size = buffer_size
         self.n_envs = n_envs
         self.storage = storage
         self.device = torch.device(device)
+        self.memmap_dir = memmap_dir
+        if memmap_dir is not None:
+            os.makedirs(memmap_dir, exist_ok=True)
         self._buf: dict | None = None
         self._pos = np.zeros(n_envs, dtype=np.int64)
         self._full = np.zeros(n_envs, dtype=bool)
@@ -218,13 +246,8 @@ class AsyncReplayBuffer:
         return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
     def _allocate(self, data: Mapping) -> None:
-        def ring(v):
-            shape = (self.buffer_size, self.n_envs, *v.shape[2:])
-            if self.storage == "device":
-                return torch.zeros(shape, dtype=v.dtype, device=self.device)
-            return np.zeros(shape, dtype=v.dtype)
-
-        self._buf = {k: ring(v) for k, v in data.items()}
+        self._buf = {k: _ring(self.storage, self.device, self.memmap_dir, k,
+                              (self.buffer_size, self.n_envs, *v.shape[2:]), v.dtype) for k, v in data.items()}
 
     def add(self, data: Mapping, indices: Sequence[int] | None = None) -> None:
         """Append `data` ([L, n_cols, *item] per key) to the rings of the
@@ -374,11 +397,13 @@ class AsyncReplayBuffer:
                 )
             prefix = "b0_buf_"
             keys = [k[len(prefix):] for k in data.files if k.startswith(prefix)]
-            self._buf = {
-                k: self._stored(np.ascontiguousarray(
-                    np.concatenate([data[f"b{i}_buf_{k}"] for i in range(self.n_envs)], axis=1)))
-                for k in keys
-            } or None
+            rings = {k: self._stored(np.ascontiguousarray(
+                np.concatenate([data[f"b{i}_buf_{k}"] for i in range(self.n_envs)], axis=1))) for k in keys}
+            self._buf = rings or None
+            if rings and self.memmap_dir is not None:
+                self._allocate(rings)
+                for k, v in rings.items():
+                    self._buf[k][...] = v
             self._pending = None
             self._pos = np.array([int(data[f"b{i}_pos"]) for i in range(self.n_envs)], dtype=np.int64)
             self._full = np.array([bool(data[f"b{i}_full"]) for i in range(self.n_envs)], dtype=bool)

@@ -5,8 +5,8 @@ The server dispatches micro-batches through one fixed-shape step per
 ladder rung (1, 2, 4, ... up to --max_batch), each a CUDA graph on the card
 that holds its memory pool for the life of the server, so the ladder is
 sized, not assumed: a rung is kept when its measured peak bytes fit the
-serving memory budget (`serve_mem_budget_bytes`: 512 MiB, or
-SHEEPRL_TPU_SERVE_MEM_MB).
+serving memory budget (`serve_mem_budget_bytes`: SHEEPRL_TPU_SERVE_MEM_MB,
+else the partition budget, SHEEPRL_TPU_PARTITION_MEM_MB or 512 MiB).
 
 The probe stands in for the reference's trial compile and XLA
 `memory_analysis()`: the peak of a rung is the bytes of its arguments (the
@@ -43,6 +43,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..compile.partition import partition_mem_budget_bytes
+
 __all__ = [
     "RungDecision",
     "derive_rung",
@@ -54,9 +56,6 @@ __all__ = [
 ]
 
 FAMILY = "serve_ladder"
-# the reference's partition budget default (compile/partition.py:168-173),
-# kept here: the port has no partition module
-DEFAULT_BUDGET_MB = 512.0
 
 
 def parse_rungs(ladder: str, max_batch: int) -> list[int]:
@@ -103,8 +102,11 @@ def ledger_spec(algo: str) -> str:
 
 def serve_mem_budget_bytes() -> int:
     """Peak-bytes budget of one rung: SHEEPRL_TPU_SERVE_MEM_MB, else the
-    partition heuristic's default."""
-    return int(float(os.environ.get("SHEEPRL_TPU_SERVE_MEM_MB") or DEFAULT_BUDGET_MB) * 2**20)
+    partition budget (`compile/partition.py:partition_mem_budget_bytes`)."""
+    env = os.environ.get("SHEEPRL_TPU_SERVE_MEM_MB")
+    if env:
+        return int(float(env) * 2**20)
+    return partition_mem_budget_bytes()
 
 
 @dataclasses.dataclass

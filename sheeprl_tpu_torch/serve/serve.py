@@ -81,7 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     run_name = args.run_name or time.strftime("%Y-%m-%d_%H-%M-%S")
     log_dir = os.path.join(root_dir, run_name)
     args.log_dir = log_dir  # side effect: mkdir + args.json dump
-    telem = Telemetry(log_dir, role="serve")
+    telem = Telemetry.from_args(args, log_dir, algo=args.algo, role="serve")
     try:
         _serve(args, device, log_dir, telem)
     finally:

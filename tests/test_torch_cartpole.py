@@ -85,7 +85,8 @@ def test_make_dict_env_routes_cartpole_under_the_mlp_key():
     obs, _ = env.reset(seed=5)
     assert set(obs) == {"state"} and obs["state"].shape == (4,)
     obs2, reward, term, trunc, _ = env.step(1)
-    assert set(obs2) == {"state"} and reward == 1.0 and not term and not trunc
+    # DreamerV3 repeats an action 4 times by default: 4 rewards of 1.0
+    assert set(obs2) == {"state"} and reward == 4.0 and not term and not trunc
     args.mlp_keys = []  # no key given: the first mlp key becomes `state`
     make_dict_env("cartpole-v1", 0, rank=0, args=args)()
     assert args.mlp_keys == ["state"]

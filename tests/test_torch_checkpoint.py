@@ -361,6 +361,9 @@ def test_save_load_is_bit_exact_and_training_goes_on_the_same(tmp_path):
     _flat_equal(to_host(checkpoint_state(state, 3, 17, STEP_B)), to_host(checkpoint_state(fresh, 3, 17, STEP_B)))
 
 
+F32_TAU = float(np.float32(0.02))
+
+
 def _run_main(argv, monkeypatch=None):
     """The port's `main` in this process; with `monkeypatch`, the tau of
     every gradient step is recorded. -> (taus, records, done)."""
@@ -371,13 +374,18 @@ def _run_main(argv, monkeypatch=None):
         real = dv3.make_train_step
 
         def spy(*a, **k):
+            # the main calls the step's device part (its metrics stay on the
+            # device until the log), with tau as an f32 device scalar: the
+            # critic tau 0.02 arrives as float32(0.02)
             step = real(*a, **k)
+            device_step = step.device_step
 
             def recorded(state, data, tau, noise):
-                taus.append(tau)
-                return step(state, data, tau, noise)
+                taus.append(float(tau))
+                return device_step(state, data, tau, noise)
 
-            return recorded
+            step.device_step = recorded
+            return step
 
         monkeypatch.setattr(dv3, "make_train_step", spy)
     dv3.main(argv)
@@ -413,7 +421,7 @@ def test_resume_starts_after_the_checkpoint_shifts_learning_starts_and_takes_tau
     argv = PORT_TINY + ["--root_dir", str(tmp_path), "--run_name", "r", "--learning_starts", "8",
                         "--total_steps", "24", "--checkpoint_every", "8"]
     first_taus = _run_main(argv, monkeypatch)
-    assert first_taus[0] == 1.0 and set(first_taus[1:]) == {0.02}
+    assert first_taus[0] == 1.0 and set(first_taus[1:]) == {F32_TAU}
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     assert [os.path.basename(p) for p in list_checkpoints(ckpt_dir)] == ["ckpt_24", "ckpt_16", "ckpt_8"]
     assert not os.path.exists(os.path.join(ckpt_dir, "ckpt_8_buffer.npz"))
@@ -427,7 +435,7 @@ def test_resume_starts_after_the_checkpoint_shifts_learning_starts_and_takes_tau
     resumed = done["resumed"]
     assert resumed["start_step"] == 9 and resumed["learning_starts"] == 8 + 9 and "buffer" not in resumed
     assert done["env_steps"] == 24 - 8 and train[0]["step"] == 17
-    assert taus[0] == 1.0 and set(taus[1:]) == {0.02} and len(taus) == done["gradient_steps"] > 1
+    assert taus[0] == 1.0 and set(taus[1:]) == {F32_TAU} and len(taus) == done["gradient_steps"] > 1
     assert [c["step"] for c in done["checkpoints"]] == [16, 24]
 
 

@@ -19,7 +19,11 @@ RELOAD and sessions that keep their rows; for continuous actions in
 DreamerV3, the GRU's input gradients with frozen weights at B = 1,024
 (imagination's backward) against the plain version's autograd, and the
 continuous gradient step, served rung and device-Pendulum player chunk
-each replayed as a graph against their eager or direct selves. Marked
+each replayed as a graph against their eager or direct selves; kernels 3
+and 3-res at the gray encoder's first stage (Cin = 1) in a graph, the
+continuous gradient step under `--remat on` and `policy` replayed against
+its eager self and `--remat off`'s, and the metric aggregator pulling
+device values in one copy. Marked
 `cuda`: they skip
 without a CUDA device. The file imports neither jax nor the reference, so
 it also runs on a machine that has neither:
@@ -852,6 +856,11 @@ def _kernel_case(name, dev):
                                   gru_args(1024)),
         "3_conv": (cnn.conv_ln_silu, cnn.conv_ln_silu, conv_args(8, 3, 32, 64)),
         "3res_conv_residuals": (cnn.conv_ln_silu_residuals, cnn.conv_ln_silu_residuals, conv_args(64, 32, 64, 32)),
+        # the gray encoder's first stage (Cin = 1, K = 16): the player's 4
+        # envs and the gradient step's T * B = 1,024 frames
+        "3_conv_cin1": (cnn.conv_ln_silu, cnn.conv_ln_silu, conv_args(4, 1, 32, 64)),
+        "3res_conv_residuals_cin1": (cnn.conv_ln_silu_residuals, cnn.conv_ln_silu_residuals,
+                                     conv_args(1024, 1, 32, 64)),
         "4_deconv": (deconv.deconv_ln_silu, deconv.deconv_ln_silu, deconv_args),
         "5_fused_rssm": (rssm.fused_rssm_step, rssm.fused_rssm_step, rssm_args),
         "6_int8_trunk": (int8_trunk.fused_int8_trunk, int8_trunk.fused_int8_trunk, int8_args),
@@ -862,12 +871,14 @@ def _kernel_case(name, dev):
 
 
 KERNEL_GRAPH_CASES = ["1_gru", "2_gru_residuals_b16", "2_gru_residuals_b1024", "3_conv", "3res_conv_residuals",
-                      "4_deconv", "5_fused_rssm", "6_int8_trunk", "7_two_hot", "8_symlog"]
+                      "3_conv_cin1", "3res_conv_residuals_cin1", "4_deconv", "5_fused_rssm", "6_int8_trunk",
+                      "7_two_hot", "8_symlog"]
 # the kernel each wrapper call launches exactly once, by its name on the device
 KERNEL_DEVICE_NAMES = {
     "1_gru": r"gru_row_kernel<[^<>]*, false>", "2_gru_residuals_b16": r"gru_row_kernel<[^<>]*, true>",
     "2_gru_residuals_b1024": r"gru_row_kernel<[^<>]*, true>", "3_conv": r"conv_gemm_kernel<[^<>]*, false, false>",
     "3res_conv_residuals": r"conv_gemm_kernel<[^<>]*, false, true>", "4_deconv": r"conv_gemm_kernel<[^<>]*, true, \w+>",
+    "3_conv_cin1": r"conv_gemm_kernel<[^<>]*, false, false>", "3res_conv_residuals_cin1": r"conv_gemm_kernel<[^<>]*, false, true>",
     "5_fused_rssm": r"fused_rssm_kernel<", "6_int8_trunk": r"int8_trunk_kernel<", "7_two_hot": r"two_hot_kernel<",
     "8_symlog": r"symlog_kernel<",
 }
@@ -1492,6 +1503,62 @@ def test_graphed_continuous_train_step_equals_eager_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["on", "policy"])
+def test_graphed_remat_train_step_equals_eager_bit_for_bit(cuda_device, remat):
+    """The continuous gradient step under `--remat on` / `policy` (the RSSM
+    scan's and imagination's steps checkpointed, recomputed in the
+    backward inside the graph) replayed against the same calls made
+    eagerly, and against `--remat off`'s eager calls: metrics, parameters,
+    Adam moments and the return normaliser bit for bit."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+
+    results = {}
+    for mode, graphed in (("off", False), (remat, False), (remat, True)):
+        args, state, calls = _continuous_train_case(cuda_device)
+        args.remat = mode
+        plan = CompilePlan(device=cuda_device) if graphed else None
+        step = dv3.make_train_step(args, [], ["state"], [1], True, plan=plan).device_step
+        outs = [step(state, data, tau, noise).clone() for data, tau, noise in calls]
+        torch.cuda.synchronize()
+        params = [t.detach().clone() for m in (state.world_model, state.actor, state.critic, state.target_critic)
+                  for t in m.state_dict().values()]
+        moments = [t.clone() for opt in (state.world_opt, state.actor_opt, state.critic_opt)
+                   for st in opt.state.values() for t in st.values()]
+        results[(mode, graphed)] = outs + params + moments + [state.moments.low.clone(), state.moments.high.clone()]
+        if graphed:
+            entry = plan.stats()["entries"]["train_step"]
+            assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+    base = results[("off", False)]
+    assert torch.isfinite(base[0]).all()
+    for key in ((remat, False), (remat, True)):
+        assert [i for i, (a, b) in enumerate(zip(base, results[key])) if not torch.equal(a, b)] == [], key
+
+
+@pytest.mark.cuda
+def test_metric_aggregator_pulls_device_values_in_one_copy(cuda_device, monkeypatch):
+    """Metrics left on the card (as the mains leave a graphed step's) are
+    resolved at compute time with one device-to-host copy."""
+    from sheeprl_tpu_torch.utils.metric import MetricAggregator, MovingAverageMetric
+
+    values = torch.randn(12, generator=torch.Generator().manual_seed(0))
+    agg = MetricAggregator()
+    agg.add("Window", MovingAverageMetric(window=4))
+    for i, v in enumerate(values.to(cuda_device)):
+        agg.update("Loss/a" if i % 2 else "Loss/b", v)
+        agg.update("Window", v)
+    agg.update("Rewards/rew_avg", 1.5)
+    pulls = []
+    real = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **k: (pulls.append(self.device), real(self, *a, **k))[1])
+    out = agg.compute()
+    assert len(pulls) == 1 and pulls[0].type == "cuda"
+    host = values.double().tolist()
+    assert out["Loss/a"] == pytest.approx(sum(host[1::2]) / 6, rel=1e-12)
+    assert out["Window/max"] == max(host[-4:]) and out["Rewards/rew_avg"] == 1.5
+
+
+@pytest.mark.cuda
 def test_graphed_continuous_serve_answers_as_the_direct_step(cuda_device, tmp_path):
     """`serve` of a tiny continuous DreamerV3 (continuous_dummy pixels) on
     the card: each dispatch a graph replay of its rung, each answer a float
@@ -1692,8 +1759,18 @@ def test_profile_window_on_the_card_traces_a_port_kernel(cuda_device, tmp_path):
     reply = handle_profile_frame({"seconds": 30}, str(tmp_path))
     assert reply["ok"] and reply["cuda"]
     assert not handle_profile_frame({"seconds": 1}, str(tmp_path))["ok"]
+
+    def pad():
+        # a window on the card can lose the records at its edges
+        # (chip_smoke.py:DeviceLaunches): empty kernels take those places
+        for _ in range(256):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+
+    pad()
     for _ in range(4):
         gru.layernorm_gru_cell(x, h, w, scale, offset, 1e-3)
+    pad()
     profile_window().close()
     with open(reply["trace"]) as fh:
         names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]

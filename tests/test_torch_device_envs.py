@@ -324,13 +324,14 @@ def test_registry_and_its_error_message():
 def test_pixeltoy_host_twin_steps_the_device_dynamics():
     """`make_dict_env("pixeltoy")` is the host twin: numpy frames under
     `rgb`, gym-style returns, the batched env's own step at N = 1 from the
-    same state, and the same episode from the same seed."""
+    same state, and the same episode from the same seed; asked for 32 x 32
+    frames, the twin's frames come resized."""
     from sheeprl_tpu_torch.envs.device import DevicePixelToy, HostTwin
-    from sheeprl_tpu_torch.utils.env import make_dict_env
+    from sheeprl_tpu_torch.utils.env import make_dict_env, resize_area
 
     args = type("A", (), {"cnn_keys": None, "mlp_keys": None, "screen_size": 64})()
     env = make_dict_env("pixeltoy", 3, rank=0, args=args)()
-    assert isinstance(env, HostTwin) and args.cnn_keys == ["rgb"]
+    assert isinstance(env.unwrapped, HostTwin) and args.cnn_keys is None
     obs, _ = env.reset(seed=3)
     assert obs["rgb"].shape == (64, 64, 3) and obs["rgb"].dtype == np.uint8
     device_env = DevicePixelToy()
@@ -347,8 +348,10 @@ def test_pixeltoy_host_twin_steps_the_device_dynamics():
         if term or trunc:
             break
     assert env.render().shape == (64, 64, 3)
-    with pytest.raises(ValueError, match="screen_size"):
-        make_dict_env("pixeltoy", 0, rank=0, args=type("A", (), {"cnn_keys": None, "screen_size": 32})())()
+    small = make_dict_env("pixeltoy", 3, rank=0, args=type("A", (), {"cnn_keys": ["rgb"], "screen_size": 32})())()
+    frame, _ = small.reset(seed=3)
+    np.testing.assert_array_equal(frame["rgb"], resize_area(device_env.observe(
+        device_env.draw_resets(torch.Generator().manual_seed(3), (1,)))["rgb"][0].numpy(), 32, 32))
 
 
 def test_vec_env_state_carries_across_from_the_reference():

@@ -746,7 +746,9 @@ def test_eval_only_and_serve_of_a_continuous_checkpoint(tmp_path):
     dreamer_v3.main(["--eval_only", "--checkpoint_path", ckpt, "--device", "cpu", "--test_episodes", "2",
                      "--root_dir", str(tmp_path), "--run_name", "e"])
     ev = _records(tmp_path / "e" / "metrics.jsonl")[-1]
-    assert ev["gradient_steps"] == 0 and len(ev["test_returns"]) == 2 and ev["test_player_steps"] == [5, 5]
+    # the dummy's episode is 5 env steps; DreamerV3 repeats each action 4
+    # times by default, so a test episode is 2 player steps
+    assert ev["gradient_steps"] == 0 and len(ev["test_returns"]) == 2 and ev["test_player_steps"] == [2, 2]
 
     rng = np.random.default_rng(0)
     obs = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(4)]
@@ -779,7 +781,7 @@ def test_eval_only_and_serve_of_a_continuous_checkpoint(tmp_path):
 
     player.actor.forward = spy
     ret, steps = play(player, logger, args, ["rgb"], sample_actions=False)
-    assert steps == 5 and np.isfinite(ret) and len(calls) == steps
+    assert steps == 2 and np.isfinite(ret) and len(calls) == steps
     assert all(not training and tuple(u.shape) == (BEST_OF, 1, A_DUMMY) for training, u in calls)
     assert not torch.equal(calls[0][1], calls[1][1])
 
@@ -794,7 +796,7 @@ def test_jax_backend_collector_runs_the_continuous_player_as_one_plan_entry(tmp_
     done = _records(tmp_path / "r" / "metrics.jsonl")[-1]
     assert done["anakin_chunk"] == 2 and done["env_steps"] == 48 and done["player_steps"] == 8
     assert set(done["compile_stats"]["entries"]) == {"train_step", "anakin_rollout", "anakin_rollout_random"}
-    assert done["test_player_steps"] == [200]
+    assert done["test_player_steps"] == [200 // 4]  # Pendulum's 200 steps, each action repeated 4 times
 
 
 # ---------------------------------------------------------------------------

@@ -178,6 +178,7 @@ def test_rollout_fills_host_and_device_storage_alike(env):
     entering its step (the dummy envs end every fifth step)."""
     from sheeprl_tpu_torch.algos.ppo.ppo import Rollout
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+    from sheeprl_tpu_torch.envs.vector import SyncVectorEnv
     from sheeprl_tpu_torch.utils.env import make_dict_env
 
     _, agent = _agents(env)
@@ -185,7 +186,7 @@ def test_rollout_fills_host_and_device_storage_alike(env):
     rows = []
     for storage in ("device", "host"):
         args = type("A", (), {"cnn_keys": keys, "mlp_keys": None, "screen_size": 64})()
-        envs = [make_dict_env(ENVS[env]["env_id"], i, 0, args)() for i in range(2)]
+        envs = SyncVectorEnv([make_dict_env(ENVS[env]["env_id"], i, 0, args) for i in range(2)])
         rb = ReplayBuffer(12, 2, storage=storage, device="cpu", obs_keys=keys)
         rollout = Rollout(envs, 0)
         rollout.collect(agent, rb, keys, torch.Generator().manual_seed(4))

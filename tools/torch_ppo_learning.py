@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The reference's PPO learning test (tests/test_algos/test_learning.py:22-75)
 on the port, or on the reference itself: for each seed, PPO on CartPole-v1
-with its recipe (4 envs, 65,536 steps, rollout 128, batch 128, 6 epochs,
+with its recipe (4 envs stepped in turn, 65,536 steps, rollout 128, batch 128, 6 epochs,
 ent_coef 0.01, annealed lr, normalized advantages, max_grad_norm 0.5), then
 10 greedy episodes at seeds 1000-1009 from the final checkpoint. Prints one
 JSON line a seed: the mean return (the reference's bar is 400), the returns,
@@ -39,9 +39,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RECIPE = ["--env_id", "CartPole-v1", "--num_envs", "4", "--total_steps", "65536", "--rollout_steps", "128",
-          "--per_rank_batch_size", "128", "--update_epochs", "6", "--ent_coef", "0.01", "--anneal_lr",
-          "--normalize_advantages", "--max_grad_norm", "0.5", "--checkpoint_every", "1000000"]
+# tests/test_algos/test_learning.py:25-41, as it stands
+RECIPE = ["--env_id", "CartPole-v1", "--num_devices", "1", "--num_envs", "4", "--sync_env", "--total_steps", "65536",
+          "--rollout_steps", "128", "--per_rank_batch_size", "128", "--update_epochs", "6", "--ent_coef", "0.01",
+          "--anneal_lr", "--normalize_advantages", "--max_grad_norm", "0.5", "--checkpoint_every", "1000000"]
 FINAL_UPDATE = 65536 // (128 * 4)
 EVAL_SEED, EVAL_EPISODES = 1000, 10
 
@@ -100,7 +101,7 @@ def reference_returns(seed: int, out: str, env_backend: str = "host") -> list[fl
     from sheeprl_tpu.utils.checkpoint import latest_checkpoint, load_checkpoint
     from sheeprl_tpu.utils.registry import tasks
 
-    tasks["ppo"]([*RECIPE, "--seed", str(seed), "--num_devices", "1", "--sync_env", "--env_backend", env_backend,
+    tasks["ppo"]([*RECIPE, "--seed", str(seed), "--env_backend", env_backend,
                   "--root_dir", out, "--run_name", f"ref_{seed}"])
     ckpt = latest_checkpoint(os.path.join(out, f"ref_{seed}", "checkpoints"))
     env = gym.make("CartPole-v1")
