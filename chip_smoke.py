@@ -112,7 +112,8 @@ the final line:
      wall, device time and launches by torch.profiler, busy share), with
      each entry's warm-up and capture seconds and graph pool bytes, the
      port's kernels a replay ran on the device against what its capture
-     recorded, and a whole PPO update eager and graphed;
+     recorded, each case's seconds, and a whole PPO update graphed (phase
+     10 profiles the eager one; `GRAPH_TIMED` calls each way);
  12. sac training: `sheeprl_tpu_torch sac` and `droq` on Pendulum-v1 with
      the reference's learning recipes (tests/test_algos/test_learning.py:
      134-148, 170-184: seed 5, one env, learning_starts 1,000, batch 128,
@@ -220,8 +221,22 @@ the final line:
      decision. The kernels line's `env_layer_launches` are (b)'s device
      counts and `gray_cin1` (c)'s rows. Alone: `python3
      tools/torch_env_phase.py`.
+ 17. dreamer family: DreamerV2 and DreamerV1 at their default widths
+     through the CLIs (`DREAMER_RUNS`): DreamerV2 on discrete_dummy pixels
+     and, with `--buffer_type episode --prioritize_ends`, on Pendulum-v1
+     (its 101-row episodes hold T = 50 windows; the dummy envs' hold 4
+     rows), DreamerV1 on continuous_dummy pixels; each run counted on the
+     device, where no port kernel may launch (every guard refuses both
+     paths), each gradient and player step a graph replay after its first
+     call, losses finite, every model moved; the pixel runs resumed from
+     their step-68 checkpoints with their buffers; one gradient step of
+     each on the card against the CPU (default widths, B 2; the 13
+     metrics at rtol 1e-3, parameters within 2 lr + 1e-6); each graphed
+     gradient and player step against its eager self bit for bit (cuDNN's
+     deterministic algorithms), timed both ways. Alone: `python3
+     tools/torch_dreamer_phase.py`.
 
-Every path of phases 4, 6-10 and 12-16 runs graphed through the CLIs
+Every path of phases 4, 6-10 and 12-17 runs graphed through the CLIs
 (`compile/plan.py`: serve captures every rung at startup, the trainers
 each step at its first call), and each phase fails on a fallback. A serve
 first probes each rung with one eager step (the ladder's sizing), and a
@@ -2759,7 +2774,10 @@ def ppo_phase(torch, np, run, device, train_root: str, smi: str) -> dict:
 
 # timed calls a way (graphed, eager) after the compared calls: a served step
 # is ~0.1-1 ms, a gradient step ~0.1-0.6 s, PPO's steps ~1-6 ms
-GRAPH_TIMED = {"serve": 200, "player": 100, "train": 3, "ppo": 50, "sac": 200}
+# calls timed each way a case (host wall, events, a profiler window, a
+# DeviceLaunches window): cut from 200 / 100 / 3 / 50 / 200 when phase
+# 11's timings were 322 s of a 998 s run
+GRAPH_TIMED = {"serve": 50, "player": 30, "train": 1, "ppo": 20, "sac": 50}
 
 
 def _tensors(out) -> list:
@@ -2837,6 +2855,7 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
             torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
         return exact, outs, state
 
+    t_case = time.perf_counter()
     eager = run(False)
     repeat_exact, repeat_out, repeat_state = gaps(run(False), eager)
     graphed = run(True)
@@ -2858,7 +2877,8 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
                   eager_repeat_state_gap=max(repeat_state.values(), default=0.0), graphed_exact=exact,
                   graphed_gap=out_gap, graphed_state_gap=max(state_gap.values(), default=0.0), within_tol=within,
                   capture_seconds=entry["compile_seconds"], pool_bytes=entry["peak_bytes"],
-                  launches_per_replay=entry["launches_per_replay"], **times)
+                  launches_per_replay=entry["launches_per_replay"], case_seconds=time.perf_counter() - t_case,
+                  **times)
     e, g = times["eager"], times["graphed"]
     log(f"[graphs] {name}: eager {e['wall_ms']:.4f} ms host, {e['device_ms']:.4f} ms device in {e['launches']:.0f} "
         f"launches, busy {e['busy']:.3f} | graphed {g['wall_ms']:.4f} ms host, {g['device_ms']:.4f} ms device "
@@ -2867,7 +2887,8 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
         f"replay {entry['launches_per_replay']} (the device ran {g['port_launches']} a replay) | eager twice bit for "
         f"bit: {repeat_exact} (gap {repeat_out:.3e}, "
         f"state {report['eager_repeat_state_gap']:.3e}); graphed vs eager over {graphed['calls']} calls bit for "
-        f"bit: {exact} (gap {out_gap:.3e}, state {report['graphed_state_gap']:.3e}, within tolerance {within})")
+        f"bit: {exact} (gap {out_gap:.3e}, state {report['graphed_state_gap']:.3e}, within tolerance {within}) | "
+        f"the case {report['case_seconds']:.1f} s")
     if not ok:
         raise RuntimeError(f"the graphed {name} disagrees with its eager step or fell back: {report} {entry}")
     return report
@@ -3026,14 +3047,13 @@ def graphs_phase(torch, np, device) -> list[dict]:
         reports.append(graph_case(torch, name, build, steps, tol, state_tol))
         gc.collect()
         torch.cuda.empty_cache()
-    # a whole PPO update each way: the rollout's 128 policy steps and the 24
-    # minibatch steps, graphed or eager
-    for graphs in (False, True):
-        prof = profile_ppo(torch, learn, device, graphs=graphs)
-        reports.append(dict(name=f"ppo update {'graphed' if graphs else 'eager'}", **prof))
-        log(f"[graphs] one PPO CartPole update {'graphed' if graphs else 'eager'}: host wall {prof['update_ms']:.2f} "
-            f"ms (rollout {prof['rollout_ms']:.2f} + train {prof['train_ms']:.2f}), device time "
-            f"{prof['device_ms']:.2f} ms in {prof['launches']} launches, busy {prof['device_busy_share']:.3f}")
+    # a whole PPO update graphed: the rollout's 128 policy steps and the 24
+    # minibatch steps (phase 10 profiles the eager update)
+    prof = profile_ppo(torch, learn, device, graphs=True)
+    reports.append(dict(name="ppo update graphed", **prof))
+    log(f"[graphs] one PPO CartPole update graphed: host wall {prof['update_ms']:.2f} ms (rollout "
+        f"{prof['rollout_ms']:.2f} + train {prof['train_ms']:.2f}), device time {prof['device_ms']:.2f} ms in "
+        f"{prof['launches']} launches, busy {prof['device_busy_share']:.3f} (eager: phase 10's [ppo] profile)")
     return reports
 
 
@@ -4880,6 +4900,265 @@ def env_layer_phase(torch, np, F, run, device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the Dreamer family (DreamerV2 and DreamerV1)
+# ---------------------------------------------------------------------------
+
+# each run at its algorithm's default widths (DreamerV2: cnn multiplier 48,
+# dense 400, 4 MLP layers, 32 x 32 latents, recurrent and hidden 200, B 16 x
+# T 50, horizon 15; DreamerV1: multiplier 32, dense 400, a 30-wide Gaussian
+# state, B 50 x T 50), its depth cut: the first gradient steps where the
+# ring holds a window, then one after every player step, a checkpoint with
+# the buffer at step 68 and at the last. The dummy envs' episodes are 4 rows
+# long, so the episode buffer's run (T 50 windows of whole episodes) takes
+# Pendulum-v1, whose episodes are 101 rows at DreamerV2's action repeat 2
+DREAMER_RUNS = {
+    "dv2 pixels": ["dreamer_v2", "--env_id", "discrete_dummy", "--cnn_keys", "rgb", "--num_envs", "1",
+                   "--buffer_size", "512", "--learning_starts", "128", "--train_every", "2", "--pretrain_steps", "2",
+                   "--total_steps", "144", "--checkpoint_every", "68", "--checkpoint_buffer"],
+    "dv2 episode": ["dreamer_v2", "--env_id", "Pendulum-v1", "--mlp_keys", "state", "--num_envs", "1",
+                    "--buffer_type", "episode", "--prioritize_ends", "--buffer_size", "4096", "--learning_starts",
+                    "256", "--train_every", "2", "--pretrain_steps", "2", "--total_steps", "272"],
+    "dv1 pixels": ["dreamer_v1", "--env_id", "continuous_dummy", "--cnn_keys", "rgb", "--num_envs", "1",
+                   "--buffer_size", "512", "--learning_starts", "128", "--train_every", "2", "--gradient_steps", "1",
+                   "--total_steps", "144", "--checkpoint_every", "68", "--checkpoint_buffer"],
+}
+DREAMER_RESUME = 68
+# the card-vs-CPU step: the default widths, the batch cut to 2 rows of T 50
+DREAMER_CPU_BATCH = 2
+
+
+def drive_dreamer(torch, run, argv, run_dir: str) -> tuple[dict, dict, dict]:
+    """A Dreamer CLI run (`argv` whole) in this process under a
+    `DeviceLaunches` window counting every port kernel, the wrappers'
+    counts set to 0 just before. -> (the device's counts, the wrappers'
+    counts, the last "done" record in `run_dir`)."""
+    from sheeprl_tpu_torch.ops.kernels import launch_counters
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with DeviceLaunches(torch, counters) as ran:
+        run(list(argv))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        done = [json.loads(line) for line in fh if line.strip()][-1]
+    return ran.counts, {k: fn.launches for k, fn in counters.items()}, done
+
+
+def _dreamer_setup(torch, np, algo: str, device, batch: int | None = None):
+    """A default-width DreamerV2 (discrete_dummy pixels, 2 actions) or V1
+    (continuous_dummy pixels, 2 actions) train state built by the package's
+    own functions, one [T, B] batch (`batch` rows, the default B when None)
+    and the step's draws (made on the CPU), from fixed seeds. -> (args,
+    state, data, noise, the train step, the player)."""
+    from sheeprl_tpu_torch.envs import spaces
+
+    if algo == "dreamer_v2":
+        from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as mod
+        from sheeprl_tpu_torch.algos.dreamer_v2.agent import PlayerDV2 as Player
+        from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_models
+        from sheeprl_tpu_torch.algos.dreamer_v2.args import DreamerV2Args as Args
+        from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import draw_noise
+        continuous = False
+    else:
+        from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as mod
+        from sheeprl_tpu_torch.algos.dreamer_v1.agent import PlayerDV1 as Player
+        from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_models
+        from sheeprl_tpu_torch.algos.dreamer_v1.args import DreamerV1Args as Args
+        from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import draw_noise
+        continuous = True
+    args = Args()
+    if batch is not None:
+        args.per_rank_batch_size = batch
+    models = build_models(torch.Generator().manual_seed(0), [2], continuous, args,
+                          {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}, ["rgb"], [])
+    for m in models:
+        m.to(device)
+    state = (mod.DV2TrainState if algo == "dreamer_v2" else mod.DV1TrainState)(
+        *models, *mod.make_optimizers(args, *models[:3]))
+    T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+    rng = np.random.default_rng(0)
+    dones = np.zeros((T, B, 1), np.float32)
+    dones[3::4, ::3] = 1.0  # the dummy envs' episodes: 4 rows
+    batch_np = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8),
+                "actions": (rng.uniform(-1, 1, (T, B, 2)).astype(np.float32) if continuous
+                            else np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))]),
+                "rewards": rng.normal(size=(T, B, 1)).astype(np.float32), "dones": dones}
+    if algo == "dreamer_v2":
+        batch_np["is_first"] = np.concatenate([np.zeros((1, B, 1), np.float32), dones[:-1]])
+    data = {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+    noise = draw_noise(args, T, B, [2], torch.Generator().manual_seed(1), "cpu", continuous)
+    noise = {k: [t.to(device) for t in v] if isinstance(v, list) else v.to(device) for k, v in noise.items()}
+    step = mod.make_train_step(args, ["rgb"], [], [2], continuous)
+    player = Player(models[0].encoder, models[0].rssm, models[1], actions_dim=[2],
+                    stochastic_size=args.stochastic_size, discrete_size=getattr(args, "discrete_size", 0),
+                    recurrent_state_size=args.recurrent_state_size, is_continuous=continuous)
+    return args, state, data, noise, step, player
+
+
+def dreamer_card_cpu_check(torch, np, algo: str, device) -> dict:
+    """One default-width gradient step (the batch cut to DREAMER_CPU_BATCH
+    rows) on the card against the same step on the CPU from the same state,
+    batch and draws: the 13 metrics at TRAIN_METRIC_RTOL / TRAIN_METRIC_ATOL,
+    every parameter after the Adams within 2 lr + 1e-6 (a near-zero
+    gradient may round to either sign). -> the check's numbers."""
+    sides = {}
+    for dev in (device, torch.device("cpu")):
+        args, state, data, noise, step, _ = _dreamer_setup(torch, np, algo, dev, DREAMER_CPU_BATCH)
+        tau = (1.0,) if algo == "dreamer_v2" else ()
+        t0 = time.perf_counter()
+        metrics = step(state, data, *tau, noise)
+        seconds = time.perf_counter() - t0
+        params = {m: {k: v.detach().cpu() for k, v in getattr(state, m).state_dict().items()}
+                  for m in ("world_model", "actor", "critic")}
+        sides[dev.type] = (metrics, params, seconds)
+    (card, p_card, s_card), (cpu, p_cpu, s_cpu) = sides["cuda"], sides["cpu"]
+    bad = [k for k in cpu if abs(card[k] - cpu[k]) > TRAIN_METRIC_ATOL + TRAIN_METRIC_RTOL * abs(cpu[k])]
+    lrs = {"world_model": args.world_lr, "actor": args.actor_lr, "critic": args.critic_lr}
+    param_err = {m: max(float((p_card[m][k] - p_cpu[m][k]).abs().max()) for k in p_cpu[m]) / (2 * lrs[m] + 1e-6)
+                 for m in lrs}
+    return dict(card=card, cpu=cpu, metric_bad=bad, param_err=param_err, card_seconds=s_card, cpu_seconds=s_cpu)
+
+
+def dreamer_graph_cases(torch, np, device) -> list[dict]:
+    """Each Dreamer's graphed gradient step and player step against its
+    eager self at the default widths (`graph_case`), with cuDNN's
+    deterministic algorithms, so that the eager step repeats bit for bit
+    and the replays must match it bit for bit: host wall, device time,
+    launches and busy share both ways."""
+    from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import draw_noise as dv1_noise
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import draw_noise as dv3_noise
+
+    reports = []
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for algo in ("dreamer_v2", "dreamer_v1"):
+            def train_build(algo=algo):
+                args, state, data, noise, step, _ = _dreamer_setup(torch, np, algo, device)
+                gen = torch.Generator().manual_seed(7)
+                calls = []
+                for tau in (1.0, 0.0, 0.0):
+                    draws = (dv3_noise if algo == "dreamer_v2" else dv1_noise)(
+                        args, args.per_rank_sequence_length, args.per_rank_batch_size, [2], gen, "cpu",
+                        algo == "dreamer_v1")
+                    draws = {k: [t.to(device) for t in v] if isinstance(v, list) else v.to(device)
+                             for k, v in draws.items()}
+                    tau_arg = (torch.full((), tau, device=device),) if algo == "dreamer_v2" else ()
+                    calls.append((state, data, *tau_arg, draws))
+
+                def params():
+                    return {f"{m}.{k}": v for m in ("world_model", "actor", "critic")
+                            for k, v in getattr(state, m).state_dict().items()}
+                return step.device_step, calls, params
+
+            def player_build(algo=algo):
+                _, _, _, _, _, player = _dreamer_setup(torch, np, algo, device)
+                gen = torch.Generator(device=device).manual_seed(5)
+                with torch.no_grad():
+                    st = player.init_states(1)
+                rng = np.random.default_rng(13)
+                calls = [(st, {"rgb": torch.from_numpy(rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8))
+                               .to(device).float() / 255.0 - 0.5}, player.draw_noise(1, gen, device),
+                          torch.full((), e, device=device)) for e in (0.3, 0.0, 0.1)]
+
+                def run(*a):
+                    with torch.inference_mode():
+                        return player.noisy_step(*a)
+                return run, calls, dict
+
+            reports.append(graph_case(torch, f"train_step {algo} pixels", train_build, GRAPH_TIMED["train"],
+                                      (0.0, 0.0), lambda key, calls: 0.0))
+            reports.append(graph_case(torch, f"player_step {algo} pixels", player_build, GRAPH_TIMED["player"],
+                                      (0.0, 0.0)))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    bad = [r["name"] for r in reports if not (r["eager_repeat_exact"] and r["graphed_exact"])]
+    if bad:
+        raise RuntimeError(f"graphed steps not bit for bit their eager selves: {bad}")
+    return reports
+
+
+def dreamer_phase(torch, np, run, device, smi: str) -> dict:
+    """Phase 17: DreamerV2 and DreamerV1 on the card. (a) each run of
+    DREAMER_RUNS through the CLI, counted on the device: every gradient and
+    player step a graph replay after its first call, no fallback, losses
+    finite, every model moved, and no port kernel launched (the guards
+    refuse every module of both paths, as the reference's do); the pixel
+    runs resumed from their step-68 checkpoint with its buffer; (b) one
+    gradient step of each on the card against the CPU; (c) each graphed
+    step against its eager self, bit for bit, timed both ways. Raises on
+    any failure. -> the phase's report."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
+
+    out: dict = {"smi": smi}
+    parts: dict[str, float] = {}
+    root = os.path.join(OUT_DIR, "dreamer_logs")
+    shutil.rmtree(root, ignore_errors=True)
+    for tag, argv in DREAMER_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = tag.replace(" ", "_")
+        t0 = time.perf_counter()
+        run_dir = os.path.join(root, name)
+        launches, wrapper, done = drive_dreamer(torch, run, [*argv, "--root_dir", root, "--run_name", name], run_dir)
+        parts[tag] = time.perf_counter() - t0
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            records = [r for r in (json.loads(line) for line in fh if line.strip()) if "gradient_steps" in r
+                       and "event" not in r]
+        finite = all(math.isfinite(r[k]) for r in records for k in METRICS)
+        moved = {m: done[f"Params/{m}_delta"] for m in ("world_model", "actor", "critic")}
+        step_ms = sorted(done["train_step_ms"][1:])
+        log(f"[dreamer] {tag}: {' '.join(argv)}: {done['gradient_steps']} gradient steps, {done['player_steps']} "
+            f"player steps, {done['env_steps']} env steps in {parts[tag]:.1f} s (buffer {done['buffer_type']}); "
+            f"losses finite {finite}; parameter change (L2) {moved}; host wall a gradient step median "
+            f"{step_ms[len(step_ms) // 2] if step_ms else float('nan'):.2f} ms; port kernels on the device "
+            f"{sum(launches.values())} ({ {k: n for k, n in launches.items() if n} }), by the wrappers "
+            f"{sum(wrapper.values())}; {fmt_tests(done)}; graphs: {check_graphs(done, tag)}")
+        if done["gradient_steps"] < 4 or not finite or min(moved.values()) <= 0:
+            raise RuntimeError(f"{tag}: fewer than 4 gradient steps, a loss not finite or a model unmoved")
+        if any(launches.values()) or any(wrapper.values()):
+            raise RuntimeError(f"{tag}: a port kernel launched on a path whose guards refuse them all: "
+                               f"{launches} {wrapper}")
+        out[tag] = dict(argv=argv, done=done, records=records, launches=launches, wrapper_launches=wrapper)
+        if "--checkpoint_buffer" in argv:
+            ckpt = os.path.join(run_dir, "checkpoints", f"ckpt_{DREAMER_RESUME}")
+            t0 = time.perf_counter()
+            launches, wrapper, rdone = drive_dreamer(torch, run, [argv[0], "--checkpoint_path", ckpt], run_dir)
+            parts[f"{tag} resume"] = time.perf_counter() - t0
+            log(f"[dreamer] {tag} resumed from {ckpt}: {rdone['resumed']}, {rdone['gradient_steps']} gradient "
+                f"steps, {rdone['player_steps']} player steps; port kernels on the device {sum(launches.values())}; "
+                f"graphs: {check_graphs(rdone, tag + ' resume')}")
+            if rdone["resumed"]["start_step"] != DREAMER_RESUME + 1 or "buffer" not in rdone["resumed"] \
+                    or rdone["gradient_steps"] < 1 or any(launches.values()):
+                raise RuntimeError(f"{tag}: the resume did not go on from its checkpoint and buffer: {rdone}")
+            out[f"{tag} resume"] = dict(done=rdone, launches=launches)
+
+    t0 = time.perf_counter()
+    for algo in ("dreamer_v2", "dreamer_v1"):
+        check = dreamer_card_cpu_check(torch, np, algo, device)
+        out[f"{algo} card_cpu"] = check
+        log(f"[dreamer] {algo}: one gradient step (default widths, B {DREAMER_CPU_BATCH}) card vs CPU: "
+            + ", ".join(f"{k.split('/')[1]} {check['card'][k]:.6g}/{check['cpu'][k]:.6g}" for k in METRICS)
+            + f"; parameter gap over 2 lr + 1e-6 {check['param_err']}; card {check['card_seconds']:.2f} s, "
+            f"CPU {check['cpu_seconds']:.2f} s")
+        if check["metric_bad"] or max(check["param_err"].values()) > 1.0:
+            raise RuntimeError(f"{algo}: the card's gradient step disagrees with the CPU's: {check['metric_bad']} "
+                               f"{check['param_err']}")
+    parts["card vs cpu"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["graphs"] = dreamer_graph_cases(torch, np, device)
+    parts["graphs"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    log(f"[dreamer] {smi}: the phase's parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; {sum(parts.values()):.1f} in all")
+    return out
+
+
+
 def main() -> int:
     global OUT_DIR
     parser = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one card")
@@ -5168,6 +5447,10 @@ def main() -> int:
     # -- phase 16: the env and logging layer ---------------------------------------
     GC.next_phase("16 env")
     report["env"] = env_layer_phase(torch, np, F, run, torch.device("cuda"), smi)
+
+    # -- phase 17: the Dreamer family (DreamerV2 and DreamerV1) -----------------
+    GC.next_phase("17 dreamer family")
+    report["dreamer"] = dreamer_phase(torch, np, run, torch.device("cuda"), smi)
 
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])

@@ -312,6 +312,21 @@ class RSSM(tnn.Module):
             return None
         return weights, act, (mlp.norms[0].eps, norm.eps, tm.norms[0].eps)
 
+    def _reset(self, posterior: torch.Tensor, recurrent_state: torch.Tensor, action: torch.Tensor,
+               is_first: torch.Tensor):
+        """The `is_first` resets in the compute dtype: the action and the
+        recurrent state zeroed, the posterior re-seeded from the transition
+        prior's mode. -> (the recurrent model's input [posterior_flat,
+        action], the recurrent state)."""
+        dt = recurrent_state.dtype
+        is_first = is_first.to(dt)
+        action = (1.0 - is_first) * action.to(dt)
+        recurrent_state = (1.0 - is_first) * recurrent_state
+        posterior_flat = posterior.to(dt).reshape(*posterior.shape[:-2], -1)
+        init_post = self._transition(recurrent_state)[1].reshape(posterior_flat.shape)
+        posterior_flat = (1.0 - is_first) * posterior_flat + is_first * init_post
+        return torch.cat([posterior_flat, action], dim=-1), recurrent_state
+
     def dynamic(self, posterior: torch.Tensor, recurrent_state: torch.Tensor, action: torch.Tensor,
                 embedded_obs: torch.Tensor, is_first: torch.Tensor, gumbel: torch.Tensor,
                 fused=False):
@@ -327,13 +342,7 @@ class RSSM(tnn.Module):
         once for the whole sequence). -> (recurrent_state, posterior
         [B, S, D], prior_logits, posterior_logits)."""
         dt = recurrent_state.dtype
-        is_first = is_first.to(dt)
-        action = (1.0 - is_first) * action.to(dt)
-        recurrent_state = (1.0 - is_first) * recurrent_state
-        posterior_flat = posterior.to(dt).reshape(*posterior.shape[:-2], -1)
-        init_post = self._transition(recurrent_state)[1].reshape(posterior_flat.shape)
-        posterior_flat = (1.0 - is_first) * posterior_flat + is_first * init_post
-        x = torch.cat([posterior_flat, action], dim=-1)
+        x, recurrent_state = self._reset(posterior, recurrent_state, action, is_first)
         if fused is False:
             fused = self._fused_step_weights(dt) if x.dim() == 2 else None
         if fused is not None:
@@ -583,6 +592,18 @@ class PlayerDV3(tnn.Module):
         stochastic = stochastic.reshape(*stochastic.shape[:-2], -1)
         return recurrent, stochastic, torch.cat([stochastic, recurrent], dim=-1)
 
+    def _state_width(self) -> int:
+        """The stochastic state's flat width (S * D one-hot rows)."""
+        return self.stochastic_size * self.discrete_size
+
+    def _posterior_noise(self, rows: int, generator: torch.Generator | None) -> torch.Tensor:
+        """The posterior's draw for `rows` rows from `generator`: Gumbels [rows, S, D]."""
+        return gumbel_noise((rows, self.stochastic_size, self.discrete_size), generator, self.device)
+
+    def _posterior_from_uniform(self, u: torch.Tensor) -> torch.Tensor:
+        """The posterior's draw from uniform floats [rows, S * D]: Gumbels [rows, S, D]."""
+        return _gumbel(u).reshape(u.shape[0], self.stochastic_size, self.discrete_size)
+
     def step(self, state: PlayerState, obs: dict, gumbel: torch.Tensor | None = None,
              generator: torch.Generator | None = None,
              uniforms: torch.Tensor | None = None) -> tuple[PlayerState, torch.Tensor]:
@@ -598,7 +619,7 @@ class PlayerDV3(tnn.Module):
         dt = _dtype(self.compute_dtype)
         rows = state.recurrent_state.shape[0]
         if gumbel is None:
-            gumbel = gumbel_noise((rows, self.stochastic_size, self.discrete_size), generator, self.device)
+            gumbel = self._posterior_noise(rows, generator)
         if self.is_continuous and uniforms is None:
             uniforms = torch.rand((BEST_OF, rows, sum(self.actions_dim)), generator=generator, device=self.device)
         recurrent, stochastic, latent = self._posterior(state, obs, gumbel)
@@ -615,7 +636,7 @@ class PlayerDV3(tnn.Module):
         uniforms and A exploration draws."""
         a = sum(self.actions_dim)
         tail = 2 * a if self.is_continuous else a + 2 * len(self.actions_dim)
-        return self.stochastic_size * self.discrete_size + tail
+        return self._state_width() + tail
 
     def draw_noise(self, n: int, generator: torch.Generator, device) -> torch.Tensor:
         """One `noisy_step`'s randomness for `n` rows: uniform [n, noise_width] in one draw."""
@@ -632,9 +653,8 @@ class PlayerDV3(tnn.Module):
         scalar (the training loop's decaying amount; 0 in the test episodes
         that sample). Returns (new_state, actions [N, sum(actions_dim)])."""
         dt = _dtype(self.compute_dtype)
-        rows, sd, a = uniform.shape[0], self.stochastic_size * self.discrete_size, sum(self.actions_dim)
-        gumbel = _gumbel(uniform[:, :sd]).reshape(rows, self.stochastic_size, self.discrete_size)
-        recurrent, stochastic, latent = self._posterior(state, obs, gumbel)
+        sd, a = self._state_width(), sum(self.actions_dim)
+        recurrent, stochastic, latent = self._posterior(state, obs, self._posterior_from_uniform(uniform[:, :sd]))
         if self.is_continuous:
             actions, _ = self.actor(latent, is_training=True, uniforms=uniform[:, sd:sd + a])
             noise = standard_normal(uniform[:, sd + a:sd + 2 * a])

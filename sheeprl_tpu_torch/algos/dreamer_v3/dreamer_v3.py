@@ -453,7 +453,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     args.screen_size = 64
     args.frame_stack = -1
     device = resolve_device(args.device)
-    check_num_devices(args.num_devices, device)
+    check_num_devices(args.num_devices, device, args.seq_devices)
     if device.type == "cuda":
         # the reference's float32 products are true float32
         torch.backends.cuda.matmul.allow_tf32 = False

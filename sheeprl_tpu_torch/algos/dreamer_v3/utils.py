@@ -13,23 +13,25 @@ from ..ppo.agent import one_hot_to_env_actions
 __all__ = ["make_device_preprocess", "test"]
 
 
-def make_device_preprocess(cnn_keys):
+def make_device_preprocess(cnn_keys, offset: float = 0.0):
     """Observation normalization on the device: the host ships RAW obs
     (uint8 pixels — 4x less transfer than pre-normalized f32) and images
-    become float32 in [0, 1] where the step runs. Key-based,
-    not dtype-based, like the reference."""
+    become float32 in [-offset, 1 - offset] where the step runs (offset 0
+    for DreamerV3, 0.5 for V1 and V2). Key-based, not dtype-based, like
+    the reference."""
     cnn = frozenset(cnn_keys)
 
     def prep(o: dict) -> dict:
         return {
-            k: v.to(torch.float32) / 255.0 if k in cnn else v.to(torch.float32)
+            k: (v.to(torch.float32) / 255.0 - offset if offset else v.to(torch.float32) / 255.0)
+            if k in cnn else v.to(torch.float32)
             for k, v in o.items()
         }
 
     return prep
 
 
-def test(player, logger, args, cnn_keys, sample_actions: bool = False) -> tuple[float, int]:
+def test(player, logger, args, cnn_keys, sample_actions: bool = False, offset: float = 0.0) -> tuple[float, int]:
     """Play one episode in a fresh env reset with `args.seed`, from
     `player.init_states(1)`, and log `Test/cumulative_reward`. Actions are
     the actor's samples when `sample_actions` (the reference's final test
@@ -39,11 +41,12 @@ def test(player, logger, args, cnn_keys, sample_actions: bool = False) -> tuple[
     `BEST_OF` samples, with the posterior's Gumbels and, for a continuous
     actor, a fresh [BEST_OF, 1, A] draw of uniforms each step from that
     generator, as the reference splits its key at every step). A
-    `--dry_run` episode ends after one step.
+    `--dry_run` episode ends after one step. `offset` is the image
+    normalization's (`make_device_preprocess`).
     -> (the episode's return, its player steps)."""
     env = make_dict_env(args.env_id, args.seed, rank=0, args=args, prefix="test")()
     device = player.device
-    preprocess = make_device_preprocess(cnn_keys)
+    preprocess = make_device_preprocess(cnn_keys, offset)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     no_exploration = torch.zeros((), device=device)
     obs, _ = env.reset(seed=args.seed)

@@ -1,6 +1,7 @@
 """Replay storage (the port of sheeprl_tpu/data/buffers.py's `ReplayBuffer`,
-PPO's rollout store, and of the sequential sampling of its
-`AsyncReplayBuffer`, which DreamerV3's main uses).
+PPO's rollout store, of the sequential sampling of its
+`AsyncReplayBuffer`, which the Dreamer mains use, and of its
+`EpisodeBuffer`, DreamerV2's `--buffer_type episode`).
 
 `ReplayBuffer` is one ring `[buffer_size, n_envs, *item]` a key, on a torch
 device (the default: a policy step's outputs go in without a round trip)
@@ -34,13 +35,16 @@ generator's, under `torch_sampler_state`; the reference's `sampler_state`
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
+import uuid
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["AsyncReplayBuffer", "ReplayBuffer"]
+__all__ = ["AsyncReplayBuffer", "EpisodeBuffer", "ReplayBuffer"]
 
 SAMPLER_KEY = "torch_sampler_state"
 
@@ -409,3 +413,168 @@ class AsyncReplayBuffer:
             self._full = np.array([bool(data[f"b{i}_full"]) for i in range(self.n_envs)], dtype=bool)
             if SAMPLER_KEY in data.files:
                 self._gen.set_state(torch.from_numpy(data[SAMPLER_KEY].copy()))
+
+
+class EpisodeBuffer:
+    """Whole episodes on the host (numpy arrays, or with `memmap_dir` one
+    `episode_<uuid>/` directory of `.npy` memmaps an episode), at most
+    `buffer_size` steps in all; `sample` draws fixed windows of
+    `sequence_length` steps -> {key: [n_samples, sequence_length,
+    batch_size, *item]}. An episode holds exactly one done, at its last
+    step, and is at least `sequence_length` long. Adding past the capacity
+    evicts the oldest episodes, and their memmap directories. Draws come
+    from `np.random.default_rng(seed)` in the reference's order."""
+
+    def __init__(self, buffer_size: int, sequence_length: int, memmap_dir: str | os.PathLike | None = None,
+                 seed: int = 0):
+        if buffer_size <= 0:
+            raise ValueError(f"buffer size must be > 0, got {buffer_size}")
+        if sequence_length <= 0:
+            raise ValueError(f"sequence length must be > 0, got {sequence_length}")
+        if buffer_size < sequence_length:
+            raise ValueError(f"sequence length ({sequence_length}) must not exceed buffer size ({buffer_size})")
+        self.buffer_size = buffer_size
+        self.sequence_length = sequence_length
+        self._buf: list[dict[str, np.ndarray]] = []
+        self._episode_dirs: list[str | None] = []
+        self._cum_lengths: list[int] = []
+        self.memmap_dir = None if memmap_dir is None else os.fspath(memmap_dir)
+        if self.memmap_dir is not None:
+            os.makedirs(self.memmap_dir, exist_ok=True)
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def prefers_host_adds(self) -> bool:
+        return True
+
+    @property
+    def buffer(self) -> list[dict[str, np.ndarray]]:
+        return self._buf
+
+    @property
+    def full(self) -> bool:
+        return bool(self._buf) and self._cum_lengths[-1] + self.sequence_length > self.buffer_size
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._buf else 0
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        return self._buf[i]
+
+    def add(self, episode: Mapping) -> None:
+        """Append one episode ({key: [L, *item]})."""
+        dones = np.asarray(episode["dones"]).reshape(-1)
+        if int((dones != 0).sum()) != 1:
+            raise RuntimeError(f"episode must contain exactly one done, got {int((dones != 0).sum())}")
+        if dones[-1] == 0:
+            raise RuntimeError("the last step of an episode must be done")
+        ep_len = dones.shape[0]
+        if ep_len < self.sequence_length:
+            raise RuntimeError(f"episode too short: {ep_len} < sequence_length {self.sequence_length}")
+        if ep_len > self.buffer_size:
+            raise RuntimeError(f"episode too long: {ep_len} > buffer_size {self.buffer_size}")
+        if self.full or len(self) + ep_len > self.buffer_size:
+            cum = np.array(self._cum_lengths)
+            keep_from = int(((len(self) - cum + ep_len) <= self.buffer_size).argmax()) + 1
+            for d in self._episode_dirs[:keep_from]:
+                if d is not None and os.path.exists(d):
+                    shutil.rmtree(d)
+            self._buf = self._buf[keep_from:]
+            self._episode_dirs = self._episode_dirs[keep_from:]
+            self._cum_lengths = (cum[keep_from:] - cum[keep_from - 1]).tolist()
+        self._cum_lengths.append(len(self) + ep_len)
+        ep_dir = None
+        if self.memmap_dir is not None:
+            ep_dir = os.path.join(self.memmap_dir, f"episode_{uuid.uuid4()}")
+            os.makedirs(ep_dir, exist_ok=True)
+            stored = {}
+            for k, v in episode.items():
+                v = np.asarray(v)
+                mm = np.lib.format.open_memmap(os.path.join(ep_dir, f"{k}.npy"), mode="w+", dtype=v.dtype,
+                                               shape=v.shape)
+                mm[:] = v
+                stored[k] = mm
+        else:
+            stored = {k: np.asarray(v) for k, v in episode.items()}
+        self._buf.append(stored)
+        self._episode_dirs.append(ep_dir)
+
+    def sample(self, batch_size: int, n_samples: int = 1, prioritize_ends: bool = False) -> dict[str, np.ndarray]:
+        """`n_samples` batches of `batch_size` windows: an episode drawn
+        uniformly for each window, then its start uniformly in [0, L - T]
+        (with `prioritize_ends`, in [0, L) clipped to L - T, so the last
+        window takes the extra mass)."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError("batch_size and n_samples must be > 0")
+        if not self._buf:
+            raise RuntimeError("no episodes in buffer; call add() first")
+        T = self.sequence_length
+        counts = np.bincount(self._rng.integers(0, len(self._buf), size=batch_size * n_samples),
+                             minlength=len(self._buf))
+        chunks: dict[str, list[np.ndarray]] = {k: [] for k in self._buf[0]}
+        for i, n in enumerate(counts):
+            if n == 0:
+                continue
+            ep = self._buf[i]
+            ep_len = next(iter(ep.values())).shape[0]
+            upper = ep_len - T + 1 + (T if prioritize_ends else 0)
+            starts = np.minimum(self._rng.integers(0, upper, size=(int(n), 1)), ep_len - T)
+            idx = starts + np.arange(T)[None, :]
+            for k in chunks:
+                chunks[k].append(np.asarray(ep[k])[idx])
+        out = {}
+        for k, parts in chunks.items():
+            cat = np.concatenate(parts, axis=0)  # [n_samples * batch_size, T, *item]
+            cat = cat.reshape(n_samples, batch_size, T, *cat.shape[2:])
+            out[k] = np.ascontiguousarray(np.swapaxes(cat, 1, 2))
+        return out
+
+    def state_dict(self) -> dict:
+        """The episodes (host copies), the shape and the sampler's state."""
+        return {"episodes": [{k: np.array(v) for k, v in ep.items()} for ep in self._buf],
+                "buffer_size": self.buffer_size, "sequence_length": self.sequence_length,
+                "sampler_state": self._rng.bit_generator.state}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        """Re-add `state`'s episodes in order (into memmaps when this buffer
+        has a `memmap_dir`), then restore the sampler, so the re-adds cannot
+        move its stream."""
+        if state["buffer_size"] != self.buffer_size or state["sequence_length"] != self.sequence_length:
+            raise ValueError("checkpointed episode buffer shape mismatch")
+        for d in self._episode_dirs:
+            if d is not None and os.path.exists(d):
+                shutil.rmtree(d)
+        self._buf, self._episode_dirs, self._cum_lengths = [], [], []
+        for ep in state["episodes"]:
+            self.add(ep)
+        if state.get("sampler_state") is not None:
+            self._rng.bit_generator.state = state["sampler_state"]
+
+    def save(self, path: str) -> None:
+        """One `.npz` in the reference's layout: `n_episodes`,
+        `buffer_size`, `sequence_length`, `ep{i}_{key}` and the numpy
+        sampler state as JSON bytes under `sampler_state`."""
+        st = self.state_dict()
+        flat: dict[str, np.ndarray] = {"n_episodes": np.int64(len(st["episodes"])),
+                                       "buffer_size": np.int64(self.buffer_size),
+                                       "sequence_length": np.int64(self.sequence_length)}
+        for i, ep in enumerate(st["episodes"]):
+            for k, v in ep.items():
+                flat[f"ep{i}_{k}"] = v
+        flat["sampler_state"] = np.frombuffer(json.dumps(st["sampler_state"]).encode(), dtype=np.uint8)
+        with open(path, "wb") as fh:  # a file object: np.savez appends no suffix
+            np.savez(fh, **flat)
+
+    def load(self, path: str) -> None:
+        """Restore what `save` (or the reference's `EpisodeBuffer.save`) wrote."""
+        with np.load(path) as data:
+            episodes: list[dict] = [{} for _ in range(int(data["n_episodes"]))]
+            for name in data.files:
+                if name.startswith("ep"):
+                    idx, key = name[2:].split("_", 1)
+                    episodes[int(idx)][key] = data[name]
+            sampler = None
+            if "sampler_state" in data.files:
+                sampler = json.loads(bytes(np.asarray(data["sampler_state"], dtype=np.uint8)).decode())
+            self.load_state_dict({"episodes": episodes, "buffer_size": int(data["buffer_size"]),
+                                  "sequence_length": int(data["sequence_length"]), "sampler_state": sampler})

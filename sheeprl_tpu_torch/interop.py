@@ -23,6 +23,11 @@ arrays, `None` where a module has no parameter) and hands the tree over:
     optax Adam state (`ScaleByAdamState`, behind the clip transform's empty
     state) as the port's `Adam`'s state_dict (`adam_state_from_jax`), the
     moments and the counters;
+  - `dreamer_v2_checkpoint_from_jax` and `dreamer_v1_checkpoint_from_jax`
+    do the same for DreamerV2 (no moments) and DreamerV1 (no target critic
+    either): their Adam states sit behind the clip's and, in V2's chain,
+    `add_decayed_weights`' empty states. DreamerV1's `GRUCell` is two
+    Linears, transposed as every Linear is;
   - `sac_checkpoint_from_jax` returns the port's SAC or DroQ checkpoint
     (the key contract of `algos/sac/sac.py:checkpoint_state`): the actor,
     the critics and the target critics through `state_dict_from_jax`,
@@ -56,7 +61,8 @@ from .nn.layers import Linear
 from .ops.quant import QuantLinear
 
 __all__ = [
-    "adam_state_from_jax", "collector_carry_from_jax", "dreamer_v3_checkpoint_from_jax", "env_state_from_jax",
+    "adam_state_from_jax", "collector_carry_from_jax", "dreamer_v1_checkpoint_from_jax",
+    "dreamer_v2_checkpoint_from_jax", "dreamer_v3_checkpoint_from_jax", "env_state_from_jax",
     "flatten_params", "load_jax_params", "ppo_agent_from_jax", "ppo_checkpoint_from_jax", "sac_checkpoint_from_jax",
     "state_dict_from_jax", "vec_env_state_from_jax",
 ]
@@ -167,21 +173,42 @@ def adam_state_from_jax(module: tnn.Module, optimizer: torch.optim.Optimizer, op
     return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
 
 
-def dreamer_v3_checkpoint_from_jax(tree: Mapping, state) -> dict:
-    """A reference DreamerV3 checkpoint (the restored tree) -> the port's
-    checkpoint dict, laid out for `state` (a `DV3TrainState` built with the
-    same config: its modules and optimizers give the paths and the order)."""
-    modules = {"world_model": state.world_model, "actor": state.actor, "critic": state.critic,
-               "target_critic": state.target_critic}
-    out: dict = {key: state_dict_from_jax(module, tree[key]) for key, module in modules.items()}
+def _dreamer_checkpoint_from_jax(tree: Mapping, state) -> dict:
+    """The models, the three Adam states and the counters of a Dreamer
+    checkpoint, laid out for `state` (its modules and optimizers give the
+    paths and the order; a state without a target critic has none)."""
+    out: dict = {key: state_dict_from_jax(getattr(state, key), tree[key])
+                 for key in ("world_model", "actor", "critic", "target_critic") if hasattr(state, key)}
     for key, module, opt in (("world_optimizer", state.world_model, state.world_opt),
                              ("actor_optimizer", state.actor, state.actor_opt),
                              ("critic_optimizer", state.critic, state.critic_opt)):
         out[key] = adam_state_from_jax(module, opt, tree[key])
-    out["moments"] = {k: torch.tensor(np.asarray(tree["moments"][k], np.float32)) for k in ("low", "high")}
     for key in ("expl_decay_steps", "global_step", "batch_size"):
         out[key] = int(np.asarray(tree[key]))
     return out
+
+
+def dreamer_v3_checkpoint_from_jax(tree: Mapping, state) -> dict:
+    """A reference DreamerV3 checkpoint (the restored tree) -> the port's
+    checkpoint dict, laid out for `state` (a `DV3TrainState` built with the
+    same config: its modules and optimizers give the paths and the order)."""
+    out = _dreamer_checkpoint_from_jax(tree, state)
+    out["moments"] = {k: torch.tensor(np.asarray(tree["moments"][k], np.float32)) for k in ("low", "high")}
+    return out
+
+
+def dreamer_v2_checkpoint_from_jax(tree: Mapping, state) -> dict:
+    """A reference DreamerV2 checkpoint (the restored tree, key contract
+    `sheeprl_tpu/algos/dreamer_v2/dreamer_v2.py:791-806`) -> the port's,
+    laid out for `state` (a `DV2TrainState` built with the same config)."""
+    return _dreamer_checkpoint_from_jax(tree, state)
+
+
+def dreamer_v1_checkpoint_from_jax(tree: Mapping, state) -> dict:
+    """A reference DreamerV1 checkpoint (the restored tree, the V2 contract
+    without `target_critic`) -> the port's, laid out for `state` (a
+    `DV1TrainState` built with the same config)."""
+    return _dreamer_checkpoint_from_jax(tree, state)
 
 
 def sac_checkpoint_from_jax(tree: Mapping, state, seed: int = 0) -> dict:

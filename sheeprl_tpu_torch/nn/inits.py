@@ -1,5 +1,6 @@
-"""Xavier (Glorot) re-initialization of built modules (the port of
-sheeprl_tpu/nn/inits.py:init_xavier, the Dreamer-family init)."""
+"""Re-initialization of built modules (the port of sheeprl_tpu/nn/inits.py):
+`init_xavier`, the DreamerV2/V3 init, and `init_kaiming_normal`,
+DreamerV1's."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch.nn as tnn
 
 from .layers import Conv2d, ConvTranspose2d, Linear
 
-__all__ = ["init_xavier"]
+__all__ = ["init_kaiming_normal", "init_xavier"]
 
 
 def init_xavier(module: tnn.Module, generator: torch.Generator | None, mode: str = "normal") -> tnn.Module:
@@ -40,4 +41,18 @@ def init_xavier(module: tnn.Module, generator: torch.Generator | None, mode: str
                 w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
             if layer.bias is not None:
                 layer.bias.zero_()
+    return module
+
+
+def init_kaiming_normal(module: tnn.Module, generator: torch.Generator | None) -> tnn.Module:
+    """Kaiming-normal (fan-in, ReLU gain) weights, `N(0, 2 / in_features)`,
+    and zero biases on every Linear under `module`; convolutions keep their
+    init (the reference's `init_kaiming_normal`). Returns `module`, changed
+    in place."""
+    with torch.no_grad():
+        for layer in module.modules():
+            if isinstance(layer, Linear):
+                layer.weight.normal_(0.0, math.sqrt(2.0 / layer.in_features), generator=generator)
+                if layer.bias is not None:
+                    layer.bias.zero_()
     return module

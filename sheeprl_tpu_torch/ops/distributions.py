@@ -3,7 +3,7 @@ PPO sample from and train with: the one-hot categorical of the stochastic
 state and the actors, Normal (PPO's continuous actions), the truncated
 normal and the tanh-squashed normal (DreamerV3's continuous actors),
 Bernoulli (the continue head), the DreamerV3 trio Symlog / MSE /
-TwoHotEncoding, and the categorical KL.
+TwoHotEncoding, and the categorical and Gaussian KLs.
 
 Sampling takes either injected Gumbel noise (the parity tests feed the
 reference's own draw) or an explicit `torch.Generator`: a one-hot sample is
@@ -30,7 +30,7 @@ from .math import symexp, symlog
 __all__ = [
     "Bernoulli", "Independent", "MSEDistribution", "Normal", "OneHotCategorical", "SymlogDistribution",
     "TanhNormal", "TruncatedNormal", "TruncatedStandardNormal", "TwoHotEncodingDistribution", "gumbel_noise",
-    "kl_categorical", "open_uniform", "standard_normal", "unimix_logits",
+    "kl_categorical", "kl_normal", "open_uniform", "standard_normal", "unimix_logits",
 ]
 
 
@@ -418,3 +418,12 @@ def kl_categorical(p_logits: torch.Tensor, q_logits: torch.Tensor, event_ndims: 
     p_log = torch.log_softmax(p_logits, dim=-1)
     q_log = torch.log_softmax(q_logits, dim=-1)
     return _sum_last((p_log.exp() * (p_log - q_log)).sum(dim=-1), event_ndims)
+
+
+def kl_normal(p: Normal, q: Normal, event_ndims: int = 1) -> torch.Tensor:
+    """KL(p || q) between diagonal Gaussians, summed over `event_ndims`
+    trailing dims (DreamerV1's state KL): 0.5 (r + ((mu_p - mu_q) /
+    sigma_q)^2 - 1 - log r), r = (sigma_p / sigma_q)^2."""
+    var_ratio = torch.square(p.scale / q.scale)
+    t1 = torch.square((p.loc - q.loc) / q.scale)
+    return _sum_last(0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio)), event_ndims)

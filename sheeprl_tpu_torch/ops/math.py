@@ -1,5 +1,5 @@
 """Core RL math of the port (the subset of sheeprl_tpu/ops/math.py that
-DreamerV3 and PPO use). The reference's reverse `lax.scan` recursions are
+the Dreamer family and PPO use). The reference's reverse `lax.scan` recursions are
 Python loops over time here: PyTorch runs eagerly."""
 
 from __future__ import annotations
@@ -8,7 +8,10 @@ import torch
 
 from .kernels.two_hot import two_hot
 
-__all__ = ["gae", "lambda_values_dv3", "normalize", "polynomial_decay", "symexp", "symlog", "two_hot"]
+__all__ = [
+    "gae", "lambda_values", "lambda_values_dv2", "lambda_values_dv3", "normalize", "polynomial_decay", "symexp", "symlog",
+    "two_hot",
+]
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +57,44 @@ def normalize(x: torch.Tensor, eps: float = 1e-8, mask: torch.Tensor | None = No
         mean = (x * mask).sum() / n
         std = torch.sqrt((torch.square(x - mean) * mask).sum() / n)
     return (x - mean) / (std + eps)
+
+
+def lambda_values(
+    rewards: torch.Tensor, values: torch.Tensor, done_mask: torch.Tensor, last_values: torch.Tensor,
+    horizon: int, lmbda: float = 0.95,
+) -> torch.Tensor:
+    """DreamerV1's TD(lambda) targets over `[horizon, ...]` imagination
+    tensors -> `[horizon - 1, ...]`; `done_mask` is the gamma-scaled
+    continuation. A reverse loop from zero: v_t = r_t + c_t ((1 - lmbda)
+    V_{t+1} + lmbda v_{t+1}), V_H-1 replaced by `last_values`."""
+    next_vals = torch.cat([values[1:horizon - 1] * (1.0 - lmbda), last_values[None]], dim=0)
+    deltas = rewards[:horizon - 1] + next_vals * done_mask[:horizon - 1]
+    carry = torch.zeros_like(last_values)
+    out = [None] * (horizon - 1)
+    for t in reversed(range(horizon - 1)):
+        carry = deltas[t] + lmbda * done_mask[t] * carry
+        out[t] = carry
+    return torch.stack(out)
+
+
+def lambda_values_dv2(
+    rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor, bootstrap: torch.Tensor | None = None,
+    lmbda: float = 0.95,
+) -> torch.Tensor:
+    """DreamerV2's lambda returns over `[H, ...]` inputs with an explicit
+    `bootstrap` `[1, ...]` (zeros when None); `continues` fold in gamma: a
+    reverse loop from the bootstrap, v_t = r_t + c_t ((1 - lmbda)
+    V_{t+1} + lmbda v_{t+1})."""
+    if bootstrap is None:
+        bootstrap = torch.zeros_like(values[-1:])
+    next_vals = torch.cat([values[1:], bootstrap], dim=0)
+    inputs = rewards + continues * next_vals * (1.0 - lmbda)
+    carry = bootstrap[0]
+    out = [None] * rewards.shape[0]
+    for t in reversed(range(rewards.shape[0])):
+        carry = inputs[t] + continues[t] * lmbda * carry
+        out[t] = carry
+    return torch.stack(out)
 
 
 def lambda_values_dv3(

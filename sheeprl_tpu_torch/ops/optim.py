@@ -36,11 +36,13 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float | None):
 
 
 def apply_gradients(params: list[torch.Tensor], grads: Sequence[torch.Tensor], optimizer,
-                    clip: float | None) -> torch.Tensor:
-    """Clip, then one optimizer step. Returns the norm before clipping."""
+                    clip: float | None, weight_decay: float = 0.0) -> torch.Tensor:
+    """Clip, then add `weight_decay * p` to each gradient (optax's
+    `add_decayed_weights`, between the clip and the Adam in DreamerV2's
+    chain), then one optimizer step. Returns the norm before clipping."""
     grads, norm = clip_by_global_norm(grads, clip)
     for p, g in zip(params, grads):
-        p.grad = g
+        p.grad = g + weight_decay * p.detach() if weight_decay else g
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return norm

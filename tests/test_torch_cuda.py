@@ -63,9 +63,10 @@ def _rand(gen, *shape, scale=1.0):
 
 # (B, Dx, H): DreamerV3's width at the serving rungs, the scan's 16 rows,
 # imagination's 1,024 and a ragged 1,000; and a ragged width (Dx = 37 is
-# not a whole 16-byte chunk in either dtype, 3H = 144 not a whole tile)
+# not a whole 16-byte chunk in either dtype, 3H = 144 not a whole tile); the
+# DreamerV3 learning receipt's player (B = 1) and imagination (B = 512) at width 256
 GRU_SHAPES = [(1, 512, 512), (8, 512, 512), (16, 512, 512), (1000, 512, 512), (1024, 512, 512),
-              (5, 37, 48), (1000, 37, 48)]
+              (5, 37, 48), (1000, 37, 48), (1, 256, 256), (512, 256, 256)]
 
 
 @pytest.mark.cuda
@@ -238,8 +239,11 @@ def _rssm_inputs(gen, device, dtype, batch, dx=1026, rec=512, d=512, hd=512, e=5
 RSSM_DIMS = {
     "cartpole": {}, "ragged": dict(dx=37, rec=48, d=40, hd=24, e=20, sd=72),
     "pixels_m16": dict(e=2048), "e1024": dict(d=256, hd=256, e=1024), "e8192": dict(d=256, hd=256, e=8192),
+    # the DreamerV3 learning receipt's widths (tests/test_algos/test_learning.py:215-245)
+    "receipt": dict(dx=258, rec=256, d=256, hd=256, e=256, sd=256),
 }
-RSSM_CASES = [(dims, dtype) for dims in ("cartpole", "ragged", "e1024") for dtype in (torch.float32, torch.bfloat16)]
+RSSM_CASES = [(dims, dtype) for dims in ("cartpole", "ragged", "e1024", "receipt")
+              for dtype in (torch.float32, torch.bfloat16)]
 RSSM_CASES += [("pixels_m16", torch.bfloat16), ("e8192", torch.bfloat16)]
 # the cases whose staged tiles pass shared memory (E 1,024 fits in bf16)
 WIDE_RSSM_CASES = {("pixels_m16", torch.bfloat16), ("e8192", torch.bfloat16), ("e1024", torch.float32)}
@@ -1775,3 +1779,111 @@ def test_profile_window_on_the_card_traces_a_port_kernel(cuda_device, tmp_path):
     with open(reply["trace"]) as fh:
         names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
     assert sum("gru_row_kernel" in n for n in names) >= 4
+
+
+def _dreamer_case(device, algo: str, continuous: bool, pixels: bool):
+    """A small DreamerV2 or V1 train state, three calls' batches and draws
+    (on the card, from fixed seeds) and a player with three steps' inputs."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v1 import agent as dv1_agent
+    from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as dv1
+    from sheeprl_tpu_torch.algos.dreamer_v1.args import DreamerV1Args
+    from sheeprl_tpu_torch.algos.dreamer_v2 import agent as dv2_agent
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.args import DreamerV2Args
+    from sheeprl_tpu_torch.envs import spaces
+
+    v2 = algo == "dreamer_v2"
+    agent, mod = (dv2_agent, dv2) if v2 else (dv1_agent, dv1)
+    args = (DreamerV2Args if v2 else DreamerV1Args)(
+        cnn_channels_multiplier=4, dense_units=32, hidden_size=32, recurrent_state_size=32, stochastic_size=4,
+        mlp_layers=2, per_rank_batch_size=4, per_rank_sequence_length=8, horizon=4)
+    if v2:
+        args.discrete_size = 4
+    space = {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)} if pixels else {"state": spaces.Box(-1, 1, (3,))}
+    cnn, mlp = (["rgb"], []) if pixels else ([], ["state"])
+    actions = [2] if continuous else [3]
+    models = agent.build_models(torch.Generator().manual_seed(0), actions, continuous, args, space, cnn, mlp)
+    for m in models:
+        m.to(device)
+    state = (mod.DV2TrainState if v2 else mod.DV1TrainState)(*models, *mod.make_optimizers(args, *models[:3]))
+    noise_of = mod.DREAMER_V2.draw_noise if v2 else mod.DREAMER_V1.draw_noise
+    T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+    rng, gen = np.random.default_rng(0), torch.Generator(device=device).manual_seed(1)
+    calls = []
+    for tau in (1.0, 0.0, 0.0):
+        dones = (rng.random((T, B, 1)) < 0.2).astype(np.float32)
+        data = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8)} if pixels else \
+            {"state": rng.normal(size=(T, B, 3)).astype(np.float32)}
+        data["actions"] = (rng.uniform(-1, 1, (T, B, 2)).astype(np.float32) if continuous
+                           else np.eye(3, dtype=np.float32)[rng.integers(0, 3, (T, B))])
+        data.update(rewards=rng.normal(size=(T, B, 1)).astype(np.float32), dones=dones)
+        if v2:
+            data["is_first"] = np.concatenate([np.ones((1, B, 1), np.float32), dones[:-1]])
+        data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        tau_arg = (torch.full((), tau, device=device),) if v2 else ()
+        calls.append((data, *tau_arg, noise_of(args, T, B, actions, gen, device, continuous)))
+    player = (agent.PlayerDV2 if v2 else agent.PlayerDV1)(
+        models[0].encoder, models[0].rssm, models[1], actions_dim=actions, stochastic_size=args.stochastic_size,
+        discrete_size=getattr(args, "discrete_size", 0), recurrent_state_size=args.recurrent_state_size,
+        is_continuous=continuous)
+    obs = [({"rgb": torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)).to(device).float()
+             / 255.0 - 0.5} if pixels else {"state": torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
+                                            .to(device)}) for _ in range(3)]
+    return args, state, calls, mod.make_train_step, player, obs, (cnn, mlp, actions)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dreamer_v2 pixels", "dreamer_v2 vector continuous", "dreamer_v1 pixels continuous",
+                                  "dreamer_v1 vector"])
+def test_graphed_dreamer_v2_v1_steps_equal_eager_bit_for_bit(cuda_device, case):
+    """DreamerV2's and V1's gradient step and player step registered with
+    the plan against the same three calls made eagerly from the same state
+    (cuDNN's deterministic algorithms, as the pixel convolutions' default
+    backward does not repeat): the metrics, every parameter and Adam
+    moment, the player's states and actions bit for bit; no fallback and no
+    port kernel captured (every guard refuses both paths)."""
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+
+    algo, obs_kind = case.split()[:2]
+    continuous = case.endswith("continuous")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        results = {}
+        for graphed in (False, True):
+            args, state, calls, make_step, player, obs, (cnn, mlp, actions) = _dreamer_case(
+                cuda_device, algo, continuous, obs_kind == "pixels")
+            plan = CompilePlan(device=cuda_device) if graphed else None
+            step = make_step(args, cnn, mlp, actions, continuous, plan=plan).device_step
+            outs = [step(state, *call).clone() for call in calls]
+
+            def noisy(*a):
+                with torch.inference_mode():
+                    return player.noisy_step(*a)
+
+            pstep = plan.register("player_step", noisy) if graphed else noisy
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            with torch.no_grad():
+                pstate = player.init_states(2)
+            for o, expl in zip(obs, (0.3, 0.0, 0.1)):
+                pstate, acts = pstep(pstate, o, player.draw_noise(2, gen, cuda_device),
+                                     torch.full((), expl, device=cuda_device))
+                pstate = type(pstate)(**{k: v.clone() for k, v in vars(pstate).items()})
+                outs += [acts.clone(), *vars(pstate).values()]
+            torch.cuda.synchronize()
+            params = [t.detach().clone() for m in (state.world_model, state.actor, state.critic)
+                      for t in m.state_dict().values()]
+            moments = [t.clone() for opt in (state.world_opt, state.actor_opt, state.critic_opt)
+                       for st in opt.state.values() for t in st.values()]
+            results[graphed] = outs + params + moments
+            if graphed:
+                for name in ("train_step", "player_step"):
+                    entry = plan.stats()["entries"][name]
+                    assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+                    assert not any(entry["launches_per_replay"].values()), entry
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    assert torch.isfinite(results[False][0]).all() and len(results[False]) == len(results[True])
+    assert [i for i, (a, b) in enumerate(zip(results[False], results[True])) if not torch.equal(a, b)] == []

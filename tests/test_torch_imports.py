@@ -52,6 +52,10 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import sheeprl_tpu_torch.envs.device, sheeprl_tpu_torch.envs.device.rollout\n"
         "import sheeprl_tpu_torch.envs.device.host, sheeprl_tpu_torch.parallel.anakin\n"
         "import sheeprl_tpu_torch.algos.ppo.ppo\n"
+        "import sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2, sheeprl_tpu_torch.algos.dreamer_v2.agent\n"
+        "import sheeprl_tpu_torch.algos.dreamer_v2.loss, sheeprl_tpu_torch.algos.dreamer_v2.utils\n"
+        "import sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1, sheeprl_tpu_torch.algos.dreamer_v1.agent\n"
+        "import sheeprl_tpu_torch.algos.dreamer_v1.loss, sheeprl_tpu_torch.compile.specs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sheeprl_tpu', 'gymnasium', 'cv2'))\n"
         "assert not bad, bad\n"
