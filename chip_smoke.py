@@ -233,10 +233,22 @@ the final line:
      each on the card against the CPU (default widths, B 2; the 13
      metrics at rtol 1e-3, parameters within 2 lr + 1e-6); each graphed
      gradient and player step against its eager self bit for bit (cuDNN's
-     deterministic algorithms), timed both ways. Alone: `python3
+     deterministic algorithms), the graphs timed. Alone: `python3
      tools/torch_dreamer_phase.py`.
+ 18. Plan2Explore on DreamerV2 and DreamerV1 at their defaults, its body in
+     `tools/torch_p2e_phase.py` (`P2E_RUNS`): P2E-DV2 on discrete_dummy
+     pixels and P2E-DV1 on continuous_dummy pixels through the CLIs, the
+     switch from exploration to the task in each run's middle (one
+     zero-shot episode), each run counted on the device (no port kernel
+     may launch), both programs' gradient and player steps graph replays
+     after their first calls; each resumed from a checkpoint after the
+     switch with its buffer, keeping the task program, then the task
+     actor's test episodes; one exploring step of each on the card against
+     the CPU (B 2); both programs' gradient steps and one player step an
+     algorithm against their eager selves bit for bit, the graphs timed.
+     Alone: `python3 tools/torch_p2e_phase.py`.
 
-Every path of phases 4, 6-10 and 12-17 runs graphed through the CLIs
+Every path of phases 4, 6-10 and 12-18 runs graphed through the CLIs
 (`compile/plan.py`: serve captures every rung at startup, the trainers
 each step at its first call), and each phase fails on a fallback. A serve
 first probes each rung with one eager step (the ladder's sizing), and a
@@ -2825,7 +2837,8 @@ def time_calls(torch, fn, steps: int) -> dict:
                 port_launches={k: n / steps for k, n in ran.counts.items() if n})
 
 
-def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=None, adopt: bool = False) -> dict:
+def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=None, adopt: bool = False,
+               eager_once: bool = False) -> dict:
     """`build()` -> (step, its calls' arguments, a thunk of the state the
     calls change, by name). The step runs its calls eagerly twice and graphed
     once (a plan entry: the first call eager, then the capture, then
@@ -2834,8 +2847,11 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
     for bit when the two eager runs agree bit for bit, else outputs within
     `out_tol` (atol, rtol) and each state tensor within `state_tol(name,
     calls)` (absolute), the gaps printed beside the eager-vs-eager gap. Then
-    both ways timed over `steps` more calls of the last arguments. Raises on
-    a disagreement. -> the case's report."""
+    both ways timed over `steps` more calls of the last arguments. With
+    `eager_once` (a step whose eager calls repeat bit for bit, as under
+    cuDNN's deterministic algorithms) the eager side runs once and is not
+    timed, and the graphed step must match it bit for bit. Raises on a disagreement.
+    -> the case's report."""
     from sheeprl_tpu_torch.compile.plan import CompilePlan
 
     def run(graphed: bool):
@@ -2857,7 +2873,7 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
 
     t_case = time.perf_counter()
     eager = run(False)
-    repeat_exact, repeat_out, repeat_state = gaps(run(False), eager)
+    repeat_exact, repeat_out, repeat_state = (True, 0.0, {}) if eager_once else gaps(run(False), eager)
     graphed = run(True)
     exact, out_gap, state_gap = gaps(graphed, eager)
     atol, rtol = out_tol
@@ -2867,27 +2883,30 @@ def graph_case(torch, name: str, build, steps: int, out_tol: tuple, state_tol=No
         within = within and all(g <= state_tol(k, eager["calls"]) for k, g in state_gap.items())
     entry = graphed["plan"].stats()["entries"][name]
     ok = (exact if repeat_exact else within) and entry["fallbacks"] == 0 and entry["aot_calls"] == graphed["calls"] - 1
-    times = {"eager": time_calls(torch, lambda: eager["step"](*eager["last"]), steps),
-             "graphed": time_calls(torch, lambda: graphed["step"](*graphed["last"]), steps)}
+    times = {} if eager_once else {"eager": time_calls(torch, lambda: eager["step"](*eager["last"]), steps)}
+    times["graphed"] = time_calls(torch, lambda: graphed["step"](*graphed["last"]), steps)
     entry = graphed["plan"].stats()["entries"][name]
     # what a replay ran on the device, by the profiler, against what its
     # capture recorded and what the eager step launches
-    ok = ok and times["graphed"]["port_launches"] == entry["launches_per_replay"] == times["eager"]["port_launches"]
+    ok = ok and times["graphed"]["port_launches"] == entry["launches_per_replay"] == times.get(
+        "eager", times["graphed"])["port_launches"]
     report = dict(name=name, calls=graphed["calls"], eager_repeat_exact=repeat_exact, eager_repeat_gap=repeat_out,
                   eager_repeat_state_gap=max(repeat_state.values(), default=0.0), graphed_exact=exact,
                   graphed_gap=out_gap, graphed_state_gap=max(state_gap.values(), default=0.0), within_tol=within,
                   capture_seconds=entry["compile_seconds"], pool_bytes=entry["peak_bytes"],
                   launches_per_replay=entry["launches_per_replay"], case_seconds=time.perf_counter() - t_case,
                   **times)
-    e, g = times["eager"], times["graphed"]
-    log(f"[graphs] {name}: eager {e['wall_ms']:.4f} ms host, {e['device_ms']:.4f} ms device in {e['launches']:.0f} "
-        f"launches, busy {e['busy']:.3f} | graphed {g['wall_ms']:.4f} ms host, {g['device_ms']:.4f} ms device "
+    e, g = times.get("eager"), times["graphed"]
+    eager_line = "eager not timed" if e is None else (
+        f"eager {e['wall_ms']:.4f} ms host, {e['device_ms']:.4f} ms device in {e['launches']:.0f} launches, busy "
+        f"{e['busy']:.3f}")
+    log(f"[graphs] {name}: {eager_line} | graphed {g['wall_ms']:.4f} ms host, {g['device_ms']:.4f} ms device "
         f"(span {g['span_ms']:.4f}) in {g['launches']:.0f} launches, busy {g['busy']:.3f} | warm-up and capture "
         f"{entry['compile_seconds']:.3f} s, pool {(entry['peak_bytes'] or 0) / 1e6:.2f} MB, kernel launches a "
-        f"replay {entry['launches_per_replay']} (the device ran {g['port_launches']} a replay) | eager twice bit for "
-        f"bit: {repeat_exact} (gap {repeat_out:.3e}, "
-        f"state {report['eager_repeat_state_gap']:.3e}); graphed vs eager over {graphed['calls']} calls bit for "
-        f"bit: {exact} (gap {out_gap:.3e}, state {report['graphed_state_gap']:.3e}, within tolerance {within}) | "
+        f"replay {entry['launches_per_replay']} (the device ran {g['port_launches']} a replay) | "
+        + ("eager once (deterministic)" if eager_once else f"eager twice bit for bit: {repeat_exact} (gap "
+           f"{repeat_out:.3e}, state {report['eager_repeat_state_gap']:.3e})")
+        + f"; graphed vs eager over {graphed['calls']} calls bit for bit: {exact} (gap {out_gap:.3e}, state {report['graphed_state_gap']:.3e}, within tolerance {within}) | "
         f"the case {report['case_seconds']:.1f} s")
     if not ok:
         raise RuntimeError(f"the graphed {name} disagrees with its eager step or fell back: {report} {entry}")
@@ -5022,10 +5041,11 @@ def dreamer_card_cpu_check(torch, np, algo: str, device) -> dict:
 
 def dreamer_graph_cases(torch, np, device) -> list[dict]:
     """Each Dreamer's graphed gradient step and player step against its
-    eager self at the default widths (`graph_case`), with cuDNN's
-    deterministic algorithms, so that the eager step repeats bit for bit
-    and the replays must match it bit for bit: host wall, device time,
-    launches and busy share both ways."""
+    eager self at the default widths (`graph_case(eager_once=True)`), with
+    cuDNN's deterministic algorithms, so that the replays must match the
+    eager calls bit for bit (the eager step, called twice at these widths,
+    repeats itself bit for bit): the graphed step's host wall, device time,
+    launches and busy share."""
     from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import draw_noise as dv1_noise
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import draw_noise as dv3_noise
 
@@ -5068,9 +5088,9 @@ def dreamer_graph_cases(torch, np, device) -> list[dict]:
                 return run, calls, dict
 
             reports.append(graph_case(torch, f"train_step {algo} pixels", train_build, GRAPH_TIMED["train"],
-                                      (0.0, 0.0), lambda key, calls: 0.0))
+                                      (0.0, 0.0), lambda key, calls: 0.0, eager_once=True))
             reports.append(graph_case(torch, f"player_step {algo} pixels", player_build, GRAPH_TIMED["player"],
-                                      (0.0, 0.0)))
+                                      (0.0, 0.0), eager_once=True))
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -5089,7 +5109,7 @@ def dreamer_phase(torch, np, run, device, smi: str) -> dict:
     refuse every module of both paths, as the reference's do); the pixel
     runs resumed from their step-68 checkpoint with its buffer; (b) one
     gradient step of each on the card against the CPU; (c) each graphed
-    step against its eager self, bit for bit, timed both ways. Raises on
+    step against its eager self, bit for bit, the graphs timed. Raises on
     any failure. -> the phase's report."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRICS
 
@@ -5451,6 +5471,13 @@ def main() -> int:
     # -- phase 17: the Dreamer family (DreamerV2 and DreamerV1) -----------------
     GC.next_phase("17 dreamer family")
     report["dreamer"] = dreamer_phase(torch, np, run, torch.device("cuda"), smi)
+
+    # -- phase 18: Plan2Explore on DreamerV2 and DreamerV1 ----------------------
+    GC.next_phase("18 p2e")
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_p2e_phase
+
+    report["p2e"] = torch_p2e_phase.p2e_phase(sys.modules[__name__], torch, np, run, torch.device("cuda"), smi)
 
     GC.next_phase("end")
     report["gc"] = dict(rows=GC.rows, totals=[[*k, *v] for k, v in GC.totals.items()])

@@ -26,7 +26,7 @@ kernel runs on this path (`agent.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -40,14 +40,15 @@ from ...ops.precision import compute_dtype, to_compute, to_float32
 from ...ops.scan import checkpoint_body
 from ...utils.evaluation import parse_run_args
 from ...utils.registry import register_algorithm
-from ..dreamer_v2.dreamer_v2 import Family, run
+from ..dreamer_v2.dreamer_v2 import Family, _clip, run, wrap_train_step
 from ..dreamer_v3.agent import Actor, WorldModel
 from ..dreamer_v3.dreamer_v3 import METRICS, _grads
 from .agent import PlayerDV1, build_models
 from .args import DreamerV1Args
 from .loss import actor_loss, critic_loss, reconstruction_loss
 
-__all__ = ["DREAMER_V1", "DV1TrainState", "draw_noise", "main", "make_optimizers", "make_train_step"]
+__all__ = ["DREAMER_V1", "DV1TrainState", "behaviour_update", "draw_noise", "imagination_noise", "main",
+           "make_optimizers", "make_train_step", "world_update"]
 
 
 @dataclasses.dataclass
@@ -71,18 +72,138 @@ def make_optimizers(args: DreamerV1Args, world_model, actor, critic):
 def draw_noise(args: DreamerV1Args, seq_len: int, batch: int, actions_dim: Sequence[int],
                generator: torch.Generator, device, is_continuous: bool = False) -> dict:
     """The draws of one gradient step: standard normals `post` [T, B, S] for
-    the posteriors and `img_prior` [H, T*B, S] for the imagined priors;
-    `img_actions`, the imagined actions': one [H, T*B, A] tensor of uniform
-    floats for the tanh-normal actor, or Gumbels [H, T*B, A_i] a discrete
-    head."""
-    s, h, n = args.stochastic_size, args.horizon, seq_len * batch
-    noise = {"post": torch.randn((seq_len, batch, s), generator=generator, device=device),
-             "img_prior": torch.randn((h, n, s), generator=generator, device=device)}
+    the posteriors, then imagination's (`imagination_noise`)."""
+    noise = {"post": torch.randn((seq_len, batch, args.stochastic_size), generator=generator, device=device)}
+    noise.update(imagination_noise(args, seq_len * batch, actions_dim, generator, device, is_continuous))
+    return noise
+
+
+def imagination_noise(args, n: int, actions_dim: Sequence[int], generator: torch.Generator, device,
+                      is_continuous: bool) -> dict:
+    """One imagination's draws from `n` starts: standard normals
+    `img_prior` [H, n, S] for the imagined priors, and `img_actions` for
+    the imagined actions: one [H, n, A] tensor of uniform floats for the
+    tanh-normal actor, or Gumbels [H, n, A_i] a discrete head."""
+    s, h = args.stochastic_size, args.horizon
+    noise = {"img_prior": torch.randn((h, n, s), generator=generator, device=device)}
     if is_continuous:
         noise["img_actions"] = torch.rand((h, n, int(sum(actions_dim))), generator=generator, device=device)
     else:
         noise["img_actions"] = [gumbel_noise((h, n, a), generator, device) for a in actions_dim]
     return noise
+
+
+def world_update(args, world_model: WorldModel, world_opt, data: dict, noise: dict, cnn_keys: Sequence[str],
+                 mlp_keys: Sequence[str], detach_heads: bool = False, weight_decay: float = 0.0):
+    """The world model's update of one gradient step (the Gaussian RSSM
+    over the sequence with `noise["post"]`, Normal(x, 1) likelihoods, the
+    continue Bernoulli, the KL held at `kl_free_nats`, then the Adam behind
+    the clip and `weight_decay`); with `detach_heads` (Plan2Explore) the
+    reward and continue heads fit on detached latents. -> (the losses, the
+    gradient norm, and detached: the recurrent states, posteriors, their
+    and the priors' entropies, the embedded observations)."""
+    dt = compute_dtype(args.precision)
+    remat = remat_mode(getattr(args, "remat", "off"))
+    wm = world_model
+    T, B = data["dones"].shape[:2]
+    obs_targets = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
+    obs_targets.update({k: data[k].float() for k in mlp_keys})
+    embedded = wm.encoder(to_compute(obs_targets, dt))
+    posterior0 = embedded.new_zeros((B, args.stochastic_size), dtype=dt)
+    recurrent0 = embedded.new_zeros((B, args.recurrent_state_size), dtype=dt)
+    recurrent_states, posteriors, post_means, post_stds, prior_means, prior_stds = wm.rssm.scan_dynamic(
+        posterior0, recurrent0, data["actions"].to(dt), embedded, noise["post"], remat=remat
+    )
+    latent_states = torch.cat([posteriors, recurrent_states], dim=-1)
+    heads_in = latent_states.detach() if detach_heads else latent_states
+    decoded = to_float32(wm.observation_model(latent_states))
+    qo = {k: Independent(Normal(v, torch.ones_like(v)), v.dim() - 2) for k, v in decoded.items()}
+    reward_mean = to_float32(wm.reward_model(heads_in))
+    qr = Independent(Normal(reward_mean, torch.ones_like(reward_mean)), 1)
+    qc = continue_targets = None
+    if args.use_continues:
+        qc = Independent(Bernoulli(to_float32(wm.continue_model(heads_in))), 1)
+        continue_targets = (1.0 - data["dones"]) * args.gamma
+    losses = reconstruction_loss(
+        qo, obs_targets, qr, data["rewards"], (post_means, post_stds), (prior_means, prior_stds),
+        args.kl_free_nats, args.kl_regularizer, qc, continue_targets, args.continue_scale_factor,
+    )
+    params = list(wm.parameters())
+    norm = apply_gradients(params, _grads(losses[0], params), world_opt, _clip(args.clip_gradients), weight_decay)
+    with torch.no_grad():
+        post_entropy = Independent(Normal(post_means, post_stds), 1).entropy().mean()
+        prior_entropy = Independent(Normal(prior_means, prior_stds), 1).entropy().mean()
+    return (losses, norm, recurrent_states.detach(), posteriors.detach(), post_entropy, prior_entropy,
+            embedded.detach())
+
+
+def behaviour_update(args, world_model: WorldModel, actor: Actor, critic: MLP, actor_opt, critic_opt,
+                     recurrent_states, posteriors, noise: dict, is_continuous: bool,
+                     reward_fn: Callable | None = None, weight_decay: float = 0.0):
+    """One behaviour's update: imagination over `horizon` steps from every
+    posterior with the (updated) world model and `noise`'s draws
+    (`img_prior`, `img_actions`), the discounted lambda returns of
+    `reward_fn(trajectories, actions)` ([H, T*B, 1] f32 over the post-step
+    latents and the actions that reached them; the reward model's by
+    default), the actor's loss through the imagined trajectory (the world
+    model and critic its constants), then the critic's; each Adam behind
+    the clip and `weight_decay`. -> (policy loss, actor gradient norm,
+    value loss, critic gradient norm, the imagined rewards' mean)."""
+    remat = remat_mode(getattr(args, "remat", "off"))
+    horizon = args.horizon
+    clip = _clip(args.clip_gradients)
+    wm = world_model
+    T, B = recurrent_states.shape[:2]
+    if reward_fn is None:
+        def reward_fn(trajectories, _actions):
+            return to_float32(wm.reward_model(trajectories))
+
+    frozen = (wm, critic)
+    for m in frozen:
+        m.requires_grad_(False)
+    try:
+        prior = posteriors.transpose(0, 1).reshape(T * B, args.stochastic_size)
+        recurrent = recurrent_states.transpose(0, 1).reshape(T * B, args.recurrent_state_size)
+
+        def img_step(prior, recurrent, draws: dict, normal):
+            latent = torch.cat([prior, recurrent], dim=-1)
+            acts, _ = actor(latent.detach(), **draws)
+            action = torch.cat(acts, dim=-1).to(prior.dtype)
+            prior, recurrent = wm.rssm.imagination(prior, recurrent, action, normal)
+            return prior, recurrent, action
+
+        img_step = checkpoint_body(img_step, remat)
+        latents, actions = [], []
+        for h in range(horizon):
+            draws = ({"uniforms": noise["img_actions"][h]} if is_continuous
+                     else {"gumbels": [g[h] for g in noise["img_actions"]]})
+            prior, recurrent, action = img_step(prior, recurrent, draws, noise["img_prior"][h])
+            latents.append(torch.cat([prior, recurrent], dim=-1))
+            actions.append(action)
+        # the post-step latents: no entry for the start
+        trajectories = torch.stack(latents)  # [H, T*B, L]
+        predicted_values = to_float32(critic(trajectories))
+        predicted_rewards = reward_fn(trajectories, torch.stack(actions)).float()
+        if args.use_continues:
+            continues = Independent(Bernoulli(to_float32(wm.continue_model(trajectories))), 1).mean
+        else:
+            continues = torch.ones_like(predicted_rewards.detach()) * args.gamma
+        lambdas = lambda_values(predicted_rewards, predicted_values, continues, predicted_values[-1],
+                                horizon=horizon, lmbda=args.lmbda)  # [H-1, T*B, 1]
+        discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-2]], dim=0), dim=0).detach()
+        policy_loss = actor_loss(discount * lambdas)
+        params = list(actor.parameters())
+        actor_norm = apply_gradients(params, _grads(policy_loss, params), actor_opt, clip, weight_decay)
+    finally:
+        for m in frozen:
+            m.requires_grad_(True)
+
+    value_mean = to_float32(critic(trajectories.detach()))[:-1]
+    qv = Independent(Normal(value_mean, torch.ones_like(value_mean)), 1)
+    value_loss = critic_loss(qv, lambdas.detach(), discount[..., 0])
+    params = list(critic.parameters())
+    critic_norm = apply_gradients(params, _grads(value_loss, params), critic_opt, clip, weight_decay)
+    return policy_loss, actor_norm, value_loss, critic_norm, predicted_rewards.detach().mean()
 
 
 def make_train_step(args: DreamerV1Args, cnn_keys: Sequence[str], mlp_keys: Sequence[str],
@@ -95,112 +216,20 @@ def make_train_step(args: DreamerV1Args, cnn_keys: Sequence[str], mlp_keys: Sequ
     The metrics are the reference's 13. `train_step.device_step(state,
     data, noise)` is the part on the device, registered with `plan` as
     "train_step" when a plan is given; it returns them as one f32 tensor."""
-    dt = compute_dtype(args.precision)
-    remat = remat_mode(getattr(args, "remat", "off"))
-    horizon = args.horizon
-    clip = args.clip_gradients if args.clip_gradients is not None and args.clip_gradients > 0 else None
-
-    def world_step(state: DV1TrainState, data: dict, noise: dict):
-        wm = state.world_model
-        T, B = data["dones"].shape[:2]
-        obs_targets = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
-        obs_targets.update({k: data[k].float() for k in mlp_keys})
-        embedded = wm.encoder(to_compute(obs_targets, dt))
-        posterior0 = embedded.new_zeros((B, args.stochastic_size), dtype=dt)
-        recurrent0 = embedded.new_zeros((B, args.recurrent_state_size), dtype=dt)
-        recurrent_states, posteriors, post_means, post_stds, prior_means, prior_stds = wm.rssm.scan_dynamic(
-            posterior0, recurrent0, data["actions"].to(dt), embedded, noise["post"], remat=remat
-        )
-        latent_states = torch.cat([posteriors, recurrent_states], dim=-1)
-        decoded = to_float32(wm.observation_model(latent_states))
-        qo = {k: Independent(Normal(v, torch.ones_like(v)), v.dim() - 2) for k, v in decoded.items()}
-        reward_mean = to_float32(wm.reward_model(latent_states))
-        qr = Independent(Normal(reward_mean, torch.ones_like(reward_mean)), 1)
-        qc = continue_targets = None
-        if args.use_continues:
-            qc = Independent(Bernoulli(to_float32(wm.continue_model(latent_states))), 1)
-            continue_targets = (1.0 - data["dones"]) * args.gamma
-        losses = reconstruction_loss(
-            qo, obs_targets, qr, data["rewards"], (post_means, post_stds), (prior_means, prior_stds),
-            args.kl_free_nats, args.kl_regularizer, qc, continue_targets, args.continue_scale_factor,
-        )
-        params = list(wm.parameters())
-        norm = apply_gradients(params, _grads(losses[0], params), state.world_opt, clip)
-        with torch.no_grad():
-            post_entropy = Independent(Normal(post_means, post_stds), 1).entropy().mean()
-            prior_entropy = Independent(Normal(prior_means, prior_stds), 1).entropy().mean()
-        return losses, norm, recurrent_states.detach(), posteriors.detach(), post_entropy, prior_entropy
-
-    def actor_step(state: DV1TrainState, recurrent_states, posteriors, noise: dict):
-        wm, actor, critic = state.world_model, state.actor, state.critic
-        T, B = recurrent_states.shape[:2]
-        prior = posteriors.transpose(0, 1).reshape(T * B, args.stochastic_size)
-        recurrent = recurrent_states.transpose(0, 1).reshape(T * B, args.recurrent_state_size)
-
-        def img_step(prior, recurrent, draws: dict, normal):
-            latent = torch.cat([prior, recurrent], dim=-1)
-            acts, _ = actor(latent.detach(), **draws)
-            action = torch.cat(acts, dim=-1).to(prior.dtype)
-            return wm.rssm.imagination(prior, recurrent, action, normal)
-
-        img_step = checkpoint_body(img_step, remat)
-        latents = []
-        for h in range(horizon):
-            draws = ({"uniforms": noise["img_actions"][h]} if is_continuous
-                     else {"gumbels": [g[h] for g in noise["img_actions"]]})
-            prior, recurrent = img_step(prior, recurrent, draws, noise["img_prior"][h])
-            latents.append(torch.cat([prior, recurrent], dim=-1))
-        # the post-step latents: no entry for the start
-        trajectories = torch.stack(latents)  # [H, T*B, L]
-        predicted_values = to_float32(critic(trajectories))
-        predicted_rewards = to_float32(wm.reward_model(trajectories))
-        if args.use_continues:
-            continues = Independent(Bernoulli(to_float32(wm.continue_model(trajectories))), 1).mean
-        else:
-            continues = torch.ones_like(predicted_rewards.detach()) * args.gamma
-        lambdas = lambda_values(predicted_rewards, predicted_values, continues, predicted_values[-1],
-                                horizon=horizon, lmbda=args.lmbda)  # [H-1, T*B, 1]
-        discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-2]], dim=0), dim=0).detach()
-        policy_loss = actor_loss(discount * lambdas)
-        params = list(actor.parameters())
-        norm = apply_gradients(params, _grads(policy_loss, params), state.actor_opt, clip)
-        return policy_loss, norm, trajectories.detach(), lambdas.detach(), discount
-
-    def critic_step(state: DV1TrainState, trajectories, lambdas, discount):
-        value_mean = to_float32(state.critic(trajectories))[:-1]
-        qv = Independent(Normal(value_mean, torch.ones_like(value_mean)), 1)
-        value_loss = critic_loss(qv, lambdas, discount[..., 0])
-        params = list(state.critic.parameters())
-        norm = apply_gradients(params, _grads(value_loss, params), state.critic_opt, clip)
-        return value_loss, norm
 
     def device_step(state: DV1TrainState, data: dict, noise: dict) -> torch.Tensor:
-        losses, wm_norm, recurrent_states, posteriors, post_entropy, prior_entropy = world_step(state, data, noise)
-        # the actor's loss differentiates through imagination: the world
-        # model and the critic are its constants
-        frozen = (state.world_model, state.critic)
-        for m in frozen:
-            m.requires_grad_(False)
-        try:
-            policy_loss, actor_norm, trajectories, lambdas, discount = actor_step(
-                state, recurrent_states, posteriors, noise)
-        finally:
-            for m in frozen:
-                m.requires_grad_(True)
-        value_loss, critic_norm = critic_step(state, trajectories, lambdas, discount)
+        losses, wm_norm, recurrent_states, posteriors, post_entropy, prior_entropy, _ = world_update(
+            args, state.world_model, state.world_opt, data, noise, cnn_keys, mlp_keys)
+        policy_loss, actor_norm, value_loss, critic_norm, _ = behaviour_update(
+            args, state.world_model, state.actor, state.critic, state.actor_opt, state.critic_opt,
+            recurrent_states, posteriors, noise, is_continuous)
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         return torch.stack([
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, policy_loss, value_loss,
             kl, post_entropy, prior_entropy, wm_norm, actor_norm, critic_norm,
         ]).detach().float()
 
-    step = device_step if plan is None else plan.register("train_step", device_step, example=example, role="update")
-
-    def train_step(state: DV1TrainState, data: dict, noise: dict) -> dict[str, float]:
-        return dict(zip(METRICS, step(state, data, noise).cpu().tolist()))
-
-    train_step.device_step = step
-    return train_step
+    return wrap_train_step(device_step, METRICS, plan, "train_step", example, tau=False)
 
 
 DREAMER_V1 = Family("dreamer_v1", build_models, DV1TrainState, make_optimizers, PlayerDV1, make_train_step,

@@ -24,10 +24,12 @@
 //     the two tensors, K split at Dx. Eight warps own m16n8 sub-tiles
 //     (32 x 32 a warp at BM = 64, 16 x 16 at BM = 16) and multiply on the
 //     tensor cores: mma.sync m16n8k16 bf16 with ldmatrix fragments, or
-//     m16n8k8 3xTF32 in f32. Ragged rows, columns and K are zero-filled in
-//     shared memory; a row whose byte length is not a multiple of 16 is
-//     copied 4 bytes at a time, or an element at a time where 4 bytes do not
-//     divide it either. At small B the reduction axis is split so that the
+//     m16n8k8 3xTF32 in f32, where each k8 step's products start from zero
+//     and are added to the running sums with round-to-nearest adds (the
+//     tensor core's own sum truncates). Ragged rows, columns and K are
+//     zero-filled in shared memory; a row whose byte length is not a
+//     multiple of 16 is copied 4 bytes at a time, or an element at a time
+//     where 4 bytes do not divide it either. At small B the reduction axis is split so that the
 //     grid covers every SM and W is streamed by the whole card; partial sums
 //     go to an f32 scratch [splits, B, 3H]. The launch plan (BM, splits,
 //     each split's K, shared memory) is ops/kernels/gru.py:launch_plan.
@@ -195,20 +197,40 @@ gru_proj_kernel(const T* __restrict__ x, const T* __restrict__ h,
           const float v[2] = {p[0], p[4]};
           split_tf32(v, bh[j], bl[j]);
         }
-        // each 3xTF32 term for every sub-tile before the next term, so that
-        // consecutive MMAs write different accumulators
+        // each k8 step's three products go into a zeroed accumulator, added
+        // to the running sums on the CUDA cores: the tensor core truncates
+        // its f32 sum toward zero, so a running sum carried through the
+        // MMAs shrinks with the length of the K chain (at B = 1,024 the
+        // parts' variance came out ~6e-6 low, rstd ~30 ulp high); summed
+        // with round-to-nearest adds, the chain adds no bias of its own
+        // (tools/torch_gru_accumulation.py). Each 3xTF32 term for every
+        // sub-tile before the next term, so that consecutive MMAs write
+        // different accumulators
+        float step[kMT][kNT][4];
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+          for (int j = 0; j < kNT; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) step[i][j][q] = 0.f;
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+          for (int j = 0; j < kNT; ++j) mma_tf32(step[i][j], al[i], bh[j]);
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+          for (int j = 0; j < kNT; ++j) mma_tf32(step[i][j], ah[i], bl[j]);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) mma_tf32(step[i][j], ah[i], bh[j]);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] += step[i][j][q];
       }
     }
   }

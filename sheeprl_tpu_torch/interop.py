@@ -28,6 +28,9 @@ arrays, `None` where a module has no parameter) and hands the tree over:
     either): their Adam states sit behind the clip's and, in V2's chain,
     `add_decayed_weights`' empty states. DreamerV1's `GRUCell` is two
     Linears, transposed as every Linear is;
+  - `p2e_checkpoint_from_jax` does the same for Plan2Explore on either:
+    both behaviours, the ensembles (stacked on both sides, their weights
+    `[n, in, out]` in both, as the SAC critics') and six Adam states;
   - `sac_checkpoint_from_jax` returns the port's SAC or DroQ checkpoint
     (the key contract of `algos/sac/sac.py:checkpoint_state`): the actor,
     the critics and the target critics through `state_dict_from_jax`,
@@ -63,7 +66,8 @@ from .ops.quant import QuantLinear
 __all__ = [
     "adam_state_from_jax", "collector_carry_from_jax", "dreamer_v1_checkpoint_from_jax",
     "dreamer_v2_checkpoint_from_jax", "dreamer_v3_checkpoint_from_jax", "env_state_from_jax",
-    "flatten_params", "load_jax_params", "ppo_agent_from_jax", "ppo_checkpoint_from_jax", "sac_checkpoint_from_jax",
+    "flatten_params", "load_jax_params", "p2e_checkpoint_from_jax", "ppo_agent_from_jax", "ppo_checkpoint_from_jax",
+    "sac_checkpoint_from_jax",
     "state_dict_from_jax", "vec_env_state_from_jax",
 ]
 
@@ -174,15 +178,20 @@ def adam_state_from_jax(module: tnn.Module, optimizer: torch.optim.Optimizer, op
 
 
 def _dreamer_checkpoint_from_jax(tree: Mapping, state) -> dict:
-    """The models, the three Adam states and the counters of a Dreamer
-    checkpoint, laid out for `state` (its modules and optimizers give the
-    paths and the order; a state without a target critic has none)."""
-    out: dict = {key: state_dict_from_jax(getattr(state, key), tree[key])
-                 for key in ("world_model", "actor", "critic", "target_critic") if hasattr(state, key)}
-    for key, module, opt in (("world_optimizer", state.world_model, state.world_opt),
-                             ("actor_optimizer", state.actor, state.actor_opt),
-                             ("critic_optimizer", state.critic, state.critic_opt)):
-        out[key] = adam_state_from_jax(module, opt, tree[key])
+    """The models, the Adam states and the counters of a Dreamer-family
+    checkpoint, laid out for `state` (its fields give the keys, by
+    `algos/dreamer_v2/dreamer_v2.py:checkpoint_fields`; its modules and
+    optimizers the paths and the order)."""
+    from .algos.dreamer_v2.dreamer_v2 import checkpoint_fields
+
+    out: dict = {}
+    for key, name, module in checkpoint_fields(state):
+        if module is None and isinstance(getattr(state, name), tnn.Module):
+            out[key] = state_dict_from_jax(getattr(state, name), tree[key])
+        elif module is None:  # DreamerV3's return normalizer: its caller's
+            continue
+        else:
+            out[key] = adam_state_from_jax(getattr(state, module), getattr(state, name), tree[key])
     for key in ("expl_decay_steps", "global_step", "batch_size"):
         out[key] = int(np.asarray(tree[key]))
     return out
@@ -208,6 +217,16 @@ def dreamer_v1_checkpoint_from_jax(tree: Mapping, state) -> dict:
     """A reference DreamerV1 checkpoint (the restored tree, the V2 contract
     without `target_critic`) -> the port's, laid out for `state` (a
     `DV1TrainState` built with the same config)."""
+    return _dreamer_checkpoint_from_jax(tree, state)
+
+
+def p2e_checkpoint_from_jax(tree: Mapping, state) -> dict:
+    """A reference Plan2Explore checkpoint, on DreamerV1 or V2 (the restored
+    tree, key contract `tests/test_algos/test_p2e.py:30-36`, V2's with both
+    target critics) -> the port's, laid out for `state` (a
+    `P2EDV1TrainState` or `P2EDV2TrainState` built with the same config):
+    both behaviours, the ensembles (their stacked `[n, in, out]` weights
+    as they are, as the SAC critics') and the six Adam states."""
     return _dreamer_checkpoint_from_jax(tree, state)
 
 

@@ -39,6 +39,8 @@ order); symlog/symexp f32 rtol/atol 1e-6, bf16 one bf16 ulp.
 
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -96,6 +98,117 @@ def test_gru_kernel_matches_plain(cuda_device, dtype, shape):
     for g, wv in zip(got_res, gru.layernorm_gru_cell_residuals_plain(*args)):
         tol = TOL[g.dtype]
         torch.testing.assert_close(g.float(), wv.float(), atol=tol, rtol=tol)
+
+
+# (B, H = Dx, draws): the DreamerV3 learning receipt's GRU at width 256 (the
+# player's B = 1, imagination's B = 512) and DreamerV3's default width 512
+# (the player's B = 1, the scan's 16, imagination's 1,024)
+GRU_ORACLE_CASES = [(1, 256, 64), (512, 256, 16), (1, 512, 64), (16, 512, 32), (1024, 512, 16)]
+GRU_GRADS = ("dx", "dh", "dw", "dscale", "doffset")
+
+
+def _gru_float64(x, h, w, scale, offset, eps):
+    """The LayerNorm-GRU step in float64, the oracle: (h', hat, rstd)."""
+    parts = torch.cat([x, h], dim=-1) @ w.t()
+    centered = parts - parts.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((centered * centered).mean(dim=-1, keepdim=True) + eps)
+    hat = centered * rstd
+    r, c, u = (hat * scale + offset).chunk(3, dim=-1)
+    update = torch.sigmoid(u - 1.0)
+    return update * torch.tanh(torch.sigmoid(r) * c) + (1.0 - update) * h, hat, rstd
+
+
+def _gru_grads(fn, args, g):
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    return torch.autograd.grad(fn(*leaves, args[5]), leaves, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRU_ORACLE_CASES, ids=lambda c: "B{}_H{}".format(*c[:2]))
+def test_gru_kernels_against_a_float64_oracle(cuda_device, case):
+    """Kernels 1 and 2 and `_LayerNormGRU.backward` against float64, beside
+    the plain version on the card against the same oracle. Each draw's f32
+    inputs go through the kernel's forward (h'), the residual forward (h',
+    hat, rstd), the kernel path's gradients (the residual forward, then the
+    analytic backward) and autograd through the plain version; the oracle
+    is the same step in float64 from the same f32 values, its gradients by
+    float64 autograd. Over all draws, for each quantity, the largest error,
+    the mean absolute error and the mean signed error (bias) are printed;
+    also the analytic backward on the plain residual forward (what the CPU
+    runs). Asserted: the kernel's largest and mean absolute errors are at
+    most 2x the plain version's, and its bias is not measurably different
+    from the plain version's: the paired difference of the draws' biases
+    within 5 standard errors, or within 1 % of the plain version's mean
+    absolute error, or within one f32 ulp of the quantity's mean magnitude
+    (rounding level: two f32 implementations of rstd's reduction differ
+    systematically by a fraction of an ulp, a CUDA-core FFMA projection's
+    too)."""
+    batch, hidden, draws = case
+    dx, eps = hidden, 1e-5
+    gen = torch.Generator().manual_seed(batch * 7 + hidden)
+    errors: dict[str, dict[str, list]] = {}
+
+    magnitude: dict[str, list] = {}
+
+    def add(quantity, side, got, want):
+        errors.setdefault(quantity, {}).setdefault(side, []).append((got.double() - want).flatten())
+        magnitude.setdefault(quantity, []).append(want.abs().mean())
+
+    def analytic_on_plain(x, h, w, scale, offset, eps_):
+        real = gru.layernorm_gru_cell_residuals
+        gru.layernorm_gru_cell_residuals = gru.layernorm_gru_cell_residuals_plain
+        try:
+            return gru._LayerNormGRU.apply(x, h, w, scale, offset, eps_)
+        finally:
+            gru.layernorm_gru_cell_residuals = real
+
+    for _ in range(draws):
+        x = _rand(gen, batch, dx).to(cuda_device)
+        h = torch.tanh(_rand(gen, batch, hidden)).to(cuda_device)
+        w = _rand(gen, 3 * hidden, dx + hidden, scale=(dx + hidden) ** -0.5).to(cuda_device)
+        scale = (1.0 + _rand(gen, 3 * hidden, scale=0.1)).to(cuda_device)
+        offset = _rand(gen, 3 * hidden, scale=0.1).to(cuda_device)
+        g = _rand(gen, batch, hidden).to(cuda_device)
+        args = (x, h, w, scale, offset, eps)
+        args64 = tuple(a.double() for a in args[:5]) + (eps,)
+        with torch.no_grad():
+            want = _gru_float64(*args64)
+            add("h' (kernel 1)", "kernel", gru.layernorm_gru_cell(*args), want[0])
+            add("h' (kernel 1)", "plain", gru.layernorm_gru_cell_plain(*args), want[0])
+            for name, got, plain, oracle in zip(("h' (kernel 2)", "hat", "rstd"),
+                                                gru.layernorm_gru_cell_residuals(*args),
+                                                gru.layernorm_gru_cell_residuals_plain(*args), want):
+                add(name, "kernel", got, oracle)
+                add(name, "plain", plain, oracle)
+        want_grads = _gru_grads(lambda *a: _gru_float64(*a)[0], args64, g.double())
+        sides = {"kernel": gru.layernorm_gru_cell, "plain": gru.layernorm_gru_cell_plain,
+                 "analytic on plain": analytic_on_plain}
+        for side, fn in sides.items():
+            for name, got, oracle in zip(GRU_GRADS, _gru_grads(fn, args, g), want_grads):
+                add(name, side, got, oracle)
+
+    failures = []
+    for quantity, sides in errors.items():
+        stats = {}
+        for side, errs in sides.items():
+            flat = torch.cat(errs)
+            stats[side] = dict(max=float(flat.abs().max()), mean_abs=float(flat.abs().mean()),
+                               bias=float(flat.mean()), biases=torch.stack([e.mean() for e in errs]))
+        k, p = stats["kernel"], stats["plain"]
+        diff = k["biases"] - p["biases"]
+        stderr = float(diff.std() / len(diff) ** 0.5) if len(diff) > 1 else 0.0
+        gap = abs(float(diff.mean()))
+        ulp = torch.finfo(torch.float32).eps * float(torch.stack(magnitude[quantity]).mean())
+        print(f"[gru-oracle] B={batch} H={hidden} {draws} draws {quantity}: " + " | ".join(
+            f"{side} max {s['max']:.3e} mean_abs {s['mean_abs']:.3e} bias {s['bias']:+.3e}"
+            for side, s in stats.items()) + f" | bias gap {gap:.3e} ({gap / stderr if stderr else 0.0:.2f} s.e., "
+            f"{gap / ulp:.2f} ulp)")
+        if k["max"] > 2 * p["max"] or k["mean_abs"] > 2 * p["mean_abs"]:
+            failures.append(f"{quantity}: the kernel's error is more than 2x the plain version's")
+        if gap > max(5 * stderr, 0.01 * p["mean_abs"], ulp):
+            failures.append(f"{quantity}: the kernel's bias {k['bias']:+.3e} differs from the plain version's "
+                            f"{p['bias']:+.3e} by {gap:.3e} ({gap / stderr:.2f} standard errors)")
+    assert not failures, failures
 
 
 @pytest.mark.cuda
@@ -1502,6 +1615,103 @@ def test_graphed_continuous_train_step_equals_eager_bit_for_bit(cuda_device):
         if graphed:
             entry = plan.stats()["entries"]["train_step"]
             assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+    assert torch.isfinite(results[False][0]).all() and len(results[False]) == len(results[True])
+    assert [i for i, (a, b) in enumerate(zip(results[False], results[True])) if not torch.equal(a, b)] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["exploring", "task"])
+@pytest.mark.parametrize("algo", ["p2e_dv2", "p2e_dv1"])
+def test_graphed_p2e_steps_equal_eager_bit_for_bit(cuda_device, algo, program):
+    """Plan2Explore's gradient step of each program (the exploring one: the
+    ensemble's fit, the intrinsic reward, both behaviours; the task one)
+    and the player step of its behaviour registered with the plan against
+    the same three calls made eagerly from the same state (pixels, cuDNN's
+    deterministic algorithms): the metrics, every parameter (the target
+    critics and the ensemble too) and Adam moment, the player's states and
+    actions bit for bit; no fallback and no port kernel captured."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.compile.plan import CompilePlan
+    from sheeprl_tpu_torch.envs import spaces
+
+    exploring = program == "exploring"
+    continuous = algo == "p2e_dv1"
+    if algo == "p2e_dv2":
+        from sheeprl_tpu_torch.algos.p2e_dv2 import agent, p2e_dv2 as mod
+        from sheeprl_tpu_torch.algos.p2e_dv2.args import P2EDV2Args as Args
+        fam = mod.P2E_DV2
+    else:
+        from sheeprl_tpu_torch.algos.p2e_dv1 import agent, p2e_dv1 as mod
+        from sheeprl_tpu_torch.algos.p2e_dv1.args import P2EDV1Args as Args
+        fam = mod.P2E_DV1
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        results = {}
+        for graphed in (False, True):
+            args = Args(cnn_channels_multiplier=4, dense_units=32, hidden_size=32, recurrent_state_size=32,
+                        stochastic_size=4, mlp_layers=2, num_ensembles=3, per_rank_batch_size=4,
+                        per_rank_sequence_length=8, horizon=4)
+            if algo == "p2e_dv2":
+                args.discrete_size = 4
+            actions = [2] if continuous else [3]
+            models = agent.build_models(torch.Generator().manual_seed(0), actions, continuous, args,
+                                        {"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}, ["rgb"], [])
+            for m in models:
+                m.to(cuda_device)
+            state = fam.state(*models, *fam.make_optimizers(args, *models))
+            T, B = args.per_rank_sequence_length, args.per_rank_batch_size
+            rng, gen = np.random.default_rng(0), torch.Generator(device=cuda_device).manual_seed(1)
+            plan = CompilePlan(device=cuda_device) if graphed else None
+            step = mod.make_train_step(args, ["rgb"], [], actions, continuous, plan=plan,
+                                       exploring=exploring).device_step
+            outs = []
+            for tau in (1.0, 0.0, 0.0):
+                dones = (rng.random((T, B, 1)) < 0.2).astype(np.float32)
+                data = {"rgb": rng.integers(0, 256, (T, B, 64, 64, 3), dtype=np.uint8),
+                        "actions": (rng.uniform(-1, 1, (T, B, 2)).astype(np.float32) if continuous
+                                    else np.eye(3, dtype=np.float32)[rng.integers(0, 3, (T, B))]),
+                        "rewards": rng.normal(size=(T, B, 1)).astype(np.float32), "dones": dones}
+                if fam.target_critic:
+                    data["is_first"] = np.concatenate([np.ones((1, B, 1), np.float32), dones[:-1]])
+                data = {k: torch.from_numpy(v).to(cuda_device) for k, v in data.items()}
+                tau_arg = (torch.full((), tau, device=cuda_device),) if fam.target_critic else ()
+                noise = fam.draw_noise(args, T, B, actions, gen, cuda_device, continuous, exploring=exploring)
+                outs.append(step(state, data, *tau_arg, noise).clone())
+            player = fam.player(state.world_model.encoder, state.world_model.rssm,
+                                getattr(state, fam.explore_actor if exploring else fam.actor), actions_dim=actions,
+                                stochastic_size=args.stochastic_size, discrete_size=getattr(args, "discrete_size", 0),
+                                recurrent_state_size=args.recurrent_state_size, is_continuous=continuous)
+
+            def noisy(*a):
+                with torch.inference_mode():
+                    return player.noisy_step(*a)
+
+            pstep = plan.register("player_step", noisy) if graphed else noisy
+            with torch.no_grad():
+                pstate = player.init_states(2)
+            for expl in (0.3, 0.0, 0.1):
+                obs = {"rgb": torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
+                       .to(cuda_device).float() / 255.0 - 0.5}
+                pstate, acts = pstep(pstate, obs, player.draw_noise(2, gen, cuda_device),
+                                     torch.full((), expl, device=cuda_device))
+                pstate = type(pstate)(**{k: v.clone() for k, v in vars(pstate).items()})
+                outs += [acts.clone(), *vars(pstate).values()]
+            torch.cuda.synchronize()
+            outs += [t.detach().clone() for f in dataclasses.fields(state) if not f.name.endswith("_opt")
+                     for t in getattr(state, f.name).state_dict().values()]
+            outs += [t.clone() for f in dataclasses.fields(state) if f.name.endswith("_opt")
+                     for st in getattr(state, f.name).state.values() for t in st.values()]
+            results[graphed] = outs
+            if graphed:
+                name = f"train_step_{program}"
+                assert set(plan.stats()["entries"]) == {name, "player_step"}
+                for entry in plan.stats()["entries"].values():
+                    assert entry["fallbacks"] == 0 and entry["aot_calls"] == 2 and entry["compiled"], entry
+                    assert not any(entry["launches_per_replay"].values()), entry
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     assert torch.isfinite(results[False][0]).all() and len(results[False]) == len(results[True])
     assert [i for i, (a, b) in enumerate(zip(results[False], results[True])) if not torch.equal(a, b)] == []
 

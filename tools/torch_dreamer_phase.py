@@ -5,7 +5,7 @@ episode buffer and `--prioritize_ends`, on Pendulum-v1; DreamerV1 on
 continuous_dummy pixels), each run counted on the device (no port kernel
 on either path), the pixel runs resumed from their step-68 checkpoints, one
 gradient step of each on the card against the CPU, and each graphed step
-against its eager self, bit for bit, timed both ways. It builds the
+against its eager self, bit for bit, the graphs timed. It builds the
 kernels first. Run from the root of a checkout, on one card:
 
     python3 tools/torch_dreamer_phase.py [--out DIR]

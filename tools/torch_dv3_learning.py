@@ -16,6 +16,7 @@ the host wall of the training and the evaluation.
     python tools/torch_dv3_learning.py --device cuda --seeds 5 6 7 [--out DIR]
     python tools/torch_dv3_learning.py --algo dreamer_v2 --package reference --seeds 5 6 7
     python tools/torch_dv3_learning.py --plain_kernels all --seeds 5 6 7
+    python tools/torch_dv3_learning.py --plain_kernels gru_forward --seeds 25 26
 
 The port runs `sheeprl_tpu_torch <algo>` with the reference's flags
 verbatim, on its own CartPole or Pendulum, then plays the greedy player
@@ -60,7 +61,7 @@ RECIPES = {
 EVAL_SEED, EVAL_EPISODES = 1000, 10
 
 
-PLAIN_KERNELS = ("rssm", "gru", "gru_player", "gru_imagination", "two_hot", "conv")
+PLAIN_KERNELS = ("rssm", "gru", "gru_forward", "gru_player", "gru_imagination", "two_hot", "conv")
 
 
 def use_plain_kernels(names) -> None:
@@ -69,8 +70,13 @@ def use_plain_kernels(names) -> None:
     "rssm" kernel 5, "gru" kernels 1 and 2, "two_hot" kernel 7, "conv"
     kernels 3 and 4; "gru_player" only the GRU calls without autograd (the
     player's steps), "gru_imagination" only those with it (a gradient
-    step's imagination). A run on the card then differs from one with the
-    kernels in those kernels' numerics alone."""
+    step's imagination). "gru" takes autograd through the plain forward in
+    place of `_LayerNormGRU`'s analytic backward; "gru_forward" keeps the
+    analytic backward and runs it on the plain residual forward, with the
+    plain forward where no gradient is wanted (what the CPU runs), so that
+    the forward's numerics and the backward's formula can be told apart.
+    A run on the card then differs from one with the kernels in those
+    kernels' numerics alone."""
     import torch
     import sheeprl_tpu_torch.algos.dreamer_v3.agent as agent_mod
     import sheeprl_tpu_torch.nn.blocks as blocks_mod
@@ -82,6 +88,22 @@ def use_plain_kernels(names) -> None:
         blocks_mod.conv_ln_silu, blocks_mod.deconv_ln_silu = cnn.conv_ln_silu_plain, deconv.deconv_ln_silu_plain
     if "gru" in names:
         recurrent_mod.layernorm_gru_cell = gru.layernorm_gru_cell_plain
+    elif "gru_forward" in names:
+        class PlainForward(gru._LayerNormGRU):
+            """`_LayerNormGRU`'s analytic backward over the plain residual forward."""
+
+            @staticmethod
+            def forward(ctx, x, h, w, scale, offset, eps):
+                out, hat, rstd = gru.layernorm_gru_cell_residuals_plain(x, h, w, scale, offset, eps)
+                ctx.save_for_backward(x, h, w, scale, offset, hat, rstd)
+                return out
+
+        def gru_forward_call(x, h, w, scale, offset, eps=1e-5):
+            if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h, w, scale, offset)):
+                return PlainForward.apply(x, h, w, scale, offset, eps)
+            return gru.layernorm_gru_cell_plain(x, h, w, scale, offset, eps)
+
+        recurrent_mod.layernorm_gru_cell = gru_forward_call
     elif "gru_player" in names or "gru_imagination" in names:
         kernel, plain = gru.layernorm_gru_cell, gru.layernorm_gru_cell_plain
 
